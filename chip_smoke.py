@@ -4,29 +4,40 @@
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit).
-2. Builds the CUDA kernels from mhentropy_tpu_torch/csrc/ (nvcc, sm_90a).
+2. Builds the CUDA kernels from mhentropy_tpu_torch/csrc/ (one nvcc per
+   source, in parallel, sm_90a).
 3. Runs each kernel against its plain PyTorch version on the card at the
-   serving shapes (stem (8, 256, 256, 3); stage 1 (8, 64, 64, 64); sampler
-   B=8, N=200, L=12, H=512) with random weights of realistic magnitude, checks
-   the max-abs error against the stated bf16 tolerance and times both with
-   CUDA events: RUNS windows of at least KERNEL_WINDOW_S seconds each, kernel
-   and plain alternating; the median and the spread are reported. Each is
-   timed as called (ms, plain_ms) and as a CUDA-graph replay (graph_ms,
-   plain_graph_ms), which leaves out the host's launch gaps: the plain
-   versions issue several operations per call.
-4. Serves configs/ho3d.yaml (resnet50 at 256 px, 12x512 RealNVP, N=200,
-   fresh seeded weights, synthetic MANO) through InferenceServer and its HTTP
-   front end: GET /healthz and POST /predict at B=1 u8, B=3 f32, B=8 u8, with
-   every kernel's launch count reset before and read after. Then the B=8 and
-   B=1 request latencies through predict are timed over RUNS windows of at
-   least SLICE_WINDOW_S seconds each. Last, the served flow's weights are
-   drawn at the torch-default O(1) scale and the kernel path and the plain
-   path serve one batch with the same base noise and must agree.
-5. Prints the kernels' JSON line, the card line, and last
+   main path's shapes with random weights of realistic magnitude: stem
+   (8, 256, 256, 3); stage 1 (8, 64, 64, 64); bf16 sampler B=8, N=200,
+   L=12, H=512; LBS blend at 12,800 rows (N=200, B=64); int8 stage 1
+   (8, 64, 64, 64) on sites calibrated from a He-initialised resnet50 with
+   random BN; int8 sampler B=8, N=200, L=12, H=512 on an O(1) flow. Each
+   error is held to its stated tolerance, and each pair is timed with CUDA
+   events: RUNS windows of at least KERNEL_WINDOW_S seconds, kernel and
+   plain alternating, called eagerly (ms, plain_ms) and as CUDA-graph
+   replays (graph_ms, plain_graph_ms). `bound_ms` is computed from the
+   shapes (bytes over 3.35 TB/s, operations over the peak of their type).
+4. Float serving: configs/ho3d.yaml (resnet50 at 256 px, 12x512 RealNVP,
+   N=200, fresh seeded weights, synthetic MANO) through InferenceServer and
+   its HTTP front end (GET /healthz, POST /predict at B=1 u8, B=3 f32, B=8
+   u8), then B=8 and B=1 request latency, then kernel path vs plain path on
+   one batch under an O(1) flow.
+5. int8 serving: InferenceServer(quantize=True, max_batch=8): a B=8 request
+   (int8 bucket) and a B=1 request (float bucket), each with its launches;
+   B=8 int8 latency; int8 vs float on one batch under an O(1) flow.
+6. Eval: the port's run.py path (Experiment.train_baseline with epochs 0)
+   on configs/ho3d.yaml: the synthetic eval split of 128 at 256 px, B=64,
+   N=200, float and with tpu.quantize_encoder; every metric finite; the
+   launches of each run; ms per eval batch and hypotheses/s.
+7. Verts: mhent.sample_hypotheses with its default mods at B=64, N=200
+   launches the LBS blend; its vertices against the plain blend's.
+8. Prints the kernels' JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
-Any failed check raises, so the script exits non-zero. It refuses to run
-without a CUDA device; it never falls back to the CPU or to a plain path.
+Every path is driven with every kernel's launch count set to 0 just before
+it and read just after. Any failed check raises, so the script exits
+non-zero. It refuses to run without a CUDA device; it never falls back to
+the CPU or to a plain path.
 """
 
 from __future__ import annotations
@@ -47,16 +58,34 @@ BATCH = 8
 # Kernel vs plain on the same bf16 inputs and bf16 weights, the plain one in
 # f32: the kernel rounds its activations to bf16 (2^-9 relative) between
 # products, so the max-abs error is held to a share of the output's range.
-TOL = {"stem": 2e-2, "stage1": 3e-2, "sampler": 1e-2}
+TOL = {"stem": 2e-2, "stage1": 3e-2, "sampler": 1e-2,
+       "lbs_blend": 2e-5, "stage1_int8": 1e-2, "realnvp_sampler_int8": 1e-2}
+# LBS blend: f32 on both sides, 16-term sums in another order: a share of
+# the output's range. int8 stage 1: exact integer products and identically
+# rounded epilogues, so the kernel's bf16 output is the plain f32 result
+# rounded to bf16 (2^-9 relative), bar a rare requantise tie. int8 sampler:
+# exp and tanh may differ in the last ulp, which can move a requantised
+# activation by one step.
 # Whole slice, kernel path vs plain path on one batch with the same base
 # noise and the flow at O(1) weights: xyz is bone-normalised (largest value
 # about 3), uv in pixels. On an H100 the two paths differed by 0.0138 (xyz)
 # and 1.72 px (uv); the bounds are about three times that.
 SLICE_TOL = {"xyz": 4e-2, "uv": 5.0}
+# int8 serving vs float serving on one B=8 batch, same base noise, O(1)
+# flow (calibrated on that batch): xyz bone-normalised, uv in pixels. On an
+# H100 the two differed by 0.0624 (xyz) and 7.71 px (uv); the bounds are
+# about three times that.
+INT8_TOL = {"xyz": 0.2, "uv": 25.0}
+# Sampled vertices (normalised by the bone length), kernel blend vs plain.
+VERTS_TOL = 1e-4
 # Timing: RUNS windows per version, each at least this many seconds long.
-RUNS = 5
-KERNEL_WINDOW_S = 1.0
-SLICE_WINDOW_S = 3.0
+RUNS = 3
+KERNEL_WINDOW_S = 0.5
+SLICE_WINDOW_S = 2.0
+EVAL_BATCH = 64
+# The H100 SXM's published peaks (NVIDIA's data sheet, dense rates, 700 W).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -141,6 +170,49 @@ def he_(torch, w, g) -> None:
         w.copy_(torch.randn(w.shape, generator=g) * math.sqrt(2.0 / w[0].numel()))
 
 
+def kernel_modules() -> dict:
+    """Every kernel wrapper module of the port, by kernel name."""
+    from mhentropy_tpu_torch.core import lbs_cuda
+    from mhentropy_tpu_torch.flows import cuda_sampler, cuda_sampler_int8
+    from mhentropy_tpu_torch.models import stage1_cuda, stage1_int8_cuda, stem_cuda
+
+    return {"stem": stem_cuda, "stage1": stage1_cuda, "realnvp_sampler": cuda_sampler,
+            "lbs_blend": lbs_cuda, "stage1_int8": stage1_int8_cuda,
+            "realnvp_sampler_int8": cuda_sampler_int8}
+
+
+def reset_launches() -> None:
+    for mod in kernel_modules().values():
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: mod.launches for name, mod in kernel_modules().items()}
+
+
+def roofline(n_bytes: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak of their type, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": n_bytes, "bound_ops": ops, "bound_ops_type": kind}
+
+
+def stage1_macs(b: int, h: int, w: int) -> int:
+    """Bottleneck products of resnet50 stage 1: block 0 (64 -> 64 -> 64 ->
+    256 plus the 64 -> 256 downsample), blocks 1-2 (256 -> 64 -> 64 -> 256)."""
+    per_pixel = (64 * 64 + 9 * 64 * 64 + 64 * 256 + 64 * 256) + 2 * (256 * 64 + 9 * 64 * 64
+                                                                      + 64 * 256)
+    return b * h * w * per_pixel
+
+
+def sampler_macs(rows: int, d: int, h: int, n_layers: int) -> int:
+    """Six products a coupling layer: two nets of d x h, h x h, h x d."""
+    return rows * n_layers * 2 * (d * h + h * h + h * d)
+
+
 def phase_stem(torch, dev):
     from mhentropy_tpu_torch.models import stem_cuda
 
@@ -157,13 +229,18 @@ def phase_stem(torch, dev):
     ref = stem_cuda.stem_plain(image.float(), w.float(), b)
     check(out.shape == (BATCH, 64, 64, 64), f"stem: shape {tuple(out.shape)}")
     err = (out.float() - ref).abs().max().item()
-    bound = TOL["stem"] * max(1.0, ref.abs().max().item())
-    check(err <= bound, f"stem: max-abs error {err} > {bound}")
+    tol = TOL["stem"] * max(1.0, ref.abs().max().item())
+    check(err <= tol, f"stem: max-abs error {err} > {tol}")
     times = ab_ms(torch, lambda: stem_cuda.stem_forward(image, w, b),
                   lambda: stem_cuda.stem_plain(image, w, b))
+    # Conv products only (no halo recompute); bf16 image in, bf16 out.
+    macs = BATCH * 128 * 128 * 64 * stem_cuda.TAPS
+    n_bytes = image.numel() * 2 + out.numel() * 2 + w.numel() * 2 + b.numel() * 4
     return {"name": "stem", "source": "mhentropy_tpu_torch/csrc/stem.cu",
             "replaces": "mhentropy_tpu/models/stem_pallas.py:120",
-            "max_abs_err": err, "tol": bound, **times}
+            "max_abs_err": err, "tol": tol, **times,
+            # The plain version is cuDNN's conv + PyTorch's ReLU and max-pool.
+            "library": "plain", **roofline(n_bytes, 2 * macs, "bf16")}
 
 
 def phase_stage1(torch, dev):
@@ -185,13 +262,19 @@ def phase_stage1(torch, dev):
     ref = stage1_cuda.stage1_plain(x.float(), folded)
     check(out.shape == (BATCH, 64, 64, 256), f"stage 1: shape {tuple(out.shape)}")
     err = (out.float() - ref).abs().max().item()
-    bound = TOL["stage1"] * max(1.0, ref.abs().max().item())
-    check(err <= bound, f"stage 1: max-abs error {err} > {bound}")
+    tol = TOL["stage1"] * max(1.0, ref.abs().max().item())
+    check(err <= tol, f"stage 1: max-abs error {err} > {tol}")
     times = ab_ms(torch, lambda: stage1_cuda.stage1_forward(x, folded),
                   lambda: stage1_cuda.stage1_plain(x, folded))
+    n_weights = sum(t.numel() * t.element_size() for blk in folded for t in blk
+                    if t is not None)
+    n_bytes = x.numel() * 2 + out.numel() * 2 + n_weights
     return {"name": "stage1", "source": "mhentropy_tpu_torch/csrc/stage1.cu",
             "replaces": "mhentropy_tpu/models/stage1_pallas.py:160",
-            "max_abs_err": err, "tol": bound, **times}
+            "max_abs_err": err, "tol": tol, **times,
+            # The plain version is the stage's cuDNN convolutions.
+            "library": "plain",
+            **roofline(n_bytes, 2 * stage1_macs(BATCH, 64, 64), "bf16")}
 
 
 def phase_sampler(torch, dev):
@@ -220,10 +303,168 @@ def phase_sampler(torch, dev):
         check(err_ld <= bound_ld, f"sampler: logdet max-abs error {err_ld} > {bound_ld}")
         times = ab_ms(torch, lambda: cuda_sampler.transform(packed, z0, cproj),
                       lambda: cuda_sampler.transform_plain(packed_f32, z0, cproj))
+    n_weights = sum(getattr(packed, k).numel() * getattr(packed, k).element_size()
+                    for k in ("w0", "w1", "w2", "b0", "b1", "b2"))
+    n_bytes = 2 * z0.numel() * 4 + BATCH * N_HYPO * 4 + cproj.numel() * 4 + n_weights
+    macs = sampler_macs(BATCH * N_HYPO, 45, 512, cfg.n_layers)
     return {"name": "realnvp_sampler", "source": "mhentropy_tpu_torch/csrc/realnvp_sampler.cu",
             "replaces": "mhentropy_tpu/flows/pallas_sampler.py:191",
             "max_abs_err": max(err_x, err_ld), "max_abs_err_x": err_x,
-            "max_abs_err_logdet": err_ld, "tol": bound_x, **times}
+            "max_abs_err_logdet": err_ld, "tol": bound_x, **times, "library": None,
+            **roofline(n_bytes, 2 * macs, "bf16")}
+
+
+def phase_lbs(torch, dev):
+    """The blend at the eval shape (N=200, B=64 -> 12,800 rows) on the MANO
+    stand-in's skinning weights and a real chain from random poses."""
+    from mhentropy_tpu_torch.core import lbs_cuda, mano
+
+    rows = N_HYPO * EVAL_BATCH
+    model = mano.synthetic_mano_model(0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    theta = torch.randn((rows, 48), generator=g, device=dev) * 0.5
+    beta = torch.randn((rows, 10), generator=g, device=dev) * 0.01
+    with torch.inference_mode():
+        fold = mano.fold_keypoints(model)
+        chain_r, _, skin_t, pose_map = mano._chain_nl(model, fold, theta, beta, mano.ManoConfig())
+        v_posed = (model.v_template.T[:, :, None]
+                   + torch.einsum("vdc,bc->dvb", model.shapedirs, beta)
+                   + torch.einsum("vdp,bp->dvb", model.posedirs, pose_map))
+        args = [t.contiguous() for t in (model.lbs_weights, chain_r, skin_t, v_posed)]
+        out = lbs_cuda.lbs_blend(*args)
+        torch.cuda.synchronize()
+        ref = lbs_cuda.lbs_blend_plain(*args)
+        check(out.shape == (3, 778, rows), f"lbs: shape {tuple(out.shape)}")
+        err = (out - ref).abs().max().item()
+        tol = TOL["lbs_blend"] * ref.abs().max().item()
+        check(err <= tol, f"lbs: max-abs error {err} > {tol}")
+        times = ab_ms(torch, lambda: lbs_cuda.lbs_blend(*args),
+                      lambda: lbs_cuda.lbs_blend_plain(*args))
+    n_bytes = sum(t.numel() * 4 for t in args) + out.numel() * 4
+    flops = 2 * 778 * rows * (12 * 16 + 9)  # 12 coefficients of 16 joints, the 3x3 + t blend
+    return {"name": "lbs_blend", "source": "mhentropy_tpu_torch/csrc/lbs_blend.cu",
+            "replaces": "mhentropy_tpu/core/lbs_pallas.py:56",
+            "max_abs_err": err, "tol": tol, **times, "library": None,
+            **roofline(n_bytes, flops, "f32")}
+
+
+def he_resnet50(torch, dev, seed: int):
+    """A resnet50 backbone with He-initialised convs and random BN, prepared
+    as the served one is (bf16, channels_last, kernel weights folded)."""
+    from mhentropy_tpu_torch.models import resnet
+
+    g = torch.Generator().manual_seed(seed)
+    res = resnet.resnet50()
+    for m in res.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            he_(torch, m.weight, g)
+        elif isinstance(m, torch.nn.BatchNorm2d):
+            rand_bn(torch, m, g)
+    res = res.eval().to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
+    res.fold_kernel_weights()
+    return res
+
+
+def phase_stage1_int8(torch, dev):
+    """Sites calibrated (q_from = 0) on 8 random 256 px images through a
+    He-initialised resnet50; the input is those images' stem output."""
+    from mhentropy_tpu_torch.models import quant, stage1_int8_cuda, stem_cuda
+
+    res = he_resnet50(torch, dev, 5)
+    g = torch.Generator(device=dev).manual_seed(5)
+    images = torch.randn((BATCH, 256, 256, 3), generator=g, device=dev)
+    spec = quant.QuantSpec(backbone="resnet50", q_from=0)
+    with torch.inference_mode():
+        qtree = quant.prepare(spec, res, quant.calibrate(spec, res, images))
+        packed = qtree["stage1"]
+        x = stem_cuda.stem_forward(images.to(torch.bfloat16).contiguous(), *res.folded[0])
+        out = stage1_int8_cuda.stage1_forward_q(x, packed)
+        torch.cuda.synchronize()
+        ref = stage1_int8_cuda.stage1_plain(x, packed)
+        check(out.shape == (BATCH, 64, 64, 256) and out.dtype == torch.bfloat16,
+              f"stage 1 int8: {tuple(out.shape)} {out.dtype}")
+        err = (out.float() - ref).abs().max().item()
+        exact = (out == ref.to(torch.bfloat16)).float().mean().item()
+        tol = TOL["stage1_int8"] * max(1.0, ref.abs().max().item())
+        check(err <= tol, f"stage 1 int8: max-abs error {err} > {tol}")
+        times = ab_ms(torch, lambda: stage1_int8_cuda.stage1_forward_q(x, packed),
+                      lambda: stage1_int8_cuda.stage1_plain(x, packed))
+    n_weights = sum(t.numel() * t.element_size() for blk in packed for t in blk
+                    if t is not None)
+    n_bytes = x.numel() * 2 + out.numel() * 2 + n_weights
+    return {"name": "stage1_int8", "source": "mhentropy_tpu_torch/csrc/stage1_int8.cu",
+            "replaces": "mhentropy_tpu/models/stage1_int8.py:207",
+            "max_abs_err": err, "tol": tol, "bf16_exact_share": exact, **times,
+            "library": None, **roofline(n_bytes, 2 * stage1_macs(BATCH, 64, 64), "int8")}
+
+
+def phase_sampler_int8(torch, dev):
+    """An O(1) flow (torch-default Linear init), calibrated on its own
+    trajectory at temperature 1, at the serving shape."""
+    from mhentropy_tpu_torch.flows import cuda_sampler_int8, realnvp
+
+    torch.manual_seed(6)
+    cfg = realnvp.RealNVPConfig(dim=45, cond_dim=512, h_dim=512, num_steps=6)
+    flow = realnvp.RealNVP(cfg).to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(6)
+    feat = torch.randn((BATCH, 512), generator=g, device=dev)
+    with torch.inference_mode():
+        tree = cuda_sampler_int8.quantize_sampler(
+            flow, feat, torch.randn((32 * BATCH, 45), generator=g, device=dev))
+        cq = cuda_sampler_int8.cond_q(flow, tree, feat)
+        z0 = torch.randn((BATCH, N_HYPO, 45), generator=g, device=dev) * 0.8
+        z0p = torch.nn.functional.pad(z0, (0, tree.masks.shape[-1] - 45))
+        x, ld = cuda_sampler_int8.transform_q(tree, z0, cq)
+        torch.cuda.synchronize()
+        x_ref, ld_ref = cuda_sampler_int8.xla_forward_q(tree, z0p, cq)
+        x_ref = x_ref[..., :45]
+        check(x.shape == (BATCH, N_HYPO, 45) and ld.shape == (BATCH, N_HYPO),
+              f"int8 sampler: shapes {tuple(x.shape)} {tuple(ld.shape)}")
+        err_x = (x - x_ref).abs().max().item()
+        err_ld = (ld - ld_ref).abs().max().item()
+        tol_x = TOL["realnvp_sampler_int8"] * max(1.0, x_ref.abs().max().item())
+        tol_ld = TOL["realnvp_sampler_int8"] * max(1.0, ld_ref.abs().max().item())
+        check(err_x <= tol_x, f"int8 sampler: x max-abs error {err_x} > {tol_x}")
+        check(err_ld <= tol_ld, f"int8 sampler: logdet max-abs error {err_ld} > {tol_ld}")
+        times = ab_ms(torch, lambda: cuda_sampler_int8.transform_q(tree, z0, cq),
+                      lambda: cuda_sampler_int8.xla_forward_q(tree, z0p, cq))
+    k = tree.kernel
+    n_bytes = (2 * z0.numel() * 4 + BATCH * N_HYPO * 4 + cq.numel() * 4
+               + sum(t.numel() * t.element_size() for t in k))
+    macs = sampler_macs(BATCH * N_HYPO, 45, 512, cfg.n_layers)
+    return {"name": "realnvp_sampler_int8",
+            "source": "mhentropy_tpu_torch/csrc/realnvp_sampler_int8.cu",
+            "replaces": "mhentropy_tpu/flows/pallas_sampler_int8.py:381",
+            "max_abs_err": max(err_x, err_ld), "max_abs_err_x": err_x,
+            "max_abs_err_logdet": err_ld, "mean_abs_err_x": (x - x_ref).abs().mean().item(),
+            "tol": tol_x, **times, "library": None, **roofline(n_bytes, 2 * macs, "int8")}
+
+
+def time_requests(server, imgs: np.ndarray) -> dict:
+    """Request latency through predict (host to host, the results copied
+    back), steady state: RUNS windows of at least SLICE_WINDOW_S seconds."""
+    server.predict(imgs)
+    runs, n_requests = [], 0
+    for _ in range(RUNS):
+        count, t1 = 0, time.perf_counter()
+        while time.perf_counter() - t1 < SLICE_WINDOW_S:
+            server.predict(imgs)
+            count += 1
+        runs.append((time.perf_counter() - t1) * 1e3 / count)
+        n_requests += count
+    ms = spread(runs)
+    return {"ms_per_request": ms, "requests": n_requests,
+            "hypotheses_per_s": imgs.shape[0] * N_HYPO / ms["median"] * 1e3}
+
+
+def o1_flow(torch, net, seed: int) -> None:
+    """Redraw the served flow's linears at the torch-default O(1) scale:
+    under the near-identity init x stays close to z0, and a comparison
+    would hardly test the sampler."""
+    torch.manual_seed(seed)
+    for m in net.q_z_giv_i.modules():
+        if isinstance(m, torch.nn.Linear):
+            m.reset_parameters()
 
 
 def http(url: str, body: bytes | None = None, headers: dict | None = None):
@@ -235,11 +476,9 @@ def http(url: str, body: bytes | None = None, headers: dict | None = None):
 
 def phase_slice(torch, dev):
     from mhentropy_tpu_torch import serve
-    from mhentropy_tpu_torch.flows import cuda_sampler
-    from mhentropy_tpu_torch.models import mhent, stage1_cuda, stem_cuda
+    from mhentropy_tpu_torch.models import mhent
     from mhentropy_tpu_torch.utils.config import load_cfg
 
-    kernels = {"stem": stem_cuda, "stage1": stage1_cuda, "realnvp_sampler": cuda_sampler}
     cfg = load_cfg("configs/ho3d.yaml")
     t0 = time.perf_counter()
     server = serve.InferenceServer(cfg, max_batch=BATCH, device=dev, seed=0)
@@ -274,8 +513,7 @@ def phase_slice(torch, dev):
         if errors:
             raise errors[0]
         print(f"slice: warmed up after {time.perf_counter() - t0:.1f} s", flush=True)
-        for mod in kernels.values():
-            mod.launches = 0
+        reset_launches()
         status, health = http(base + "/healthz")
         check(status == 200 and health.get("ok") is True and health["n_hypo"] == N_HYPO,
               f"slice: /healthz {status} {health}")
@@ -295,41 +533,21 @@ def phase_slice(torch, dev):
                   f"slice: /predict B={b} {dt}: non-finite outputs")
             print(f"slice: POST /predict B={b} {dt}: HTTP {status}, server "
                   f"{out['ms']:.3f} ms, round trip {http_ms[-1]:.3f} ms", flush=True)
-        launches = {name: mod.launches for name, mod in kernels.items()}
+        launches = read_launches()
     finally:
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=30)
-    for name, n in launches.items():
-        check(n > 0, f"slice: kernel {name} was not launched on the main path")
+    for name in ("stem", "stage1", "realnvp_sampler"):
+        check(launches[name] > 0, f"slice: kernel {name} was not launched on the main path")
     print(f"slice: launches during the requests: {launches}", flush=True)
 
-    # Request latency through predict (host to host), steady state: RUNS
-    # windows of SLICE_WINDOW_S seconds at each batch size.
-    timing = {}
-    for b in (BATCH, 1):
-        imgs = rng.randint(0, 256, (b, size, size, 3)).astype(np.uint8)
-        server.predict(imgs)
-        runs, n_requests = [], 0
-        for _ in range(RUNS):
-            count, t1 = 0, time.perf_counter()
-            while time.perf_counter() - t1 < SLICE_WINDOW_S:
-                server.predict(imgs)
-                count += 1
-            runs.append((time.perf_counter() - t1) * 1e3 / count)
-            n_requests += count
-        ms = spread(runs)
-        timing[f"b{b}"] = {"ms_per_request": ms, "requests": n_requests,
-                           "hypotheses_per_s": b * N_HYPO / ms["median"] * 1e3}
+    # Request latency through predict (host to host), steady state.
+    timing = {f"b{b}": time_requests(
+        server, rng.randint(0, 256, (b, size, size, 3)).astype(np.uint8)) for b in (BATCH, 1)}
 
-    # Kernel path vs plain path on one batch, same base noise. The served
-    # flow's linears are first drawn at the torch-default O(1) scale: under
-    # the near-identity init x stays close to z0, and the comparison would
-    # hardly test the sampler along this path.
-    torch.manual_seed(7)
-    for m in server.net.q_z_giv_i.modules():
-        if isinstance(m, torch.nn.Linear):
-            m.reset_parameters()
+    # Kernel path vs plain path on one batch, same base noise, O(1) flow.
+    o1_flow(torch, server.net, 7)
     mhent.prepare(server.net, dev)
     images = rng.randint(0, 256, (BATCH, size, size, 3)).astype(np.uint8)
     g = torch.Generator(device=dev).manual_seed(7)
@@ -348,6 +566,174 @@ def phase_slice(torch, dev):
     for k, v in agree.items():
         check(v <= SLICE_TOL[k], f"slice: kernel and plain paths differ in {k} by {v}")
     return launches, agree, http_ms, timing
+
+
+def phase_int8_serving(torch, dev):
+    """InferenceServer(quantize=True, max_batch=8) on configs/ho3d.yaml: a
+    B=8 request (int8 bucket, calibrated on it) and a B=1 request (float
+    bucket), each path with its launches; B=8 int8 latency; int8 vs float
+    on one batch under an O(1) flow, the same base noise."""
+    from mhentropy_tpu_torch import serve
+    from mhentropy_tpu_torch.models import mhent
+    from mhentropy_tpu_torch.utils.config import load_cfg
+
+    t0 = time.perf_counter()
+    server = serve.InferenceServer(load_cfg("configs/ho3d.yaml"), max_batch=BATCH,
+                                   quantize=True, transports=("u8",), device=dev, seed=0)
+    server.warmup()
+    print(f"int8: server built and warmed up in {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.RandomState(1)
+    size = server.image_size
+    launches = {}
+    for b in (BATCH, 1):
+        imgs = rng.randint(0, 256, (b, size, size, 3)).astype(np.uint8)
+        reset_launches()
+        out = server.predict(imgs)
+        torch.cuda.synchronize()
+        launches[f"b{b}"] = read_launches()
+        check(out["xyz"].shape == (b, N_HYPO, 21, 3) and out["uv"].shape == (b, N_HYPO, 21, 2)
+              and np.isfinite(out["xyz"]).all() and np.isfinite(out["uv"]).all(),
+              f"int8: B={b} outputs {out['xyz'].shape} {out['uv'].shape} or non-finite")
+        print(f"int8: B={b} request launches {launches[f'b{b}']}", flush=True)
+    spec = server._quant[0]
+    check(server._quant_ready and spec.q_from == 0 and spec.int8_sampler,
+          f"int8: spec {spec}, calibrated on a real batch: {server._quant_ready}")
+    l8, l1 = launches[f"b{BATCH}"], launches["b1"]
+    for name in ("stem", "stage1_int8", "realnvp_sampler_int8"):
+        check(l8[name] > 0, f"int8: kernel {name} was not launched by the B={BATCH} request")
+    check(l8["stage1"] == 0 and l8["realnvp_sampler"] == 0,
+          f"int8: the B={BATCH} request ran float kernels {l8}")
+    for name in ("stem", "stage1", "realnvp_sampler"):
+        check(l1[name] > 0, f"int8: kernel {name} was not launched by the B=1 (float) request")
+    check(l1["stage1_int8"] == 0 and l1["realnvp_sampler_int8"] == 0,
+          f"int8: the B=1 request ran int8 kernels {l1}")
+    timing = time_requests(server, rng.randint(0, 256, (BATCH, size, size, 3)).astype(np.uint8))
+
+    o1_flow(torch, server.net, 8)
+    mhent.prepare(server.net, dev)
+    server._quant_ready = False  # recalibrate on the next int8 batch
+    images = rng.randint(0, 256, (BATCH, size, size, 3)).astype(np.uint8)
+    g = torch.Generator(device=dev).manual_seed(8)
+    noise = torch.randn((N_HYPO * BATCH, 45), generator=g, device=dev) * server.temp
+    q = server.predict(images, base_noise=noise)
+    server.quantize = False
+    f = server.predict(images, base_noise=noise)
+    server.quantize = True
+    for k in ("xyz", "uv"):
+        check(np.isfinite(q[k]).all() and np.isfinite(f[k]).all(),
+              f"int8: non-finite {k} under the O(1) flow")
+    diff = {k: float(np.abs(q[k] - f[k]).max()) for k in ("xyz", "uv")}
+    mean = {k: float(np.abs(q[k] - f[k]).mean()) for k in ("xyz", "uv")}
+    scale = {k: float(np.abs(f[k]).max()) for k in ("xyz", "uv")}
+    print(f"int8: int8 vs float serving, max-abs difference {diff}, mean {mean} (tolerance "
+          f"{INT8_TOL}; largest float value {scale})", flush=True)
+    for k, v in diff.items():
+        check(v <= INT8_TOL[k], f"int8: int8 and float serving differ in {k} by {v}")
+    return launches, timing, {"max_abs": diff, "mean_abs": mean}
+
+
+def phase_eval(torch, dev):
+    """The run.py path (Experiment.train_baseline, epochs 0) on
+    configs/ho3d.yaml, float and with tpu.quantize_encoder, then the eval
+    step timed on one batch of the eval split."""
+    from mhentropy_tpu_torch.data import synthetic
+    from mhentropy_tpu_torch.train import engine
+    from mhentropy_tpu_torch.utils.config import load_cfg
+
+    results = {}
+    for label, quantize in (("float", False), ("int8", True)):
+        cfg = load_cfg("configs/ho3d.yaml")
+        cfg.training.seed = 0
+        cfg.tpu.quantize_encoder = quantize
+        tr = cfg.training
+        check(tr.epochs == 0 and tr.batch_size == EVAL_BATCH and tr.test_samples == N_HYPO,
+              f"eval: configs/ho3d.yaml has epochs {tr.epochs}, batch {tr.batch_size}, "
+              f"N {tr.test_samples}")
+        exp = engine.Experiment(cfg, device=dev)
+        t0 = time.perf_counter()
+        reset_launches()
+        summary = exp.train_baseline()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        check(all(math.isfinite(v) for v in summary.values()) and len(summary) >= 20,
+              f"eval {label}: non-finite or missing metrics {summary}")
+        want = ("stem", "stage1_int8", "realnvp_sampler_int8") if quantize else (
+            "stem", "stage1", "realnvp_sampler")
+        for name in want:
+            check(launches[name] > 0, f"eval {label}: kernel {name} was not launched")
+        print(f"eval {label}: {wall:.1f} s for the run (dataset, calibration, 2 batches); "
+              f"launches {launches}", flush=True)
+
+        _, data = exp.make_datasets(which=("eval",))
+        image, target = next(synthetic.batches(data, EVAL_BATCH, pad_remainder=True,
+                                               device=dev))
+        step = engine.make_eval_step(exp.model, exp.net, N_HYPO, tr.eval_temp,
+                                     quant_spec=exp.quant_spec, fold=exp.fold)
+        g = torch.Generator(device=dev).manual_seed(9)
+        kld = torch.randn((exp.model_cfg.n_train_hypotheses * EVAL_BATCH, 45), generator=g,
+                          device=dev)
+        hypo = torch.randn((N_HYPO * EVAL_BATCH, 45), generator=g, device=dev) * tr.eval_temp
+        step(image, target, kld, hypo, exp.qtree)
+        torch.cuda.synchronize()
+        runs, n_batches = [], 0
+        for _ in range(RUNS):
+            count, t1 = 0, time.perf_counter()
+            while time.perf_counter() - t1 < SLICE_WINDOW_S:
+                step(image, target, kld, hypo, exp.qtree)
+                count += 1
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t1) * 1e3 / count)
+            n_batches += count
+        ms = spread(runs)
+        results[label] = {"summary": summary, "launches": launches, "run_s": wall,
+                          "ms_per_batch": ms, "batches": n_batches,
+                          "hypotheses_per_s": EVAL_BATCH * N_HYPO / ms["median"] * 1e3}
+    return results
+
+
+def phase_verts(torch, dev):
+    """mhent.sample_hypotheses with its default mods at B=64, N=200: the
+    mesh goes through the LBS blend kernel; the same rows decoded with the
+    plain blend give the same vertices."""
+    from mhentropy_tpu_torch.core import lbs_cuda, mano
+    from mhentropy_tpu_torch.models import mhent
+    from mhentropy_tpu_torch.train import engine
+    from mhentropy_tpu_torch.utils.config import load_cfg
+
+    model_cfg = engine.build_model_config(load_cfg("configs/ho3d.yaml"))
+    net = mhent.prepare(mhent.init(model_cfg, seed=0), dev)
+    o1_flow(torch, net, 10)
+    mhent.prepare(net, dev)
+    model = engine.load_mano_model(device=dev)
+    fold = mano.fold_keypoints(model)
+    g = torch.Generator(device=dev).manual_seed(10)
+    images = torch.randn((EVAL_BATCH, 256, 256, 3), generator=g, device=dev)
+    noise = torch.randn((N_HYPO * EVAL_BATCH, 45), generator=g, device=dev) * 0.8
+    with torch.inference_mode():
+        reset_launches()
+        out = mhent.sample_hypotheses(model, net, images, n=N_HYPO, temp=0.8,
+                                      base_noise=noise, fold=fold)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        check(launches["lbs_blend"] > 0, "verts: the LBS blend kernel was not launched")
+        check(out["verts"].shape == (N_HYPO, EVAL_BATCH, 778 * 3)
+              and bool(torch.isfinite(out["verts"]).all()),
+              f"verts: shape {tuple(out['verts'].shape)} or non-finite")
+        rows = N_HYPO * EVAL_BATCH
+        th_bt, logs_t = out["th_bt"].reshape(rows, -1), out["logs_t"].reshape(rows, -1)
+        kernel_blend = lbs_cuda.lbs_blend
+        lbs_cuda.lbs_blend = lbs_cuda.lbs_blend_plain
+        try:
+            plain = mhent.decode(model, net.cfg, th_bt, logs_t, mods=("verts",),
+                                 inv_norm=True, fold=fold)["verts"].reshape(out["verts"].shape)
+        finally:
+            lbs_cuda.lbs_blend = kernel_blend
+    err = (out["verts"] - plain).abs().max().item()
+    print(f"verts: launches {launches}; kernel vs plain blend max-abs {err:.3g} "
+          f"(tolerance {VERTS_TOL}, largest {plain.abs().max().item():.3g})", flush=True)
+    check(err <= VERTS_TOL, f"verts: kernel and plain blends differ by {err}")
+    return launches, err
 
 
 def main() -> int:
@@ -376,12 +762,13 @@ def main() -> int:
             print(f"build: {line.strip()}", flush=True)
 
     results = []
-    for phase in (phase_stem, phase_stage1, phase_sampler):
+    for phase in (phase_stem, phase_stage1, phase_sampler, phase_lbs, phase_stage1_int8,
+                  phase_sampler_int8):
         r = phase(torch, dev)
         results.append(r)
         print(f"kernel {r['name']}: max-abs error {r['max_abs_err']:.6g} (tol {r['tol']:.6g}); "
-              f"median [min, max] of {RUNS} windows of >= {KERNEL_WINDOW_S} s [{card}]:",
-              flush=True)
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); median [min, max] of {RUNS} "
+              f"windows of >= {KERNEL_WINDOW_S} s [{card}]:", flush=True)
         for key in TIMES:
             t = r[key]
             print(f"  {key}: {t['median']:.4f} [{t['min']:.4f}, {t['max']:.4f}]", flush=True)
@@ -392,16 +779,43 @@ def main() -> int:
         print(f"slice {b}: median {ms['median']:.3f} ms/request [{ms['min']:.3f}, "
               f"{ms['max']:.3f}] over {t['requests']} requests in {RUNS} windows, "
               f"{t['hypotheses_per_s']:.1f} hypotheses/s [{card}]", flush=True)
+    int8_launches, int8_timing, int8_diff = phase_int8_serving(torch, dev)
+    ms = int8_timing["ms_per_request"]
+    print(f"int8 b{BATCH}: median {ms['median']:.3f} ms/request [{ms['min']:.3f}, "
+          f"{ms['max']:.3f}] over {int8_timing['requests']} requests, "
+          f"{int8_timing['hypotheses_per_s']:.1f} hypotheses/s [{card}]", flush=True)
+    evals = phase_eval(torch, dev)
+    for label, e in evals.items():
+        ms = e["ms_per_batch"]
+        summ = e["summary"]
+        print(f"eval {label}: eucLoss_3d_rgb_sample {summ['eucLoss_3d_rgb_sample']:.6g}, "
+              f"eucLoss_2d_rgb_sample {summ['eucLoss_2d_rgb_sample']:.6g}, loss_total "
+              f"{summ['loss_total']:.6g}; median {ms['median']:.3f} ms/batch of {EVAL_BATCH} "
+              f"[{ms['min']:.3f}, {ms['max']:.3f}] over {e['batches']} batches, "
+              f"{e['hypotheses_per_s']:.1f} hypotheses/s [{card}]", flush=True)
+    verts_launches, verts_err = phase_verts(torch, dev)
 
+    path_launches = {"stem": launches, "stage1": launches, "realnvp_sampler": launches,
+                     "lbs_blend": verts_launches, "stage1_int8": int8_launches[f"b{BATCH}"],
+                     "realnvp_sampler_int8": int8_launches[f"b{BATCH}"]}
     kernels = [{"name": r["name"], "route": "cuda", "source": r["source"],
-                "replaces": r["replaces"], "launches": launches[r["name"]],
+                "replaces": r["replaces"], "launches": path_launches[r["name"]][r["name"]],
                 "max_abs_err": r["max_abs_err"],
                 **{key: r[key]["median"] for key in TIMES},
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["plain_ms"]["median"] if r["library"] == "plain" else None,
+                **{k: r[k] for k in ("tol", "max_abs_err_x", "max_abs_err_logdet",
+                                     "mean_abs_err_x", "bf16_exact_share") if k in r},
                 **{f"{key}_min_max": [r[key]["min"], r[key]["max"]] for key in TIMES}}
                for r in results]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"slice": {"timing": timing, "http_round_trip_ms": http_ms,
-                                "kernel_vs_plain_max_abs": agree}}), flush=True)
+                                "kernel_vs_plain_max_abs": agree},
+                      "int8_serving": {"launches": int8_launches, "timing": int8_timing,
+                                       "int8_vs_float": int8_diff},
+                      "eval": evals, "verts": {"launches": verts_launches,
+                                               "kernel_vs_plain_max_abs": verts_err}}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -7,6 +7,11 @@ and batch stats, given as numpy arrays, into the reference's `encoderRGB`
 state_dict names, which are also the port's module names. The result loads
 into `models.mhent.MHEnt` with `strict=True`; so does a reference
 `ent_ho3d.pth`'s `encoderRGB` entry.
+
+`qtree_from_jax` and `flowq_from_jax` turn the JAX package's quantised
+trees (models/quant.py's qtree, flows/pallas_sampler_int8.py's FlowQTree),
+given as numpy arrays, into the port's, so that both packages compute with
+the same int8 weights and scales.
 """
 
 from __future__ import annotations
@@ -92,3 +97,57 @@ def from_jax(params: dict, batch_stats: dict) -> dict:
     _linear(sd, "det_head.0", params["det_head"]["l0"])
     _linear(sd, "det_head.2", params["det_head"]["l1"])
     return sd
+
+
+def _tensor(a, dtype=None, device="cpu") -> torch.Tensor:
+    t = torch.from_numpy(np.array(a))
+    return (t if dtype is None else t.to(dtype)).contiguous().to(device)
+
+
+def qtree_from_jax(spec, qtree: dict, device="cpu") -> dict:
+    """JAX quant.prepare qtree (+ optional "flow") -> the port's qtree for
+    `spec` (a port QuantSpec): int8 HWIO site weights and f32 scales as
+    they are, and a fresh ResNet module holding the float stem and stages."""
+    from mhentropy_tpu_torch.models import quant, resnet
+
+    sites = {key: {"w8": _tensor(s["w8"], torch.int8, device),
+                   "inv_sa": _tensor(s["inv_sa"], torch.float32, device),
+                   "scale": _tensor(s["scale"], torch.float32, device),
+                   "bias": _tensor(s["bias"], torch.float32, device)}
+             for key, s in qtree["sites"].items()}
+    sd: dict = {}
+    _resnet(sd, "", qtree["float"]["params"], qtree["float"]["batch_stats"])
+    res = resnet.make_backbone(spec.backbone)
+    unexpected = res.load_state_dict(sd, strict=False).unexpected_keys
+    if unexpected:
+        raise ValueError(f"unexpected float backbone keys {sorted(unexpected)[:4]}")
+    res = res.to(device=device, dtype=getattr(torch, spec.dtype)).eval()
+    out = quant.finish({"float": res, "sites": sites}, spec)
+    if qtree.get("flow") is not None:
+        out["flow"] = flowq_from_jax(qtree["flow"], device=device)
+    return out
+
+
+def flowq_from_jax(ftree, dim: int = 45, device="cpu"):
+    """JAX FlowQTree (D padded to 128 lanes) -> the port's (D padded to a
+    multiple of 32). The dropped padding holds no weights: zero rows of w0,
+    zero columns of w2 and b2."""
+    from mhentropy_tpu_torch.flows import cuda_sampler_int8 as q8
+
+    f = ftree._asdict() if hasattr(ftree, "_asdict") else dict(ftree)
+    dp = -(-dim // q8.D_ALIGN) * q8.D_ALIGN
+    fields = {}
+    for name in q8.FlowQTree._fields:
+        if name == "kernel":
+            continue
+        a = np.asarray(f[name])
+        if name.endswith("_w0"):
+            extra, a = a[:, dp:], a[:, :dp]
+        elif name in ("cond_scale", "cond_bias"):
+            extra = np.zeros(0)
+        else:
+            extra, a = a[..., dp:], a[..., :dp]
+        if name.endswith(("_w0", "_w2", "_b2")) and np.any(extra != 0):
+            raise ValueError(f"{name}: weights on the lane padding beyond D={dim}")
+        fields[name] = _tensor(a, torch.int8 if "_w" in name else torch.float32, device)
+    return q8.with_kernel_layout(q8.FlowQTree(**fields))

@@ -1,7 +1,8 @@
 """Camera / coordinate transforms on torch tensors.
 
-Port of mhentropy_tpu/core/camera.py: `batch_normalize_pose3d` :22 and
-`orth_project` :52, the two the serving decode uses.
+Port of mhentropy_tpu/core/camera.py: `batch_normalize_pose3d` :22,
+`orth_project` :52, `procrustes_align` :73 and `compute_st` :105 (the eval
+step fits the orthographic camera when a batch lacks `st`).
 """
 
 from __future__ import annotations
@@ -46,3 +47,40 @@ def orth_project(xyz: torch.Tensor, scale: torch.Tensor, trans: torch.Tensor,
     if inv_norm:
         uv = (uv + 1.0) / 2.0 * image_size
     return uv
+
+
+def procrustes_align(mtx1: torch.Tensor, mtx2: torch.Tensor, return_trafo: bool = False):
+    """Similarity-transform alignment of mtx2 onto mtx1 per batch element
+    ((..., K, D) point sets), the criterion of
+    scipy.linalg.orthogonal_procrustes on the centred, Frobenius-normalised
+    sets, solved with one batched SVD.
+
+    Returns aligned mtx2; with return_trafo also (R, s, s1, s2, t1, t2).
+    """
+    t1 = mtx1.mean(-2, keepdim=True)
+    t2 = mtx2.mean(-2, keepdim=True)
+    a = mtx1 - t1
+    b = mtx2 - t2
+    s1 = torch.linalg.norm(a, dim=(-2, -1), keepdim=True) + 1e-8
+    s2 = torch.linalg.norm(b, dim=(-2, -1), keepdim=True) + 1e-8
+    a = a / s1
+    b = b / s2
+    u, sv, vt = torch.linalg.svd(torch.einsum("...ki,...kj->...ij", a, b))
+    r = u @ vt
+    s = sv.sum(-1)[..., None, None]
+    aligned = torch.einsum("...ki,...ji->...kj", b, r) * s * s1 + t1
+    if return_trafo:
+        return aligned, r, s, s1, s2, t1, t2
+    return aligned
+
+
+def compute_st(pose3d: torch.Tensor, crop_uv: torch.Tensor) -> torch.Tensor:
+    """The orthographic camera (s, tx, ty) with uv = s * xyz[:, :2] + t:
+    the Procrustes fit restricted to scale and translation.
+
+    pose3d (B, K, 3) normalised-relative, crop_uv (B, K, 2) -> st (B, 3).
+    """
+    _, _, s, s1, s2, t1, t2 = procrustes_align(crop_uv, pose3d[..., :2], return_trafo=True)
+    scale = (s * s1 / s2)[..., 0, 0]
+    t = -t2[..., 0, :] / s2[..., 0, :] * s[..., 0, :] * s1[..., 0, :] + t1[..., 0, :]
+    return torch.cat([scale[..., None], t], dim=-1)

@@ -1,0 +1,57 @@
+"""LBS blend: the CUDA kernel and its plain version.
+
+Replaces mhentropy_tpu/core/lbs_pallas.py::lbs_blend (:56; Pallas `_kernel`
+:33). The kernel is `csrc/lbs_blend.cu`; its header says what bounds it on
+the H100 and how its design answers that. `lbs_blend` takes batch-last
+planes, as the JAX function does: W (V, J), R (3, 3, J, rows),
+t (3, J, rows), v_posed (3, V, rows) -> verts (3, V, rows), all f32. CPU
+tensors take `lbs_blend_plain`; CUDA tensors launch the kernel, and
+anything it does not take raises. No row-count gate: the TPU's 8M-element
+gate was measured on the TPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mhentropy_tpu_torch import ext
+
+# Kernel launches since the count was last reset; nothing else touches it.
+launches = 0
+
+
+def lbs_blend(lbs_weights: torch.Tensor, chain_r_nl: torch.Tensor, skin_t_nl: torch.Tensor,
+              v_posed_nl: torch.Tensor) -> torch.Tensor:
+    if v_posed_nl.device.type == "cpu":
+        return lbs_blend_plain(lbs_weights, chain_r_nl, skin_t_nl, v_posed_nl)
+    return _lbs_kernel(lbs_weights, chain_r_nl, skin_t_nl, v_posed_nl)
+
+
+def lbs_blend_plain(lbs_weights, chain_r_nl, skin_t_nl, v_posed_nl) -> torch.Tensor:
+    """The einsum path: nine per-vertex rotation planes and three
+    translation planes, then the blend."""
+    per_vert_r_nl = torch.einsum("vj,rcjb->rcvb", lbs_weights, chain_r_nl)
+    per_vert_t_nl = torch.einsum("vj,rjb->rvb", lbs_weights, skin_t_nl)
+    return torch.einsum("rcvb,cvb->rvb", per_vert_r_nl, v_posed_nl) + per_vert_t_nl
+
+
+def _lbs_kernel(w, rot, trans, vposed) -> torch.Tensor:
+    global launches
+    ext.require(vposed.is_cuda, f"lbs blend: unsupported device {vposed.device}")
+    v, j = w.shape
+    rows = vposed.shape[-1]
+    ext.require(rot.shape == (3, 3, j, rows) and trans.shape == (3, j, rows)
+                and vposed.shape == (3, v, rows),
+                f"lbs blend: shapes W {tuple(w.shape)}, R {tuple(rot.shape)}, "
+                f"t {tuple(trans.shape)}, v_posed {tuple(vposed.shape)} do not fit")
+    for name, t in (("W", w), ("R", rot), ("t", trans), ("v_posed", vposed)):
+        ext.require(t.dtype == torch.float32 and t.device == vposed.device,
+                    f"lbs blend: {name} must be float32 on {vposed.device}")
+    w, rot, trans, vposed = (t.contiguous() for t in (w, rot, trans, vposed))
+    out = torch.empty_like(vposed)
+    lib = ext.load()
+    err = lib.mhent_lbs_blend(w.data_ptr(), rot.data_ptr(), trans.data_ptr(), vposed.data_ptr(),
+                              out.data_ptr(), v, j, rows, ext.stream_of(vposed))
+    ext.check(err, "mhent_lbs_blend")
+    launches += 1
+    return out

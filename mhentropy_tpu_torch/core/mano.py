@@ -2,8 +2,9 @@
 
 Port of mhentropy_tpu/core/mano.py: `ManoModel` :88, `load_mano_pkl` :151
 (with the chumpy stub :112), `find_mano_assets` :173, `synthetic_mano_model`
-:184, `_chain_nl` :227, `_lbs_blend_nl` :313, `_folded_kp26_nl` :404 and
-`mano_decode` :449.
+:184, `_chain_nl` :227, `_lbs_blend_nl` :313, `mano_forward` :366,
+`_folded_kp26_nl` :404 and `mano_decode` :449. The blend runs the port's
+`lbs_blend` kernel on CUDA tensors (core/lbs_cuda.py).
 
 Tensors keep the reference's batch-last layout ((3, 16, B) joints, (3, 778, B)
 mesh planes), so each step reads like its JAX counterpart. Keypoints come from
@@ -25,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mhentropy_tpu_torch.core import skeletons
+from mhentropy_tpu_torch.core import lbs_cuda, skeletons
 from mhentropy_tpu_torch.core.rotations import batch_rodrigues
 
 N_VERTS = 778
@@ -297,11 +298,36 @@ def _folded_kp26_nl(fold: KeypointFold, chain_r_nl, skin_t_nl, beta, pose_map):
 
 
 def _lbs_blend_nl(model: ManoModel, chain_r_nl, skin_t_nl, v_posed_nl):
-    """Per-vertex LBS blend, batch-last (3, 778, B): plain einsums (the
-    Pallas `lbs_blend` kernel has no Hopper counterpart yet)."""
-    per_vert_r_nl = torch.einsum("vj,rcjb->rcvb", model.lbs_weights, chain_r_nl)
-    per_vert_t_nl = torch.einsum("vj,rjb->rvb", model.lbs_weights, skin_t_nl)
-    return torch.einsum("rcvb,cvb->rvb", per_vert_r_nl, v_posed_nl) + per_vert_t_nl
+    """Per-vertex LBS blend, batch-last (3, 778, B): the `lbs_blend` kernel
+    on CUDA tensors, the einsums on CPU ones (core/lbs_cuda.py)."""
+    return lbs_cuda.lbs_blend(model.lbs_weights, chain_r_nl, skin_t_nl, v_posed_nl)
+
+
+def _mesh_nl(model: ManoModel, chain_r_nl, skin_t_nl, beta, pose_map):
+    """Skinned mesh (3, 778, B) in metres, uncentred."""
+    v_shaped_nl = model.v_template.T[:, :, None] + torch.einsum(
+        "vdc,bc->dvb", model.shapedirs, beta)
+    v_posed_nl = v_shaped_nl + torch.einsum("vdp,bp->dvb", model.posedirs, pose_map)
+    return _lbs_blend_nl(model, chain_r_nl, skin_t_nl, v_posed_nl)
+
+
+def mano_forward(model: ManoModel, theta: torch.Tensor, beta: torch.Tensor,
+                 config: ManoConfig = ManoConfig(), fold: KeypointFold | None = None):
+    """(B, 3 + ncomps) pose, (B, 10) shape -> (verts (B, 778, 3), joints21
+    (B, 21, 3)) in mm: the kinematic-chain joints and the five fingertip
+    vertices in the FreiHAND order, centred on config.center_idx."""
+    if fold is None:
+        fold = fold_keypoints(model)
+    chain_r_nl, chain_t_nl, skin_t_nl, pose_map = _chain_nl(model, fold, theta, beta, config)
+    verts_nl = _mesh_nl(model, chain_r_nl, skin_t_nl, beta, pose_map)
+    chain_joints = chain_t_nl.permute(2, 1, 0)  # (B, 16, 3)
+    tips = verts_nl[:, model.tips].permute(2, 1, 0)  # (B, 5, 3)
+    joints21 = torch.cat([chain_joints, tips], dim=1)[:, skeletons.MANOCHAIN2VIZ]
+    if config.center_idx is not None:
+        center = joints21[:, config.center_idx:config.center_idx + 1]
+        joints21 = joints21 - center
+        verts_nl = verts_nl - center.permute(2, 1, 0)
+    return (verts_nl * 1000.0).permute(2, 1, 0), joints21 * 1000.0
 
 
 def mano_decode(model: ManoModel, theta: torch.Tensor, beta: torch.Tensor,
@@ -335,10 +361,7 @@ def mano_decode(model: ManoModel, theta: torch.Tensor, beta: torch.Tensor,
 
     out = {"beta": beta, "theta": theta}
     if with_mesh:
-        v_shaped_nl = model.v_template.T[:, :, None] + torch.einsum(
-            "vdc,bc->dvb", model.shapedirs, beta)
-        v_posed_nl = v_shaped_nl + torch.einsum("vdp,bp->dvb", model.posedirs, pose_map)
-        verts_nl = _lbs_blend_nl(model, chain_r_nl, skin_t_nl, v_posed_nl)
+        verts_nl = _mesh_nl(model, chain_r_nl, skin_t_nl, beta, pose_map)
         out["mesh"] = ((verts_nl - center_nl[:, None]) * 1000.0).permute(2, 1, 0)
 
     if skeidx == "RHD":

@@ -2,9 +2,11 @@
 
 The kernels under `csrc/` are compiled by `nvcc` into one shared library
 with a plain C interface and bound with `ctypes` (no PyTorch headers, so a
-build takes seconds, not minutes). The build runs at first use and is keyed
-by a hash of the sources and flags: `_build/libmhent_<hash>.so` is reused
-until a source changes. Nothing here runs at import time.
+build takes seconds, not minutes). Each source compiles in its own `nvcc`
+process, all started together, and one more links them. The build runs at
+first use and is keyed by a hash of the sources and flags:
+`_build/libmhent_<hash>.so` is reused until a source changes. Nothing here
+runs at import time.
 
 Every C entry point launches on the stream it is given, allocates nothing,
 and returns `cudaGetLastError()`; `check` raises on anything but 0.
@@ -27,7 +29,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: (argtypes); every function returns the cudaError_t as int.
@@ -35,6 +37,9 @@ _SIGNATURES = {
     "mhent_stem_forward": [_P, _P, _P, _P, _I, _I, _I, _P],
     "mhent_stage1_block": [_P] * 9 + [_I, _I, _I, _I, _P],
     "mhent_realnvp_sample": [_P] * 11 + [_I] * 6 + [_P],
+    "mhent_lbs_blend": [_P] * 5 + [_I] * 3 + [_P],
+    "mhent_stage1_int8_block": [_P] * 15 + [_I] * 4 + [_P],
+    "mhent_realnvp_sample_q": [_P] * 13 + [_I] * 6 + [_P],
 }
 
 
@@ -75,7 +80,7 @@ def sources() -> list[Path]:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # sources and the headers they include
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -96,15 +101,35 @@ def _build_and_load() -> KernelLibrary:
     log = ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-        os.replace(tmp, out)
+        tag = f"{out.stem}.{os.getpid()}"
+        nvcc = _nvcc()
+        objs, procs = [], []
+        for src in sources():
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for cmd, proc in procs:
+            text = proc.communicate()[0]
+            log += text
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
+        if not failed:
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                failed.append(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                              f"{proc.stdout}{proc.stderr}")
+            else:
+                os.replace(tmp, out)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError("\n".join(failed))
     return KernelLibrary(out, time.perf_counter() - t0, log)
 
 

@@ -1,11 +1,14 @@
 """MHEnt, the probabilistic hand model: the multi-hypothesis inference path.
 
-Port of mhentropy_tpu/models/mhent.py: `MHEntConfig` :48, `init` :118,
-`det_head_apply` :149, `extract_feat` :155, `combine_z` :166, the realnvp
-branch of `sample_q_z` :181, `decode` :339 and `sample_hypotheses` :496
-(with the top-N_quant filter :540). Training (`reverse_kld`,
-`forward_log_p`, the priors) and the Glow / det regressors are not ported
-yet (ROADMAP queue 1, items 4 and 9).
+Port of mhentropy_tpu/models/mhent.py: `MHEntConfig` :48, `make_priors`
+:102, `init` :118, `det_head_apply` :149, `extract_feat` :155, `combine_z`
+:166, the realnvp branches of `sample_q_z` :181 (the int8 `flow_q` draw
+and the plain `differentiable` one included), `decode` :339,
+`forward_log_p` :384, `reverse_kld` :446 for `train=False` (the eval
+step's log p, with the entropy term and the chamfer branch) and
+`sample_hypotheses` :496 (with `quant=` and the top-N_quant filter :540).
+Training and the Glow / det regressors are not ported yet (ROADMAP queue 1,
+items 4 and 9).
 
 The module's parameter names are the reference's `encoderRGB` state_dict:
 `feat_extractor.res.*`, `feat_extractor.l1.0.*`, `q_z_giv_i.*`,
@@ -23,9 +26,11 @@ from torch import nn
 
 from mhentropy_tpu_torch.core import camera, mano, skeletons
 from mhentropy_tpu_torch.core.mano import ManoConfig, ManoModel
-from mhentropy_tpu_torch.flows import cuda_sampler, realnvp
+from mhentropy_tpu_torch.flows import cuda_sampler, cuda_sampler_int8, priors, realnvp
 from mhentropy_tpu_torch.flows.realnvp import RealNVPConfig
+from mhentropy_tpu_torch.models import quant as quant_mod
 from mhentropy_tpu_torch.models.encoder import Encoder, EncoderConfig
+from mhentropy_tpu_torch.train import metrics as metrics_lib
 
 # z layout (network.py:367-373 of the reference).
 ZDIMS = (("th3", 3), ("th45", 45), ("bt", 10), ("logs", 1), ("t", 2))
@@ -41,6 +46,16 @@ class MHEntConfig(NamedTuple):
     ds: str = "ho3d"
     image_size: int = 256
     feat_dim: int = 512  # conditioning feature dim (the mu head)
+    b_2d: float = 0.03  # Laplace scale for p(uv | z)
+    b_3d: float = 0.03  # Laplace scale for p(xyz | z)
+    th45_ref_alpha: float = 50.0
+    th3_ref_alpha: float = 5.0
+    bt_alpha: float = 50.0
+    temperature: float = 1.0  # T in log_p / T
+    entropy: bool = True
+    n_train_hypotheses: int = 10
+    use_chamfer_loss: bool = False
+    w_chamfer: float = 10.0
 
     def det_dims(self) -> int:
         return 3 + 10 + 1 + 2 + (45 if self.regressor == "det" else 0)
@@ -62,8 +77,10 @@ class MHEnt(nn.Module):
         self.packed_flow = None  # the flow's weights for the fused sampler (prepare)
 
     def set_kernels(self, enabled: bool) -> None:
-        """Route the CUDA eval path through the three kernels (the default)
-        or through their plain PyTorch versions, e.g. to compare the two."""
+        """Route the float CUDA path through its kernels (stem, stage 1,
+        bf16 sampler; the default) or through their plain PyTorch versions,
+        e.g. to compare the two. The LBS blend and the int8 path route by
+        device alone."""
         self.feat_extractor.res.kernels = enabled
         self.kernels = enabled
 
@@ -99,6 +116,21 @@ def prepare(net: MHEnt, device) -> MHEnt:
     return net
 
 
+def make_priors(cfg: MHEntConfig, device=None) -> dict:
+    """The z-priors: smooth uniforms on theta45 (PCA +-2), theta3 (ball pi)
+    and beta (+-0.03)."""
+    out = {}
+    if cfg.mano.use_pca:
+        out["th45_ref"] = priors.ApproxUniform(-2.0, 2.0, alpha=cfg.th45_ref_alpha)
+    else:
+        out["th45_ref"] = priors.ApproxUniform(torch.zeros(45, device=device), math.pi,
+                                               alpha=cfg.th45_ref_alpha, sup="ball")
+    out["th3_ref"] = priors.ApproxUniform(torch.zeros(3, device=device), math.pi,
+                                          alpha=cfg.th3_ref_alpha, sup="ball")
+    out["bt"] = priors.ApproxUniform(-0.03, 0.03, alpha=cfg.bt_alpha)
+    return out
+
+
 def det_head_apply(net: MHEnt, feat: torch.Tensor) -> torch.Tensor:
     return net.det_head(feat)
 
@@ -123,11 +155,16 @@ def combine_z(cfg: MHEntConfig, z_det: torch.Tensor, z_flow: torch.Tensor) -> to
 
 def sample_q_z(net: MHEnt, feat: torch.Tensor, n: int, temp: float = 1.0,
                base_noise: torch.Tensor | None = None,
-               generator: torch.Generator | None = None):
+               generator: torch.Generator | None = None,
+               differentiable: bool = False,
+               flow_q: cuda_sampler_int8.FlowQTree | None = None):
     """Draw n hypotheses per image from q(z | I).
 
     Rows are hypothesis-major (N blocks of B). base_noise: (n * B, 45), already
-    times temp; drawn from `generator` when None.
+    times temp; drawn from `generator` when None. flow_q: the int8 sampler's
+    tree; the draw then runs the W8A8 sampler (its kernel on the card).
+    differentiable: the plain f32 flow on every device, as the JAX package
+    runs the XLA scan for the reverse-KL draw.
 
     Returns z (n * B, 61) and log q (n * B,).
     """
@@ -137,7 +174,9 @@ def sample_q_z(net: MHEnt, feat: torch.Tensor, n: int, temp: float = 1.0,
     if base_noise is None:
         base_noise = torch.randn((n * b, cfg.flow.dim), generator=generator,
                                  device=feat.device) * temp
-    if feat.is_cuda and net.kernels:
+    if flow_q is not None and not differentiable:
+        z_flow, log_q = cuda_sampler_int8.sample_fused_q(flow, flow_q, feat, n, base_noise)
+    elif feat.is_cuda and net.kernels and not differentiable:
         if net.packed_flow is None:
             raise RuntimeError("the fused sampler needs the packed flow; run mhent.prepare")
         z_flow, log_q = cuda_sampler.sample_fused(flow, net.packed_flow, feat, n, base_noise)
@@ -174,21 +213,98 @@ def decode(model: ManoModel, cfg: MHEntConfig, th_bt: torch.Tensor, logs_t: torc
     return result
 
 
+def forward_log_p(model: ManoModel, cfg: MHEntConfig, z: torch.Tensor, y: dict,
+                  mods=("uv",), fold: mano.KeypointFold | None = None) -> dict:
+    """log p(y | z) + log p~(z) per row: the Laplace-with-deadzone
+    reprojection likelihoods on visible keypoints and the three z-priors,
+    over the temperature.
+
+    z: (N * B, 61) hypothesis-major rows; y: crop_uv (B, 42), pose3d (B, 63),
+    vis (B, 21).
+    """
+    pr = make_priors(cfg, z.device)
+    dec = decode(model, cfg, z[:, :TH_BT], z[:, -3:], mods=mods, inv_norm=False, fold=fold)
+    b = y["crop_uv"].shape[0]
+    n = z.shape[0] // b
+    out = {}
+    for mod, gt_key, d, b_scale in (("uv", "crop_uv", 2, cfg.b_2d),
+                                    ("xyz", "pose3d", 3, cfg.b_3d)):
+        if mod not in mods:
+            continue
+        mu = dec[mod].reshape(z.shape[0], -1)
+        weights = y["vis"].repeat(n, 1).repeat_interleave(d, dim=1)
+        out[f"log_p_{mod}_giv_z"] = priors.laplace_deadzone_log_prob(
+            y[gt_key].repeat(n, 1), mu, b_scale, weights=weights)
+    out["log_p_th3"] = pr["th3_ref"].log_prob(z[:, :3])
+    out["log_p_th45"] = pr["th45_ref"].log_prob(z[:, 3:48])
+    out["log_p_bt"] = pr["bt"].log_prob(z[:, 48:58])
+    out["log_p"] = sum(v for k, v in out.items() if k != "log_p") / cfg.temperature
+    return out
+
+
+def reverse_kld(model: ManoModel, net: MHEnt, y: dict, image: torch.Tensor,
+                base_noise: torch.Tensor | None = None, train: bool = False, mods=("uv",),
+                generator: torch.Generator | None = None,
+                fold: mano.KeypointFold | None = None) -> dict:
+    """-KL(q(z|I) || p(y|z) p~(z)) up to a constant, per image: the eval
+    step's log p. base_noise: (n_train_hypotheses * B, 45) standard normal
+    (temperature 1), drawn from `generator` when None. Training (train=True)
+    is not ported yet."""
+    if train:
+        raise NotImplementedError("the training objective is not ported yet (ROADMAP queue 1, "
+                                  "item 4)")
+    cfg = net.cfg
+    feat = extract_feat(net, image)
+    n, b = cfg.n_train_hypotheses, feat.shape[0]
+    z, log_q = sample_q_z(net, feat, n, temp=1.0, base_noise=base_noise, generator=generator,
+                          differentiable=True)
+    th_bt = z[:, :TH_BT]
+    out = {"th_norm": torch.linalg.norm(th_bt[:, :48], dim=1),
+           "bt_norm": torch.linalg.norm(th_bt[:, -10:], dim=1)}
+    flp = forward_log_p(model, cfg, z, y, mods=mods, fold=fold)
+    log_p = out["q_log_p_z_giv_y"] = flp["log_p"].reshape(n, b).mean(0)
+    if cfg.entropy:
+        h = out["h_q_z_giv_i"] = (-log_q).reshape(n, b).mean(0)
+        log_p = log_p + h
+    if cfg.use_chamfer_loss:
+        dec = decode(model, cfg, th_bt, z[:, -3:], mods=(), fold=fold)
+        chamfer = out["chamfer"] = metrics_lib.chamfer_dist(
+            dec["xyz"].reshape(n, b, -1, 3), y).mean(0)
+        log_p = log_p - cfg.w_chamfer * chamfer
+    out["log_p"] = log_p
+    return out
+
+
 def sample_hypotheses(model: ManoModel, net: MHEnt, image: torch.Tensor, n: int = 200,
                       n_quant: int | None = None, temp: float = 0.8,
                       mods=("xyz", "uv", "verts"),
                       base_noise: torch.Tensor | None = None,
                       generator: torch.Generator | None = None,
-                      fold: mano.KeypointFold | None = None) -> dict:
+                      fold: mano.KeypointFold | None = None, quant=None) -> dict:
     """Multi-hypothesis inference on a (B, H, W, 3) NHWC image batch.
+
+    quant: optional (QuantSpec, qtree) of models/quant.py: the conditioning
+    feature comes from the int8 encoder, and with spec.int8_sampler the
+    draw runs the int8 sampler on qtree["flow"].
 
     Returns th_bt / logs_t (N', B, .), xyz (N', B, 63), uv (N', B, 42) in
     pixels, verts (N', B, 2334) and faces, for the requested mods.
     """
     cfg = net.cfg
-    feat = extract_feat(net, image)
+    flow_q = None
+    if quant is not None:
+        spec, qtree = quant
+        feat = quant_mod.encoder_feat(spec, qtree, net.feat_extractor, image)
+        if spec.int8_sampler:
+            flow_q = qtree.get("flow")
+            if flow_q is None:
+                raise ValueError("QuantSpec.int8_sampler is set but the qtree carries no 'flow' "
+                                 "tree: calibrate one with quant.quantize_sampler_into")
+    else:
+        feat = extract_feat(net, image)
     b = image.shape[0]
-    z, log_q = sample_q_z(net, feat, n, temp=temp, base_noise=base_noise, generator=generator)
+    z, log_q = sample_q_z(net, feat, n, temp=temp, base_noise=base_noise, generator=generator,
+                          flow_q=flow_q)
     z = z.reshape(n, b, Z_TOTAL)
     if n_quant is not None and n_quant < n:
         # Keep the n_quant most likely hypotheses per image.

@@ -1,10 +1,11 @@
 """Where a served request's time goes, on one CUDA card.
 
     python -m mhentropy_tpu_torch.profile_serve [--cfg configs/ho3d.yaml]
-        [--batches 8 1] [--reps 50] [--traced 20]
+        [--batches 8 1] [--reps 50] [--traced 20] [--quantize]
 
 For each batch size it serves a warmed-up InferenceServer (fresh seeded
-weights, synthetic MANO when there are no assets) and prints
+weights, synthetic MANO when there are no assets; with --quantize the
+buckets of 8 and more run the int8 encoder and sampler) and prints
 
 - the stages' wall times, each closed by a device sync: encoder, flow draw
   with the det head, MANO decode, copy to the host (mean over --reps);
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from mhentropy_tpu_torch import serve
-from mhentropy_tpu_torch.models import mhent
+from mhentropy_tpu_torch.models import mhent, quant
 from mhentropy_tpu_torch.utils.config import load_cfg
 
 
@@ -36,16 +37,20 @@ def stage_walls(server: serve.InferenceServer, images: np.ndarray, reps: int) ->
     net, cfg, dev = server.net, server.model_cfg, server.device
     scale, bias = server.image_norm
     x = torch.from_numpy(images).to(dev).float() * scale + bias
+    int8 = server._quantized_bucket(images.shape[0])
+    spec, qtree = server._quant if int8 else (None, None)
+    flow_q = qtree.get("flow") if int8 and spec.int8_sampler else None
     walls = {"encoder": 0.0, "flow_and_det": 0.0, "decode": 0.0, "to_host": 0.0}
     with torch.inference_mode():
         for _ in range(reps):
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
-            feat = mhent.extract_feat(net, x)
+            feat = (quant.encoder_feat(spec, qtree, net.feat_extractor, x) if int8
+                    else mhent.extract_feat(net, x))
             torch.cuda.synchronize(dev)
             t1 = time.perf_counter()
             z, _ = mhent.sample_q_z(net, feat, server.n_hypo, temp=server.temp,
-                                    generator=server._gen)
+                                    generator=server._gen, flow_q=flow_q)
             torch.cuda.synchronize(dev)
             t2 = time.perf_counter()
             dec = mhent.decode(server.model, cfg, z[:, :mhent.TH_BT], z[:, -3:],
@@ -92,6 +97,7 @@ def main(argv=None) -> int:
     ap.add_argument("--batches", type=int, nargs="+", default=[8, 1])
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--traced", type=int, default=20)
+    ap.add_argument("--quantize", action="store_true", help="int8 serving")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: needs a CUDA card")
@@ -100,10 +106,10 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {card}", flush=True)
     server = serve.InferenceServer(load_cfg(args.cfg), max_batch=args.max_batch,
-                                   device="cuda", transports=("u8",))
+                                   quantize=args.quantize, device="cuda", transports=("u8",))
     server.warmup()
     rng = np.random.RandomState(0)
-    result = {"card": card}
+    result = {"card": card, "quantize": args.quantize}
     for b in args.batches:
         size = server.image_size
         images = rng.randint(0, 256, (b, size, size, 3)).astype(np.uint8)

@@ -2,15 +2,17 @@
 
 Port of mhentropy_tpu/serve.py: `_buckets` :37, `InferenceServer` :45 (f32
 and u8 transports, power-of-two buckets, padded rows dropped, request-major
-outputs), `_http_serve` :325 and `main` :419. The pipeline is
-encoder -> conditional flow -> MANO decode -> projection; on a CUDA device
-the stem, stage 1 and the flow draw run the port's CUDA kernels.
+outputs, int8 serving :54-135,187-225,240-304), `_http_serve` :325 and
+`main` :419. The pipeline is encoder -> conditional flow -> MANO decode ->
+projection; on a CUDA device the stem, stage 1 and the flow draw run the
+port's CUDA kernels, and with `quantize` the buckets of at least
+`quantize_min_batch` images run the int8 stage-1 and int8 sampler kernels.
 
 Requests still pad to power-of-two buckets, although PyTorch compiles
 nothing per shape: every bucket then has one warmed-up set of kernel
 configurations and cuDNN plans, and the HTTP contract stays the JAX one.
 Checkpoints: a reference `.pth` loads directly (the names match); orbax
-directories and int8 serving raise NotImplementedError until ported.
+directories raise NotImplementedError until ported.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from mhentropy_tpu_torch.core import mano
-from mhentropy_tpu_torch.models import mhent
+from mhentropy_tpu_torch.models import mhent, quant
 from mhentropy_tpu_torch.train import engine
 
 
@@ -44,24 +46,25 @@ class InferenceServer:
         max_batch: largest request batch served in one pass.
         n_hypo: hypotheses per image (the config's test_samples if None).
         temp: sampling temperature (the reference's eval uses 0.8).
-        quantize: int8 serving; not ported yet, raises.
+        quantize: int8 W8A8 encoder and sampler (models/quant.py). The scales
+            calibrate at warmup on zero images, then again on the first real
+            int8 batch, and stay fixed after that. The sampler calibrates at
+            max(1, temp); a request hotter than that is served float.
+        quantize_min_batch: smallest bucket served int8; smaller buckets
+            stay float.
         transports: input dtypes warmup() runs: uint8 requests carry raw
             pixels normalised on the device with the dataset's affine;
             float32 requests are already normalised.
-        device: torch device; CUDA if available when None.
+        device: torch device; the card when None (raises without one: pass
+            device="cpu" to serve on the CPU).
         seed: seeds the fresh weights (no checkpoint) and the base noise.
     """
 
     def __init__(self, cfg, checkpoint: str | None = None, max_batch: int = 8,
                  n_hypo: int | None = None, temp: float = 0.8, quantize: bool = False,
-                 transports: tuple = ("f32", "u8"), mano_dir: str = "./mano/",
-                 device=None, seed: int = 0):
-        if quantize:
-            raise NotImplementedError(
-                "int8 serving is not ported yet (ROADMAP queue 1 item 7, "
-                "queue 2 items 5-6)")
-        self.device = torch.device(
-            device if device is not None else ("cuda" if torch.cuda.is_available() else "cpu"))
+                 quantize_min_batch: int = 8, transports: tuple = ("f32", "u8"),
+                 mano_dir: str = "./mano/", device=None, seed: int = 0):
+        self.device = engine.resolve_device(device)
         self.cfg = cfg
         self.model_cfg = engine.build_model_config(cfg)
         self.model = engine.load_mano_model(mano_dir, device=self.device)
@@ -91,6 +94,14 @@ class InferenceServer:
             self.image_norm = None
             self.transports = tuple(t for t in self.transports if t != "u8")
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.quantize = bool(quantize)
+        self.quantize_min_batch = int(quantize_min_batch)
+        if self.quantize and self.max_batch < self.quantize_min_batch:
+            print(f"WARNING: --quantize requested but max_batch {self.max_batch} < "
+                  f"quantize_min_batch {self.quantize_min_batch}: every bucket will serve "
+                  f"float", file=sys.stderr, flush=True)
+        self._quant = None  # (spec, qtree)
+        self._quant_ready = False  # calibrated on real data yet?
 
     @staticmethod
     def _restore(net: mhent.MHEnt, path: str) -> None:
@@ -101,24 +112,52 @@ class InferenceServer:
         ckpt = torch.load(path, map_location="cpu")
         net.load_state_dict(ckpt.get("encoderRGB", ckpt), strict=True)
 
-    @torch.inference_mode()
-    def _run(self, images: np.ndarray, temp: float, base_noise=None):
+    def _normalised(self, images: np.ndarray) -> torch.Tensor:
         # HTTP bodies arrive as read-only buffers; torch wants writable memory.
         x = torch.from_numpy(np.require(images, requirements=["C", "W"])).to(self.device)
         if x.dtype == torch.uint8:
             scale, bias = self.image_norm
             x = x.float() * scale + bias
+        return x
+
+    @torch.inference_mode()
+    def _run(self, images: np.ndarray, temp: float, base_noise=None, quantized: bool = False):
         out = mhent.sample_hypotheses(
-            self.model, self.net, x, n=self.n_hypo, temp=temp, mods=("xyz", "uv"),
-            base_noise=base_noise, generator=self._gen, fold=self.fold)
+            self.model, self.net, self._normalised(images), n=self.n_hypo, temp=temp,
+            mods=("xyz", "uv"), base_noise=base_noise, generator=self._gen, fold=self.fold,
+            quant=self._quant if quantized else None)
         return out["xyz"], out["uv"]
+
+    @torch.inference_mode()
+    def _calibrate(self, images: np.ndarray, ready: bool) -> None:
+        """Build the int8 qtree on one fixed batch shape (the smallest int8
+        bucket, the images tiled or cut to it). ready=False marks a
+        shape-only calibration (warmup zeros), redone on the first real
+        batch."""
+        cb = next(b for b in _buckets(self.max_batch) if b >= self.quantize_min_batch)
+        calib = self._normalised(images).float()
+        calib = calib.repeat(-(-cb // calib.shape[0]), 1, 1, 1)[:cb]
+        spec, qtree = quant.quantize_encoder(self.net.feat_extractor, calib,
+                                             q_from=self.cfg.tpu.quantize_q_from)
+        if self.cfg.tpu.quantize_sampler and quant.sampler_supported(self.model_cfg):
+            spec, qtree = quant.quantize_sampler_into(spec, qtree, self.net, calib,
+                                                      temp=max(1.0, self.temp))
+        self._quant = (spec, qtree)
+        self._quant_ready = ready
+
+    def _quantized_bucket(self, bucket: int) -> bool:
+        return self.quantize and bucket >= self.quantize_min_batch
 
     def warmup(self) -> None:
         """Run every (bucket, transport) once, which also builds the kernels."""
         for b in _buckets(self.max_batch):
             for t in self.transports:
                 dt = {"f32": np.float32, "u8": np.uint8}[t]
-                self._run(np.zeros((b, self.image_size, self.image_size, 3), dt), self.temp)
+                img = np.zeros((b, self.image_size, self.image_size, 3), dt)
+                q = self._quantized_bucket(b)
+                if q and self._quant is None:
+                    self._calibrate(img, ready=False)
+                self._run(img, self.temp, quantized=q)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -149,7 +188,18 @@ class InferenceServer:
         if bucket != b:
             pad = np.zeros((bucket - b, *images.shape[1:]), images.dtype)
             images = np.concatenate([images, pad])
-        xyz, uv = self._run(images, float(self.temp if temp is None else temp), base_noise)
+        t_req = float(self.temp if temp is None else temp)
+        use_quant = self._quantized_bucket(bucket)
+        if use_quant and t_req > max(1.0, self.temp):
+            # The sampler's scales were calibrated at max(1, temp): a hotter
+            # draw would saturate its first int8 clip.
+            print(f"serve: temp {t_req} exceeds the int8 calibration ceiling "
+                  f"{max(1.0, self.temp)}; serving this request float",
+                  file=sys.stderr, flush=True)
+            use_quant = False
+        if use_quant and not self._quant_ready:
+            self._calibrate(images, ready=True)
+        xyz, uv = self._run(images, t_req, base_noise, quantized=use_quant)
         # (N, B', K*d) -> (B, N, K, d) request-major, padding dropped.
         n = xyz.shape[0]
         xyz = xyz.cpu().numpy().reshape(n, bucket, -1, 3).transpose(1, 0, 2, 3)[:b]
@@ -259,8 +309,10 @@ def main(argv=None):
     ap.add_argument("--n", type=int, default=None)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8711)
-    ap.add_argument("--device", default=None, help="torch device (default: cuda if present)")
-    ap.add_argument("--quantize", action="store_true", help="int8 serving (not ported yet)")
+    ap.add_argument("--device", default="cuda", help="torch device (default: the card)")
+    ap.add_argument("--quantize", action="store_true",
+                    help="int8 W8A8 encoder and sampler for buckets >= --quantize-min-batch")
+    ap.add_argument("--quantize-min-batch", type=int, default=8)
     ap.add_argument("--mano", default="./mano/",
                     help="MANO asset dir (MANO_RIGHT.pkl); absent -> synthetic stand-in")
     ap.add_argument("--transport", choices=("both", "f32", "u8"), default="both",
@@ -270,7 +322,8 @@ def main(argv=None):
     cfg = load_cfg(args.cfg)
     server = InferenceServer(
         cfg, checkpoint=args.ckpt, max_batch=args.max_batch, n_hypo=args.n,
-        quantize=args.quantize, mano_dir=args.mano, device=args.device,
+        quantize=args.quantize, quantize_min_batch=args.quantize_min_batch,
+        mano_dir=args.mano, device=args.device,
         transports=("f32", "u8") if args.transport == "both" else (args.transport,),
     )
     print("warming buckets:", _buckets(server.max_batch), flush=True)

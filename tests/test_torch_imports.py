@@ -24,6 +24,10 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import mhentropy_tpu_torch.serve, mhentropy_tpu_torch.convert\n"
+        "import mhentropy_tpu_torch.run, mhentropy_tpu_torch.train.engine\n"
+        "import mhentropy_tpu_torch.train.metrics, mhentropy_tpu_torch.models.quant\n"
+        "import mhentropy_tpu_torch.flows.cuda_sampler_int8, mhentropy_tpu_torch.core.lbs_cuda\n"
+        "import mhentropy_tpu_torch.data.synthetic, mhentropy_tpu_torch.profile_serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'mhentropy_tpu'))\n"
         "print(bad)\n"

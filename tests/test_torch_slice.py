@@ -153,10 +153,60 @@ def test_pth_checkpoint_loads_directly(server, tmp_path):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.InferenceServer(_tiny_cfg(), quantize=True, device="cpu")
+    """int8 serving is ported; orbax checkpoints are not."""
     with pytest.raises(NotImplementedError, match="orbax"):
         serve.InferenceServer(_tiny_cfg(), checkpoint="some/orbax/dir", device="cpu")
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """device=None means CUDA: without a card it raises and names the fix."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.InferenceServer(_tiny_cfg(), max_batch=4)
+
+
+@pytest.fixture(scope="module")
+def qserver():
+    s = serve.InferenceServer(_tiny_cfg(), max_batch=4, quantize=True, quantize_min_batch=2,
+                              device="cpu")
+    s.warmup()
+    return s
+
+
+def _spy_quant(monkeypatch):
+    """Records, per sample_hypotheses call, whether it ran the int8 path."""
+    calls = []
+    orig = serve.mhent.sample_hypotheses
+
+    def spy(*args, quant=None, **kwargs):
+        calls.append(quant is not None and quant[0].int8_sampler)
+        return orig(*args, quant=quant, **kwargs)
+
+    monkeypatch.setattr(serve.mhent, "sample_hypotheses", spy)
+    return calls
+
+
+def test_quantized_server_serves_int8_buckets(qserver, monkeypatch):
+    """Buckets >= quantize_min_batch run the int8 encoder and sampler
+    (recalibrated on the first real batch); smaller ones stay float."""
+    assert qserver._quant is not None and not qserver._quant_ready
+    spec, qtree = qserver._quant
+    assert spec.int8_sampler and spec.q_from == 1 and "flow" in qtree
+    calls = _spy_quant(monkeypatch)
+    images = np.random.RandomState(5).randint(0, 256, (3, 32, 32, 3)).astype(np.uint8)
+    out = qserver.predict(images)
+    assert out["xyz"].shape == (3, N, 21, 3) and out["uv"].shape == (3, N, 21, 2)
+    assert np.isfinite(out["xyz"]).all() and qserver._quant_ready
+    one = qserver.predict(images[:1])
+    assert one["xyz"].shape == (1, N, 21, 3)
+    assert calls == [True, False]
+
+
+def test_quantized_server_serves_hot_requests_float(qserver, monkeypatch, capsys):
+    calls = _spy_quant(monkeypatch)
+    out = qserver.predict(np.zeros((2, 32, 32, 3), np.float32), temp=1.5)
+    assert out["xyz"].shape == (2, N, 21, 3) and calls == [False]
+    assert "exceeds the int8 calibration ceiling" in capsys.readouterr().err
 
 
 def test_http_front_end(server):
