@@ -29,9 +29,27 @@
    on configs/ho3d.yaml: the synthetic eval split of 128 at 256 px, B=64,
    N=200, float and with tpu.quantize_encoder; every metric finite; the
    launches of each run; ms per eval batch and hypotheses/s.
+   The reverse-KL draw runs the f32 sampler kernel; the float eval step is
+   also timed with that draw on the plain f32 flow (the routing before the
+   f32 kernel existed), in alternating windows.
 7. Verts: mhent.sample_hypotheses with its default mods at B=64, N=200
    launches the LBS blend; its vertices against the plain blend's.
-8. Prints the kernels' JSON line, the card line, and last
+8. BN sums: the stats and grad kernels against their plain versions at
+   (64, 128, 128, 64) and (64, 8, 8, 2048) bf16 channels-last, timed as in
+   3, with torch.batch_norm_stats / torch.batch_norm_backward_reduce as the
+   library yardsticks. f32 sampler: the kernel against transform_plain at
+   B=64, N=10, L=12, H=512 on an O(1) flow, and the autograd Function's
+   gradients against plain autograd.
+9. Train: the run.py path (Experiment.train_baseline) on configs/rhd.yaml
+   with training.epochs 1 (initial eval at N=100, 4 train steps at B=64,
+   N=10, checkpoints) with tpu.fused_train_bn false and "full": finite
+   losses, the checkpoint reloads, each kernel launched the counted number
+   of times; one train step with kernels against the plain path (loss,
+   gradient cosines, running statistics; in bf16 beside the plain path run
+   twice, and in f32); ms per train step for kernels +
+   "stats", kernels + "full" and the plain path in alternating windows;
+   a torch.profiler trace of a few steps (device busy share, top ops).
+10. Prints the kernels' JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Every path is driven with every kernel's launch count set to 0 just before
@@ -42,8 +60,10 @@ the CPU or to a plain path.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -71,6 +91,31 @@ TOL = {"stem": 2e-2, "stage1": 3e-2, "sampler": 1e-2,
 # about 3), uv in pixels. On an H100 the two paths differed by 0.0138 (xyz)
 # and 1.72 px (uv); the bounds are about three times that.
 SLICE_TOL = {"xyz": 4e-2, "uv": 5.0}
+# BN sums: f32 accumulation in another order than the plain sums; each
+# channel within this share of its sum of absolute values.
+BN_TOL = 1e-5
+# f32 sampler vs the plain f32 flow: f32 FMAs against cuBLAS f32 products,
+# 12 layers; max-abs error within this share of the output's range, and the
+# Function's gradients within this relative tolerance of plain autograd.
+SAMPLER_F32_TOL = 1e-4
+# One train step, kernels against the plain path, same weights, batch and
+# noise. With the bf16 backbone the two differ by the f32 rounding of the BN
+# sums, which moves bf16 roundings and maximum-pool ties near the stem and
+# hypotheses across the likelihood's dead-zone kinks: the loss is held to
+# TRAIN_LOSS_TOL relative and the running statistics to TRAIN_STATS_TOL,
+# and the gradients' cosines are printed beside those of the plain path
+# against itself with the image nudged by TRAIN_NUDGE (below bf16's
+# resolution at most pixels). Computing in f32 the same step holds each
+# parameter's gradient to a cosine of at least TRAIN_GRAD_COS with the plain
+# path's and the loss to TRAIN_F32_LOSS_TOL. On an H100 the f32 step agreed
+# to a lowest cosine of 0.99943 (the stem's weight) and a loss of 2.1e-6.
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_STATS_TOL = 1e-2
+TRAIN_GRAD_COS = 0.999
+TRAIN_F32_LOSS_TOL = 1e-4
+TRAIN_NUDGE = 1e-3
+TRAIN_BATCH = 64
+N_TRAIN_HYPO = 10
 # int8 serving vs float serving on one B=8 batch, same base noise, O(1)
 # flow (calibrated on that batch): xyz bone-normalised, uv in pixels. On an
 # H100 the two differed by 0.0624 (xyz) and 7.71 px (uv); the bounds are
@@ -86,6 +131,8 @@ EVAL_BATCH = 64
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense rates, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# Eval and train steps' windows.
+STEP_WINDOW_S = 2.0
 
 
 def check(cond: bool, msg: str) -> None:
@@ -170,24 +217,28 @@ def he_(torch, w, g) -> None:
         w.copy_(torch.randn(w.shape, generator=g) * math.sqrt(2.0 / w[0].numel()))
 
 
-def kernel_modules() -> dict:
-    """Every kernel wrapper module of the port, by kernel name."""
+def kernel_counters() -> dict:
+    """Every kernel of the port, by name: (wrapper module, its launch count)."""
     from mhentropy_tpu_torch.core import lbs_cuda
     from mhentropy_tpu_torch.flows import cuda_sampler, cuda_sampler_int8
-    from mhentropy_tpu_torch.models import stage1_cuda, stage1_int8_cuda, stem_cuda
+    from mhentropy_tpu_torch.models import bn_cuda, stage1_cuda, stage1_int8_cuda, stem_cuda
 
-    return {"stem": stem_cuda, "stage1": stage1_cuda, "realnvp_sampler": cuda_sampler,
-            "lbs_blend": lbs_cuda, "stage1_int8": stage1_int8_cuda,
-            "realnvp_sampler_int8": cuda_sampler_int8}
+    return {"stem": (stem_cuda, "launches"), "stage1": (stage1_cuda, "launches"),
+            "realnvp_sampler": (cuda_sampler, "launches"), "lbs_blend": (lbs_cuda, "launches"),
+            "stage1_int8": (stage1_int8_cuda, "launches"),
+            "realnvp_sampler_int8": (cuda_sampler_int8, "launches"),
+            "bn_stats_sums": (bn_cuda, "stats_launches"),
+            "bn_grad_sums": (bn_cuda, "grad_launches"),
+            "realnvp_sampler_f32": (cuda_sampler, "launches_f32")}
 
 
 def reset_launches() -> None:
-    for mod in kernel_modules().values():
-        mod.launches = 0
+    for mod, attr in kernel_counters().values():
+        setattr(mod, attr, 0)
 
 
 def read_launches() -> dict:
-    return {name: mod.launches for name, mod in kernel_modules().items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in kernel_counters().items()}
 
 
 def roofline(n_bytes: float, ops: float, kind: str) -> dict:
@@ -662,6 +713,11 @@ def phase_eval(torch, dev):
             "stem", "stage1", "realnvp_sampler")
         for name in want:
             check(launches[name] > 0, f"eval {label}: kernel {name} was not launched")
+        # The reverse-KL draw, one per eval batch, runs the f32 sampler.
+        n_batches = -(-128 // EVAL_BATCH)
+        check(launches["realnvp_sampler_f32"] == n_batches,
+              f"eval {label}: {launches['realnvp_sampler_f32']} f32 sampler launches for "
+              f"{n_batches} batches")
         print(f"eval {label}: {wall:.1f} s for the run (dataset, calibration, 2 batches); "
               f"launches {launches}", flush=True)
 
@@ -674,21 +730,47 @@ def phase_eval(torch, dev):
         kld = torch.randn((exp.model_cfg.n_train_hypotheses * EVAL_BATCH, 45), generator=g,
                           device=dev)
         hypo = torch.randn((N_HYPO * EVAL_BATCH, 45), generator=g, device=dev) * tr.eval_temp
-        step(image, target, kld, hypo, exp.qtree)
-        torch.cuda.synchronize()
-        runs, n_batches = [], 0
-        for _ in range(RUNS):
-            count, t1 = 0, time.perf_counter()
-            while time.perf_counter() - t1 < SLICE_WINDOW_S:
+        from mhentropy_tpu_torch.flows import cuda_sampler, realnvp
+
+        fused_diff = cuda_sampler.sample_fused_diff
+
+        def plain_diff(flow, feat, n, z0_rows):
+            cproj = realnvp.cond_cache(flow, realnvp.make_cond(flow, feat))
+            return realnvp.sample(flow, z0_rows, cproj=cproj.repeat(1, 1, n, 1))
+
+        # "plain_kld_draw": the reverse-KL draw (n_kld x B = 640 rows) on the
+        # plain f32 flow, the N x B = 12,800-row draw on its kernel: the
+        # routing before the f32 sampler kernel existed.
+        routes = {"kernel": fused_diff, "plain_kld_draw": plain_diff}
+
+        def run_step(route):
+            cuda_sampler.sample_fused_diff = routes[route]
+            try:
                 step(image, target, kld, hypo, exp.qtree)
-                count += 1
-            torch.cuda.synchronize()
-            runs.append((time.perf_counter() - t1) * 1e3 / count)
-            n_batches += count
-        ms = spread(runs)
+            finally:
+                cuda_sampler.sample_fused_diff = fused_diff
+
+        for route in routes:
+            run_step(route)
+        torch.cuda.synchronize()
+        timed = ("kernel",) if quantize else tuple(routes)
+        runs = {route: [] for route in timed}
+        n_batches = 0
+        for r in range(RUNS):
+            for route in (timed if r % 2 == 0 else timed[::-1]):
+                count, t1 = 0, time.perf_counter()
+                while time.perf_counter() - t1 < STEP_WINDOW_S:
+                    run_step(route)
+                    count += 1
+                torch.cuda.synchronize()
+                runs[route].append((time.perf_counter() - t1) * 1e3 / count)
+                n_batches += count
+        ms = spread(runs["kernel"])
         results[label] = {"summary": summary, "launches": launches, "run_s": wall,
                           "ms_per_batch": ms, "batches": n_batches,
                           "hypotheses_per_s": EVAL_BATCH * N_HYPO / ms["median"] * 1e3}
+        if not quantize:
+            results[label]["ms_per_batch_plain_kld_draw"] = spread(runs["plain_kld_draw"])
     return results
 
 
@@ -736,6 +818,335 @@ def phase_verts(torch, dev):
     return launches, err
 
 
+BN_SHAPES = ((64, 128, 128, 64), (64, 8, 8, 2048))
+
+
+def phase_bn_sums(torch, dev):
+    """Both BN sum kernels against their plain versions at resnet50's first
+    and last BN shapes (B=64, 256 px), bf16 channels-last; the first shape's
+    times go to the kernels' line, the second's beside them."""
+    from mhentropy_tpu_torch.models import bn_cuda
+
+    out = {}
+    for i, shape in enumerate(BN_SHAPES):
+        g = torch.Generator(device=dev).manual_seed(11 + i)
+        x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)
+        dy = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        x, dy = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)  # NCHW views, NHWC memory
+        check(x.is_contiguous(memory_format=torch.channels_last), "bn: input not channels-last")
+        m, c = x.numel() // shape[-1], shape[-1]
+        xf, dyf = x.float(), dy.float()
+        scales = {"bn_stats_sums": (xf.abs().sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))),
+                  "bn_grad_sums": (dyf.abs().sum((0, 2, 3)), (dyf * xf).abs().sum((0, 2, 3)))}
+        del xf, dyf
+        mean, invstd = torch.batch_norm_stats(x, 1e-5)
+        fns = {"bn_stats_sums": (lambda: bn_cuda.stats_sums(x),
+                                 lambda: bn_cuda.stats_sums_plain(x),
+                                 lambda: torch.batch_norm_stats(x, 1e-5)),
+               "bn_grad_sums": (lambda: bn_cuda.grad_sums(dy, x),
+                                lambda: bn_cuda.grad_sums_plain(dy, x),
+                                lambda: torch.batch_norm_backward_reduce(
+                                    dy, x, mean, invstd, None, True, False, False))}
+        for name, (kernel_fn, plain_fn, library_fn) in fns.items():
+            got = kernel_fn()
+            torch.cuda.synchronize()
+            want = plain_fn()
+            share = max(float(((a - b).abs() / sc.clamp_min(1e-30)).max())
+                        for a, b, sc in zip(got, want, scales[name]))
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            check(share <= BN_TOL, f"{name} {shape}: error {share} of the channel's sum of "
+                                   f"absolute values > {BN_TOL}")
+            again = kernel_fn()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{name} {shape}: two runs differ")
+            times = ab_ms(torch, kernel_fn, plain_fn)
+            library = spread([cuda_ms(torch, library_fn) for _ in range(RUNS)])
+            reads = (1 if name == "bn_stats_sums" else 2) * m * c * 2
+            # Per element: an add and an FMA (3 operations), f32.
+            bound = roofline(reads + 2 * c * 4, 3 * m * c, "f32")
+            entry = {"shape": list(shape), "max_abs_err": err, "err_share": share,
+                     "tol": BN_TOL, **times, "library_ms": library["median"],
+                     "library_spread": library, **bound}
+            if i == 0:
+                out[name] = {"name": name, "source": "mhentropy_tpu_torch/csrc/bn_sums.cu",
+                             "replaces": "mhentropy_tpu/models/bn_pallas.py:"
+                                         + ("182" if name == "bn_stats_sums" else "187"),
+                             "library": "torch.batch_norm_stats" if name == "bn_stats_sums"
+                             else "torch.batch_norm_backward_reduce", **entry}
+            else:
+                out[name]["other_shape"] = {k: (v["median"] if k in TIMES else v)
+                                            for k, v in entry.items()}
+        del x, dy
+    return [out["bn_stats_sums"], out["bn_grad_sums"]]
+
+
+def phase_sampler_f32(torch, dev):
+    """The f32 sampler kernel against transform_plain at the train draw's
+    shape (B=64, N=10: 640 rows, L=12, H=512) on an O(1) flow, then the
+    autograd Function's values and gradients against plain autograd."""
+    from mhentropy_tpu_torch.flows import cuda_sampler, realnvp
+
+    torch.manual_seed(12)  # torch-default Linear init: O(1) weights
+    cfg = realnvp.RealNVPConfig(dim=45, cond_dim=512, h_dim=512, num_steps=6)
+    flow = realnvp.RealNVP(cfg).to(dev)
+    b, n = TRAIN_BATCH, N_TRAIN_HYPO
+    g = torch.Generator(device=dev).manual_seed(12)
+    feat = torch.randn((b, 512), generator=g, device=dev)
+    z0 = torch.randn((b, n, 45), generator=g, device=dev)
+    with torch.no_grad():
+        cproj = realnvp.cond_cache(flow, feat).contiguous()
+        packed = cuda_sampler.pack(flow, dtype=torch.float32)
+        x, ld = cuda_sampler.transform(packed, z0, cproj)
+        torch.cuda.synchronize()
+        x_ref, ld_ref = cuda_sampler.transform_plain(packed, z0, cproj)
+        check(x.shape == (b, n, 45) and ld.shape == (b, n), "f32 sampler: shapes")
+        err_x = (x - x_ref).abs().max().item()
+        err_ld = (ld - ld_ref).abs().max().item()
+        tol_x = SAMPLER_F32_TOL * max(1.0, x_ref.abs().max().item())
+        tol_ld = SAMPLER_F32_TOL * max(1.0, ld_ref.abs().max().item())
+        check(err_x <= tol_x, f"f32 sampler: x max-abs error {err_x} > {tol_x}")
+        check(err_ld <= tol_ld, f"f32 sampler: logdet max-abs error {err_ld} > {tol_ld}")
+        times = ab_ms(torch, lambda: cuda_sampler.transform(packed, z0, cproj),
+                      lambda: cuda_sampler.transform_plain(packed, z0, cproj))
+    noise = z0.transpose(0, 1).reshape(n * b, 45)  # hypothesis-major rows
+    w = torch.randn((n * b, 45), generator=g, device=dev)
+    outs = []
+    for fused in (True, False):
+        flow.zero_grad()
+        f = feat.clone().requires_grad_()
+        nz = noise.clone().requires_grad_()
+        if fused:
+            xx, lp = cuda_sampler.sample_fused_diff(flow, f, n, nz)
+        else:
+            xx, lp = realnvp.sample(flow, nz, cproj=realnvp.cond_cache(flow, f).repeat(1, 1, n, 1))
+        ((xx * w).sum() + lp.sum()).backward()
+        outs.append([xx.detach(), lp.detach(), f.grad, nz.grad]
+                    + [p.grad.clone() for p in flow.parameters()])
+    grad_err = max(float((a - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+                   for a, r in zip(*outs))
+    check(grad_err <= SAMPLER_F32_TOL,
+          f"f32 sampler Function: values or gradients {grad_err} from plain autograd")
+    n_weights = sum(getattr(packed, k).numel() * 4 for k in ("w0", "w1", "w2", "b0", "b1", "b2"))
+    n_bytes = 2 * z0.numel() * 4 + b * n * 4 + cproj.numel() * 4 + n_weights
+    macs = sampler_macs(b * n, 45, 512, cfg.n_layers)
+    return {"name": "realnvp_sampler_f32", "source": "mhentropy_tpu_torch/csrc/realnvp_sampler_f32.cu",
+            "replaces": "mhentropy_tpu/flows/pallas_sampler.py:304",
+            "max_abs_err": max(err_x, err_ld), "max_abs_err_x": err_x,
+            "max_abs_err_logdet": err_ld, "tol": tol_x, "grad_rel_err": grad_err, **times,
+            "library": None, **roofline(n_bytes, 2 * macs, "f32")}
+
+
+def train_cfg(fused, model_dir: str):
+    """configs/rhd.yaml cut to one epoch, seed 0, the given train BN mode."""
+    from mhentropy_tpu_torch.utils.config import load_cfg
+
+    cfg = load_cfg("configs/rhd.yaml")
+    cfg.training.epochs = 1
+    cfg.training.seed = 0
+    cfg.model_dir = model_dir + "/"
+    cfg.tpu.fused_train_bn = fused
+    return cfg
+
+
+def one_step_grads(torch, net, model, fold, image, target, noise):
+    """One forward and backward of the training loss (no update): the loss,
+    every parameter's gradient and the new running statistics."""
+    from mhentropy_tpu_torch.models import mhent
+
+    net.train()
+    net.zero_grad(set_to_none=True)
+    out = mhent.reverse_kld(model, net, target, image, base_noise=noise, train=True, fold=fold)
+    loss = -out["log_p"].mean()
+    loss.backward()
+    grads = {n: p.grad.detach().float().clone() for n, p in net.named_parameters()
+             if p.grad is not None}
+    stats = {n: t.detach().clone() for n, t in net.state_dict().items()
+             if n.endswith(("running_mean", "running_var"))}
+    return loss.item(), grads, stats
+
+
+def phase_train(torch, dev):
+    import tempfile
+
+    from mhentropy_tpu_torch.data import synthetic
+    from mhentropy_tpu_torch.models import mhent, resnet
+    from mhentropy_tpu_torch.train import engine
+
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, fused in (("false", False), ("full", "full")):
+            cfg = train_cfg(fused, os.path.join(tmp, label))
+            tr = cfg.training
+            check(tr.batch_size == TRAIN_BATCH and tr.test_samples == 100
+                  and tr.n_train_hypotheses == N_TRAIN_HYPO and tr.lr == 2e-4,
+                  f"train: configs/rhd.yaml has batch {tr.batch_size}, N {tr.test_samples}, "
+                  f"n_train_hypotheses {tr.n_train_hypotheses}, lr {tr.lr}")
+            exp = engine.Experiment(cfg, device=dev)
+            n_bn = sum(isinstance(m, resnet.BatchNorm2d) for m in exp.net.modules())
+            check(n_bn == 53, f"train: {n_bn} BatchNorms in resnet50")
+            t0 = time.perf_counter()
+            reset_launches()
+            summary = exp.train_baseline()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            losses = exp.losses
+            check(len(losses) == 4 and all(math.isfinite(v) for v in losses),
+                  f"train {label}: losses {losses}")
+            check(all(math.isfinite(v) for v in summary.values()),
+                  f"train {label}: non-finite eval metrics {summary}")
+            n_eval = -(-128 // TRAIN_BATCH)
+            want = {"bn_stats_sums": n_bn * 4, "bn_grad_sums": n_bn * 4 if fused else 0,
+                    "realnvp_sampler_f32": 4 + n_eval}
+            for name, count in want.items():
+                check(launches[name] == count,
+                      f"train {label}: {launches[name]} {name} launches, expected {count}")
+            for name in ("stem", "stage1", "realnvp_sampler"):
+                check(launches[name] > 0, f"train {label}: eval kernel {name} not launched")
+            path = os.path.join(cfg.model_dir, "baseline_final.pth")
+            reloaded = mhent.init(exp.model_cfg, seed=1)
+            engine.Experiment._restore(reloaded, path)
+            here = {k: v.cpu() for k, v in exp.net.state_dict().items()}
+            check(all(torch.equal(v, here[k]) for k, v in reloaded.state_dict().items()),
+                  f"train {label}: {path} does not reload the trained weights")
+            print(f"train {label}: {wall:.1f} s for train_baseline (datasets, initial eval, 4 "
+                  f"steps, checkpoints); losses {losses}; launches {launches}", flush=True)
+            results[label] = {"launches": launches, "losses": losses, "run_s": wall,
+                              "eval_summary": summary, "dy_copies": None}
+
+        # One step from the same weights, batch and noise: kernels ("stats",
+        # "full") against the plain path.
+        from mhentropy_tpu_torch.models import bn_cuda
+
+        train_data, _ = exp.make_datasets(which=("train",))
+        image, target = next(synthetic.batches(train_data, TRAIN_BATCH, device=dev))
+        image, target = engine._prep_batch(image, target)
+        g = torch.Generator(device=dev).manual_seed(13)
+        noise = torch.randn((N_TRAIN_HYPO * TRAIN_BATCH, 45), generator=g, device=dev)
+        base = copy.deepcopy(exp.net)
+        variants = {"kernels_stats": (True, "stats"), "kernels_full": (True, "full"),
+                    "plain": (False, "stats")}
+        runs_one = {**{k: v + (None, 0.0) for k, v in variants.items()},
+                    "plain_again": (False, "stats", None, 0.0),
+                    "plain_nudged": (False, "stats", None, TRAIN_NUDGE),
+                    "kernels_stats_f32": (True, "stats", torch.float32, 0.0),
+                    "plain_f32": (False, "stats", torch.float32, 0.0)}
+        steps = {}
+        for name, (kernels, mode, dtype, nudge) in runs_one.items():
+            net = copy.deepcopy(base)
+            net.set_kernels(kernels)
+            net.feat_extractor.res.bn_mode = mode
+            if dtype is not None:
+                net.feat_extractor.res.dtype = dtype
+            reset_launches()
+            bn_cuda.dy_copies = 0
+            steps[name] = one_step_grads(torch, net, exp.model, exp.fold, image + nudge, target,
+                                         noise)
+            torch.cuda.synchronize()
+            steps[name] += (read_launches(), bn_cuda.dy_copies)
+            del net
+        check(all(v == 0 for v in steps["plain"][3].values()),
+              f"train: the plain path launched kernels {steps['plain'][3]}")
+        agreement = {}
+        for name, ref in (("kernels_stats", "plain"), ("kernels_full", "plain"),
+                          ("plain_again", "plain"), ("plain_nudged", "plain"),
+                          ("kernels_stats_f32", "plain_f32")):
+            loss, grads, stats, launches, copies = steps[name]
+            ref_loss, ref_grads, ref_stats = steps[ref][:3]
+            rel = abs(loss - ref_loss) / abs(ref_loss)
+            cos = {n: float(torch.nn.functional.cosine_similarity(
+                grads[n].flatten(), ref_grads[n].flatten(), dim=0)) for n in ref_grads}
+            lowest = sorted(cos, key=cos.get)[:4]
+            stats_err = max(float(((stats[n] - ref_stats[n]).abs()
+                                   / ref_stats[n].abs().clamp_min(1.0)).max())
+                            for n in stats)
+            print(f"train {name} vs {ref}, one step: loss {loss:.6g} vs {ref_loss:.6g} "
+                  f"(rel {rel:.3g}); lowest gradient cosines "
+                  f"{[(n, round(cos[n], 6)) for n in lowest]}; median cosine "
+                  f"{statistics.median(cos.values()):.6f}; running stats {stats_err:.3g}; "
+                  f"launches {launches}; dy copies {copies}", flush=True)
+            agreement[name] = {"against": ref, "loss": loss, "ref_loss": ref_loss,
+                               "loss_rel": rel, "min_grad_cosine": cos[lowest[0]],
+                               "min_grad_cosine_param": lowest[0],
+                               "median_grad_cosine": statistics.median(cos.values()),
+                               "stats_rel": stats_err, "launches_per_step": launches,
+                               "dy_copies_per_step": copies}
+        for name in ("kernels_stats", "kernels_full"):
+            launches = steps[name][3]
+            want = {"bn_stats_sums": 53, "bn_grad_sums": 53 if name == "kernels_full" else 0,
+                    "realnvp_sampler_f32": 1}
+            for k, count in want.items():
+                check(launches[k] == count, f"train {name}: {launches[k]} {k} launches in one "
+                                            f"step, expected {count}")
+            a = agreement[name]
+            check(a["loss_rel"] <= TRAIN_LOSS_TOL, f"train {name}: loss {a}")
+            check(a["stats_rel"] <= TRAIN_STATS_TOL, f"train {name}: running stats {a}")
+        a = agreement["kernels_stats_f32"]
+        check(a["min_grad_cosine"] >= TRAIN_GRAD_COS and a["loss_rel"] <= TRAIN_F32_LOSS_TOL,
+              f"train kernels_stats_f32: {a}")
+        results["kernels_vs_plain"] = agreement
+        results["full"]["dy_copies"] = agreement["kernels_full"]["dy_copies_per_step"]
+        del base, steps
+
+        # ms per train step, the three variants in alternating windows.
+        net, step = exp.net.train(), exp._train_step
+        res = net.feat_extractor.res
+
+        def run(name):
+            kernels, mode = variants[name]
+            net.set_kernels(kernels)
+            res.bn_mode = mode
+            return step(image, target, noise)
+
+        for name in variants:
+            for _ in range(2):
+                run(name)
+        torch.cuda.synchronize()
+        order = tuple(variants)
+        runs = {name: [] for name in order}
+        n_steps = 0
+        torch.cuda.reset_peak_memory_stats()
+        for r in range(RUNS):
+            for name in (order if r % 2 == 0 else order[::-1]):
+                count, t1 = 0, time.perf_counter()
+                while time.perf_counter() - t1 < STEP_WINDOW_S:
+                    run(name)
+                    count += 1
+                torch.cuda.synchronize()
+                runs[name].append((time.perf_counter() - t1) * 1e3 / count)
+                n_steps += count
+        results["ms_per_step"] = {name: spread(v) for name, v in runs.items()}
+        results["steps_timed"] = n_steps
+        results["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+        # Where a step's time goes: a torch.profiler trace of 3 steps of the
+        # default variant (kernels, "stats").
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts):  # pays the tracer's start-up
+            run("kernels_stats")
+            torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(3):
+                run("kernels_stats")
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in device) / 1e3 / 3
+        untraced = results["ms_per_step"]["kernels_stats"]["median"]
+        top = sorted(device, key=lambda e: -e.self_device_time_total)[:15]
+        results["trace"] = {"device_ms_per_step": dev_ms,
+                            "device_ops_per_step": sum(e.count for e in device) / 3,
+                            "busy_share": dev_ms / untraced,
+                            "top_ops": [{"name": e.key[:90],
+                                         "ms_per_step": e.self_device_time_total / 1e3 / 3,
+                                         "calls_per_step": e.count / 3} for e in top]}
+        print(events.table(sort_by="self_device_time_total", row_limit=20,
+                           max_name_column_width=70), flush=True)
+        net.set_kernels(True)
+        res.bn_mode = "full"
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -763,15 +1174,24 @@ def main() -> int:
 
     results = []
     for phase in (phase_stem, phase_stage1, phase_sampler, phase_lbs, phase_stage1_int8,
-                  phase_sampler_int8):
-        r = phase(torch, dev)
-        results.append(r)
-        print(f"kernel {r['name']}: max-abs error {r['max_abs_err']:.6g} (tol {r['tol']:.6g}); "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); median [min, max] of {RUNS} "
-              f"windows of >= {KERNEL_WINDOW_S} s [{card}]:", flush=True)
-        for key in TIMES:
-            t = r[key]
-            print(f"  {key}: {t['median']:.4f} [{t['min']:.4f}, {t['max']:.4f}]", flush=True)
+                  phase_sampler_int8, phase_bn_sums, phase_sampler_f32):
+        out = phase(torch, dev)
+        for r in (out if isinstance(out, list) else [out]):
+            results.append(r)
+            err = (f"max-abs error {r['max_abs_err']:.6g}, {r['err_share']:.3g} of the "
+                   f"channel's sum of |values| (tol {r['tol']:.3g})" if "err_share" in r
+                   else f"max-abs error {r['max_abs_err']:.6g} (tol {r['tol']:.6g})")
+            print(f"kernel {r['name']}: {err}; bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+                  f"median [min, max] of {RUNS} windows of >= {KERNEL_WINDOW_S} s [{card}]:",
+                  flush=True)
+            for key in TIMES:
+                t = r[key]
+                print(f"  {key}: {t['median']:.4f} [{t['min']:.4f}, {t['max']:.4f}]", flush=True)
+            if "library_ms" in r:
+                print(f"  library ({r['library']}): {r['library_ms']:.4f}", flush=True)
+            if "other_shape" in r:
+                print(f"  at {r['other_shape']['shape']}: {json.dumps(r['other_shape'])}",
+                      flush=True)
 
     launches, agree, http_ms, timing = phase_slice(torch, dev)
     for b, t in timing.items():
@@ -793,19 +1213,37 @@ def main() -> int:
               f"{summ['loss_total']:.6g}; median {ms['median']:.3f} ms/batch of {EVAL_BATCH} "
               f"[{ms['min']:.3f}, {ms['max']:.3f}] over {e['batches']} batches, "
               f"{e['hypotheses_per_s']:.1f} hypotheses/s [{card}]", flush=True)
+        if "ms_per_batch_plain_kld_draw" in e:
+            old = e["ms_per_batch_plain_kld_draw"]
+            print(f"eval {label}, reverse-KL draw on the plain f32 flow (the routing before "
+                  f"the f32 kernel), same windows alternating: median {old['median']:.3f} "
+                  f"ms/batch [{old['min']:.3f}, {old['max']:.3f}] [{card}]", flush=True)
     verts_launches, verts_err = phase_verts(torch, dev)
+    train = phase_train(torch, dev)
+    for variant, t in train["ms_per_step"].items():
+        print(f"train step {variant}: median {t['median']:.3f} ms/step of B={TRAIN_BATCH} "
+              f"[{t['min']:.3f}, {t['max']:.3f}] over {RUNS} windows of >= {STEP_WINDOW_S} s "
+              f"[{card}]", flush=True)
+    print(f"train trace (kernels, stats): {json.dumps(train['trace'])}; peak memory "
+          f"{train['peak_memory_gb']:.2f} GB; dy copies per full step "
+          f"{train['full']['dy_copies']}", flush=True)
 
     path_launches = {"stem": launches, "stage1": launches, "realnvp_sampler": launches,
                      "lbs_blend": verts_launches, "stage1_int8": int8_launches[f"b{BATCH}"],
-                     "realnvp_sampler_int8": int8_launches[f"b{BATCH}"]}
+                     "realnvp_sampler_int8": int8_launches[f"b{BATCH}"],
+                     "bn_stats_sums": train["false"]["launches"],
+                     "realnvp_sampler_f32": train["false"]["launches"],
+                     "bn_grad_sums": train["full"]["launches"]}
     kernels = [{"name": r["name"], "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": path_launches[r["name"]][r["name"]],
                 "max_abs_err": r["max_abs_err"],
                 **{key: r[key]["median"] for key in TIMES},
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r["plain_ms"]["median"] if r["library"] == "plain" else None,
+                "library_ms": r.get("library_ms", r["plain_ms"]["median"]
+                                    if r["library"] == "plain" else None),
                 **{k: r[k] for k in ("tol", "max_abs_err_x", "max_abs_err_logdet",
-                                     "mean_abs_err_x", "bf16_exact_share") if k in r},
+                                     "mean_abs_err_x", "bf16_exact_share", "err_share",
+                                     "grad_rel_err", "other_shape") if k in r},
                 **{f"{key}_min_max": [r[key]["min"], r[key]["max"]] for key in TIMES}}
                for r in results]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -814,7 +1252,8 @@ def main() -> int:
                       "int8_serving": {"launches": int8_launches, "timing": int8_timing,
                                        "int8_vs_float": int8_diff},
                       "eval": evals, "verts": {"launches": verts_launches,
-                                               "kernel_vs_plain_max_abs": verts_err}}),
+                                               "kernel_vs_plain_max_abs": verts_err},
+                      "train": train}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

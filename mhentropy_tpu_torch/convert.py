@@ -11,7 +11,9 @@ into `models.mhent.MHEnt` with `strict=True`; so does a reference
 `qtree_from_jax` and `flowq_from_jax` turn the JAX package's quantised
 trees (models/quant.py's qtree, flows/pallas_sampler_int8.py's FlowQTree),
 given as numpy arrays, into the port's, so that both packages compute with
-the same int8 weights and scales.
+the same int8 weights and scales. `opt_state_from_jax` turns the optax Adam
+state of the JAX `make_optimizer` into the port's Adam moments by
+parameter name, so a JAX-trained state continues in the port.
 """
 
 from __future__ import annotations
@@ -97,6 +99,33 @@ def from_jax(params: dict, batch_stats: dict) -> dict:
     _linear(sd, "det_head.0", params["det_head"]["l0"])
     _linear(sd, "det_head.2", params["det_head"]["l1"])
     return sd
+
+
+def opt_state_from_jax(opt_state) -> dict:
+    """optax state of chain(clip_by_global_norm, adam(schedule)), given as
+    numpy arrays ((EmptyState(), (ScaleByAdamState(count, mu, nu),
+    ScaleByScheduleState(count)))) -> {"count": updates taken, "state":
+    {parameter name: {"exp_avg": mu, "exp_avg_sq": nu}}}, the names mapped
+    as `from_jax` maps the params (engine.Optimizer.load_moments)."""
+    def find(node):
+        if hasattr(node, "mu") and hasattr(node, "nu"):
+            return node
+        if isinstance(node, (tuple, list)):
+            for child in node:
+                found = find(child)
+                if found is not None:
+                    return found
+        return None
+
+    adam = find(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the optax state")
+    mu, nu = from_jax(adam.mu, {}), from_jax(adam.nu, {})
+    # The masks' moments (a buffer in the port) and the BN counters are no
+    # parameters.
+    names = [k for k in mu if not k.endswith(("num_batches_tracked", "q_z_giv_i.mask"))]
+    return {"count": int(np.asarray(adam.count)),
+            "state": {k: {"exp_avg": mu[k], "exp_avg_sq": nu[k]} for k in names}}
 
 
 def _tensor(a, dtype=None, device="cpu") -> torch.Tensor:

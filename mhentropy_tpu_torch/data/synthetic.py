@@ -2,7 +2,8 @@
 consistent targets, the stand-in when no dataset directory is configured.
 
 Port of mhentropy_tpu/data/synthetic.py: `_render_keypoint_splats` :30,
-`make_dataset` :50 and `batches` :110. The draws come from numpy's
+`make_dataset` :50 and `batches` :110 (with the batch-order shuffle of
+data/common.py :145-151). The draws come from numpy's
 RandomState in the JAX package's order and the decode runs the port's MANO
 (on the CPU), so both packages build the same dataset for the same seed.
 Targets stay numpy; `batches` yields torch tensors on the requested device.
@@ -89,15 +90,21 @@ def make_dataset(model: ManoModel, n: int = 32, image_size: int = 64, seed: int 
 
 
 def batches(data: SyntheticHandData, batch_size: int, pad_remainder: bool = False,
-            device="cpu"):
+            device="cpu", shuffle: bool = False, seed: int = 0):
     """Yield (image, target) batches as tensors on `device`.
 
     pad_remainder=True keeps the tail: the last short batch is padded to
     batch_size by wrapping, and every target carries a `valid` (B,) mask.
+    shuffle=True permutes the ORDER of the batches with
+    RandomState(seed).permutation, as the JAX package's data/common.py
+    `batches` does for this container (:145-151); their composition stays.
     """
     n = data.images.shape[0]
     end = n if pad_remainder else n - batch_size + 1
-    for i in range(0, end, batch_size):
+    starts = list(range(0, end, batch_size))
+    if shuffle:
+        starts = [starts[i] for i in np.random.RandomState(seed).permutation(len(starts))]
+    for i in starts:
         idx = np.arange(i, min(i + batch_size, n))
         k = idx.shape[0]
         if k < batch_size:

@@ -40,6 +40,9 @@ _SIGNATURES = {
     "mhent_lbs_blend": [_P] * 5 + [_I] * 3 + [_P],
     "mhent_stage1_int8_block": [_P] * 15 + [_I] * 4 + [_P],
     "mhent_realnvp_sample_q": [_P] * 13 + [_I] * 6 + [_P],
+    "mhent_realnvp_sample_f32": [_P] * 11 + [_I] * 6 + [_P],
+    "mhent_bn_stats_sums": [_P] * 4 + [_I] * 4 + [_P],
+    "mhent_bn_grad_sums": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 

@@ -1,21 +1,31 @@
-"""Fused RealNVP hypothesis sampler: the CUDA kernel and its plain version.
+"""Fused RealNVP hypothesis sampler: the CUDA kernels and their plain version.
 
 Replaces mhentropy_tpu/flows/pallas_sampler.py::sample_fused (:191; Pallas
-`_kernel` :64 via `_fused_transform` :115). The kernel is
-`csrc/realnvp_sampler.cu`; its header says what bounds it on the H100 and
-how its design answers that. Here:
+`_kernel` :64 via `_fused_transform` :115) with `csrc/realnvp_sampler.cu`
+(bf16 weights), and `sample_fused_diff` (:338) / `transform_diff` (:288) with
+`csrc/realnvp_sampler_f32.cu` (f32 weights, the `_kernel_transform` :304
+launch) under a `torch.autograd.Function`. Each source's header says what
+bounds its kernel on the H100 and how its design answers that. Here:
 
-* `pack` lays a flow's weights out for the kernel once (D padded to a
-  multiple of 16 with mask = 1 on the padding, the s and t nets stacked).
+* `pack` lays a flow's weights out for the kernels (D padded to a multiple of
+  16 with mask = 1 on the padding, the s and t nets stacked), in bf16 for
+  the eval draw or f32 for the differentiable one.
 * `transform` is the wrapper: image-major base samples (B, R, D) and the
   per-image conditioning cache (L, 4, B, H) -> (x (B, R, D), logdet (B, R)).
-  CPU tensors take `transform_plain`; CUDA tensors launch the kernel, and
-  anything it does not take raises.
+  CPU tensors take `transform_plain`; CUDA tensors launch the kernel of the
+  packed weights' dtype, and anything it does not take raises.
 * `sample_fused` is the drop-in for the flow draw: hypothesis-major rows in,
   hypothesis-major rows and log q out.
+* `sample_fused_diff` is the same draw under autograd: `TransformDiff`'s
+  forward packs f32 weights and runs `transform`; its backward recomputes the
+  plain f32 flow (`realnvp.forward`) from the saved (z0, cproj) and the
+  flow's parameters, as `_transform_bwd` :327 reruns the XLA scan. The JAX
+  package has no backward kernel here, and neither has the port. The masks
+  are a buffer and get no gradient (`stop_gradient` in the JAX flow).
 
-The kernel reads bf16 weights and accumulates in f32, with x and the log-det
-in f32, as the JAX path runs the fused sampler at h <= 512.
+The bf16 kernel accumulates in f32, with x and the log-det in f32, as the
+JAX path runs the fused sampler at h <= 512; the f32 kernel computes in f32
+FMAs, so its forward is the plain f32 flow's to rounding.
 """
 
 from __future__ import annotations
@@ -29,18 +39,19 @@ from mhentropy_tpu_torch import ext
 from mhentropy_tpu_torch.flows import realnvp
 from mhentropy_tpu_torch.flows.priors import std_normal_logp
 
-# Kernel launches since the count was last reset; nothing else touches it.
-launches = 0
+# Kernel launches since the counts were last reset; nothing else touches them.
+launches = 0  # bf16 weights (realnvp_sampler.cu)
+launches_f32 = 0  # f32 weights (realnvp_sampler_f32.cu)
 
 
 class Packed(NamedTuple):
-    masks: torch.Tensor  # (L, Dp) f32, 1 on padded dims
+    masks: torch.Tensor  # (L, Dp) 1 on padded dims
     w0: torch.Tensor  # (L, 2, Dp, H)   net 0 = s, 1 = t; [in, out]
     w1: torch.Tensor  # (L, 2, H, H)
     w2: torch.Tensor  # (L, 2, H, Dp)
-    b0: torch.Tensor  # (L, 2, H) f32
-    b1: torch.Tensor  # (L, 2, H) f32
-    b2: torch.Tensor  # (L, 2, Dp) f32
+    b0: torch.Tensor  # (L, 2, H)
+    b1: torch.Tensor  # (L, 2, H)
+    b2: torch.Tensor  # (L, 2, Dp)
     dim: int
 
 
@@ -50,28 +61,30 @@ def _round_up(x: int, m: int) -> int:
 
 @torch.no_grad()
 def pack(flow: realnvp.RealNVP, dtype=torch.bfloat16) -> Packed:
+    """Weights in `dtype`; masks and biases in f32 (f64 for f64 weights).
+    One stack per field over all layers: the training step packs the f32
+    weights at every draw, and the host issues these operations."""
     d = flow.cfg.dim
     dp = _round_up(d, 16)
     pad = dp - d
-    lays = realnvp.layers(flow)
+    n_layers = flow.cfg.n_layers
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
 
-    def padded(t, rows, cols):
-        return F.pad(t.float(), (0, cols) if t.dim() == 1 else (0, cols, 0, rows))
-
-    def stack(name, rows=0, cols=0, out_dtype=dtype):
-        return torch.stack([
-            torch.stack([padded(getattr(lay, f"{net}_{name}"), rows, cols) for net in "st"])
-            for lay in lays
-        ]).to(out_dtype).contiguous()
+    def stack(j: int, attr: str) -> torch.Tensor:
+        """(L, 2, ...) of linear j's `attr` in the s and t nets; weights [in, out]."""
+        t = torch.stack([getattr(net[i].l[j], attr) for i in range(n_layers)
+                         for net in (flow.s, flow.t)])
+        t = t.view(n_layers, 2, *t.shape[1:])
+        return t.transpose(-1, -2) if attr == "weight" else t
 
     return Packed(
-        masks=F.pad(flow.mask.float(), (0, pad), value=1.0).contiguous(),
-        w0=stack("w0", rows=pad),
-        w1=stack("w1"),
-        w2=stack("w2", cols=pad),
-        b0=stack("b0", out_dtype=torch.float32),
-        b1=stack("b1", out_dtype=torch.float32),
-        b2=stack("b2", cols=pad, out_dtype=torch.float32),
+        masks=F.pad(flow.mask.to(acc), (0, pad), value=1.0).contiguous(),
+        w0=F.pad(stack(0, "weight"), (0, 0, 0, pad)).to(dtype).contiguous(),
+        w1=stack(1, "weight").to(dtype).contiguous(),
+        w2=F.pad(stack(2, "weight"), (0, pad)).to(dtype).contiguous(),
+        b0=stack(0, "bias").to(acc).contiguous(),
+        b1=stack(1, "bias").to(acc).contiguous(),
+        b2=F.pad(stack(2, "bias"), (0, pad)).to(acc).contiguous(),
         dim=d,
     )
 
@@ -80,7 +93,7 @@ def transform(packed: Packed, z0: torch.Tensor, cproj: torch.Tensor):
     """(B, R, D) image-major base samples through every coupling layer.
 
     cproj: (L, 4, B, H) per-image conditioning projections.
-    Returns (x (B, R, D) f32, logdet (B, R) f32).
+    Returns (x (B, R, D), logdet (B, R)), f32 (f64 for f64 inputs on the CPU).
     """
     if z0.device.type == "cpu":
         return transform_plain(packed, z0, cproj)
@@ -89,25 +102,30 @@ def transform(packed: Packed, z0: torch.Tensor, cproj: torch.Tensor):
 
 def transform_plain(packed: Packed, z0: torch.Tensor, cproj: torch.Tensor):
     """The Python loop over `realnvp.forward_layer`, on the packed weights
-    widened to f32 (padded dims pass through exactly)."""
+    widened to z0's precision, at least f32 (padded dims pass through
+    exactly)."""
     b, r, d = z0.shape
     dp = packed.masks.shape[1]
-    x = F.pad(z0.float(), (0, dp - d)).reshape(b * r, dp)
+    dt = torch.promote_types(z0.dtype, torch.float32)
+    x = F.pad(z0.to(dt), (0, dp - d)).reshape(b * r, dp)
     logdet = x.new_zeros(b * r)
     for l in range(packed.masks.shape[0]):
-        ws = [getattr(packed, n)[l].float() for n in ("w0", "b0", "w1", "b1", "w2", "b2")]
-        layer = realnvp.Layer(packed.masks[l], *(w[0] for w in ws), *(w[1] for w in ws))
-        cp = cproj[l].repeat_interleave(r, dim=1)  # image-major row alignment
+        ws = [getattr(packed, n)[l].to(dt) for n in ("w0", "b0", "w1", "b1", "w2", "b2")]
+        layer = realnvp.Layer(packed.masks[l].to(dt), *(w[0] for w in ws), *(w[1] for w in ws))
+        cp = cproj[l].to(dt).repeat_interleave(r, dim=1)  # image-major row alignment
         x, logdet = realnvp.forward_layer(layer, cp, x, logdet)
     return x.reshape(b, r, dp)[..., :d], logdet.reshape(b, r)
 
 
 def _transform_kernel(packed: Packed, z0: torch.Tensor, cproj: torch.Tensor):
-    global launches
+    global launches, launches_f32
     ext.require(z0.is_cuda, f"fused sampler: unsupported device {z0.device}")
     b, r, d = z0.shape
     n_layers, dp = packed.masks.shape
     h = packed.w1.shape[-1]
+    wdtype = packed.w1.dtype
+    ext.require(wdtype in (torch.bfloat16, torch.float32),
+                f"fused sampler: packed weights are {wdtype}, not bfloat16 or float32")
     ext.require(z0.dtype == torch.float32 and z0.is_contiguous(),
                 "fused sampler: z0 must be contiguous float32 (B, R, D)")
     ext.require(d == packed.dim, f"fused sampler: z0 has D={d}, flow has {packed.dim}")
@@ -115,23 +133,34 @@ def _transform_kernel(packed: Packed, z0: torch.Tensor, cproj: torch.Tensor):
                 and cproj.is_contiguous(),
                 f"fused sampler: cproj must be contiguous float32 {(n_layers, 4, b, h)}, "
                 f"got {tuple(cproj.shape)} {cproj.dtype}")
-    ext.require(h % 64 == 0, f"fused sampler: hidden width {h} is not a multiple of 64")
+    if wdtype == torch.bfloat16:
+        ext.require(h % 64 == 0, f"fused sampler: hidden width {h} is not a multiple of 64")
+    else:
+        ext.require(h % 4 == 0, f"fused f32 sampler: hidden width {h} is not a multiple of 4")
     for name in ("w0", "w1", "w2"):
         t = getattr(packed, name)
-        ext.require(t.dtype == torch.bfloat16 and t.is_contiguous(),
-                    f"fused sampler: packed {name} must be contiguous bfloat16")
+        ext.require(t.dtype == wdtype and t.is_contiguous(),
+                    f"fused sampler: packed {name} must be contiguous {wdtype}")
+    for name in ("masks", "b0", "b1", "b2"):
+        t = getattr(packed, name)
+        ext.require(t.dtype == torch.float32 and t.is_contiguous(),
+                    f"fused sampler: packed {name} must be contiguous float32")
     for t in (cproj, *packed[:7]):
         ext.require(t.device == z0.device, "fused sampler: tensors on different devices")
     x = torch.empty_like(z0)
     logdet = torch.empty((b, r), dtype=torch.float32, device=z0.device)
     lib = ext.load()
-    err = lib.mhent_realnvp_sample(
-        z0.data_ptr(), cproj.data_ptr(), packed.masks.data_ptr(),
-        packed.w0.data_ptr(), packed.w1.data_ptr(), packed.w2.data_ptr(),
-        packed.b0.data_ptr(), packed.b1.data_ptr(), packed.b2.data_ptr(),
-        x.data_ptr(), logdet.data_ptr(), b, r, d, dp, h, n_layers, ext.stream_of(z0))
-    ext.check(err, "mhent_realnvp_sample")
-    launches += 1
+    fn, name = ((lib.mhent_realnvp_sample, "mhent_realnvp_sample") if wdtype == torch.bfloat16
+                else (lib.mhent_realnvp_sample_f32, "mhent_realnvp_sample_f32"))
+    err = fn(z0.data_ptr(), cproj.data_ptr(), packed.masks.data_ptr(),
+             packed.w0.data_ptr(), packed.w1.data_ptr(), packed.w2.data_ptr(),
+             packed.b0.data_ptr(), packed.b1.data_ptr(), packed.b2.data_ptr(),
+             x.data_ptr(), logdet.data_ptr(), b, r, d, dp, h, n_layers, ext.stream_of(z0))
+    ext.check(err, name)
+    if wdtype == torch.bfloat16:
+        launches += 1
+    else:
+        launches_f32 += 1
     return x, logdet
 
 
@@ -151,5 +180,63 @@ def sample_fused(flow: realnvp.RealNVP, packed: Packed, feat: torch.Tensor,
     cproj = realnvp.cond_cache(flow, realnvp.make_cond(flow, feat)).float().contiguous()
     z0 = z0_rows.reshape(n, b, d).transpose(0, 1).contiguous()  # image-major
     x, logdet = transform(packed, z0, cproj)
+    lp = std_normal_logp(z0) - logdet
+    return x.transpose(0, 1).reshape(n * b, d), lp.transpose(0, 1).reshape(n * b)
+
+
+def transform_params(flow: realnvp.RealNVP) -> list[torch.Tensor]:
+    """The parameters the coupling transform reads (the s and t nets'
+    linears, not the conditioning projections, which enter through cproj)."""
+    return [p for net in (*flow.s, *flow.t) for lin in net.l for p in (lin.weight, lin.bias)]
+
+
+def transform_reference(flow: realnvp.RealNVP, z0: torch.Tensor, cproj: torch.Tensor):
+    """The plain f32 flow on image-major rows, under autograd
+    (pallas_sampler._xla_equivalent): (B, R, D), (L, 4, B, H) -> (x, logdet)."""
+    b, r, d = z0.shape
+    x, logdet = realnvp.forward(flow, z0.reshape(b * r, d), cproj.repeat_interleave(r, dim=2))
+    return x.reshape(b, r, d), logdet.reshape(b, r)
+
+
+class TransformDiff(torch.autograd.Function):
+    """`transform` with f32 weights, differentiable in z0, cproj and the
+    flow's transform parameters: kernel forward, plain-flow backward."""
+
+    @staticmethod
+    def forward(ctx, flow, z0, cproj, *weights):
+        # weights are transform_params(flow), passed so that autograd routes
+        # their gradients; the backward differentiates the flow's own.
+        dtype = torch.float64 if z0.dtype == torch.float64 else torch.float32
+        x, logdet = transform(pack(flow, dtype=dtype), z0, cproj)
+        ctx.flow = flow
+        ctx.save_for_backward(z0, cproj)
+        return x, logdet
+
+    @staticmethod
+    def backward(ctx, dx, dlogdet):
+        z0, cproj = ctx.saved_tensors
+        with torch.enable_grad():
+            z = z0.detach().requires_grad_()
+            c = cproj.detach().requires_grad_()
+            x, logdet = transform_reference(ctx.flow, z, c)
+            grads = torch.autograd.grad((x, logdet), (z, c, *transform_params(ctx.flow)),
+                                        (dx, dlogdet))
+        return (None, *grads)
+
+
+def transform_diff(flow: realnvp.RealNVP, z0: torch.Tensor, cproj: torch.Tensor):
+    return TransformDiff.apply(flow, z0, cproj, *transform_params(flow))
+
+
+def sample_fused_diff(flow: realnvp.RealNVP, feat: torch.Tensor, n: int,
+                      z0_rows: torch.Tensor):
+    """`sample_fused` under autograd (pallas_sampler.sample_fused_diff): the
+    same hypothesis-major rows in and out, gradients to feat (through the
+    conditioning cache), the flow's parameters and the noise."""
+    b = feat.shape[0]
+    d = flow.cfg.dim
+    cproj = realnvp.cond_cache(flow, realnvp.make_cond(flow, feat)).contiguous()
+    z0 = z0_rows.reshape(n, b, d).transpose(0, 1).contiguous()  # image-major
+    x, logdet = transform_diff(flow, z0, cproj)
     lp = std_normal_logp(z0) - logdet
     return x.transpose(0, 1).reshape(n * b, d), lp.transpose(0, 1).reshape(n * b)

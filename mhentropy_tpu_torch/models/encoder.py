@@ -1,8 +1,12 @@
-"""BasicEnc: backbone + mu / sigma linear heads, eval mode.
+"""BasicEnc: backbone + mu / sigma linear heads, eval and train mode.
 
-Port of mhentropy_tpu/models/encoder.py (`EncoderConfig` :23, `apply`
-:105). The heads are `nn.Sequential(nn.Linear)`, so the parameter names are
-the reference's `l1.0.*` / `l2.0.*`. MHEnt conditions on the mu head.
+Port of mhentropy_tpu/models/encoder.py (`EncoderConfig` :23 with
+`fused_train_bn` :42, `backbone_features` :77, `apply` :105). The heads are
+`nn.Sequential(nn.Linear)`, so the parameter names are the reference's
+`l1.0.*` / `l2.0.*`. MHEnt conditions on the mu head. The module's mode
+is the JAX `train` argument: in `.train()` the backbone's BatchNorms use
+batch statistics and update their running mean and variance in place,
+PyTorch's idiom for the new batch stats the JAX `apply` returns.
 """
 
 from __future__ import annotations
@@ -22,23 +26,38 @@ class EncoderConfig(NamedTuple):
     sigma_act: str = "exp"
     deterministic: bool = False
     dtype: str = "bfloat16"  # backbone compute dtype
+    # Train-mode BN structure around the card's sum kernels: False | True
+    # ("stats") | "full" (models/bn_cuda.py; utils/config.py says why the
+    # first two are one run on the card).
+    fused_train_bn: bool | str = False
 
     def resolved_feat_dim(self) -> int:
         return self.feat_dim or resnet.FEAT_DIMS[self.backbone]
+
+
+def train_bn_mode(fused_train_bn: bool | str) -> str:
+    """EncoderConfig.fused_train_bn -> the train BN mode: "full" or "stats"."""
+    if isinstance(fused_train_bn, str):
+        if fused_train_bn not in ("stats", "full"):
+            raise ValueError(f"fused_train_bn {fused_train_bn!r}; expected false, true, "
+                             f"'stats' or 'full'")
+        return fused_train_bn
+    return "stats"
 
 
 class Encoder(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         self.cfg = cfg
-        self.res = resnet.make_backbone(cfg.backbone)
+        self.res = resnet.make_backbone(cfg.backbone, dtype=getattr(torch, cfg.dtype),
+                                        bn_mode=train_bn_mode(cfg.fused_train_bn))
         f = cfg.resolved_feat_dim()
         self.l1 = nn.Sequential(nn.Linear(f, cfg.n_latent[0]))
         self.l2 = nn.Sequential(nn.Linear(f, cfg.n_latent[1]))
 
     def forward(self, image: torch.Tensor):
         """(B, H, W, 3) NHWC image -> (mu, sigma), both f32. The sampled
-        latent of the JAX `apply` is never drawn on the serving path."""
+        latent of the JAX `apply` is never drawn by the port's paths."""
         feats = self.res(image)
         mn = self.l1(feats)
         sd = self.l2(feats)

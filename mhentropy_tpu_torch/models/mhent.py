@@ -4,11 +4,11 @@ Port of mhentropy_tpu/models/mhent.py: `MHEntConfig` :48, `make_priors`
 :102, `init` :118, `det_head_apply` :149, `extract_feat` :155, `combine_z`
 :166, the realnvp branches of `sample_q_z` :181 (the int8 `flow_q` draw
 and the plain `differentiable` one included), `decode` :339,
-`forward_log_p` :384, `reverse_kld` :446 for `train=False` (the eval
-step's log p, with the entropy term and the chamfer branch) and
+`forward_log_p` :384, `reverse_kld` :446 (the training objective and the
+eval step's log p, with the entropy term and the chamfer branch) and
 `sample_hypotheses` :496 (with `quant=` and the top-N_quant filter :540).
-Training and the Glow / det regressors are not ported yet (ROADMAP queue 1,
-items 4 and 9).
+The Glow / det regressors and `kld_weight` :566 are not ported yet (ROADMAP
+queue 1, items 9 and 4).
 
 The module's parameter names are the reference's `encoderRGB` state_dict:
 `feat_extractor.res.*`, `feat_extractor.l1.0.*`, `q_z_giv_i.*`,
@@ -77,10 +77,10 @@ class MHEnt(nn.Module):
         self.packed_flow = None  # the flow's weights for the fused sampler (prepare)
 
     def set_kernels(self, enabled: bool) -> None:
-        """Route the float CUDA path through its kernels (stem, stage 1,
-        bf16 sampler; the default) or through their plain PyTorch versions,
-        e.g. to compare the two. The LBS blend and the int8 path route by
-        device alone."""
+        """Route the float CUDA path through its kernels (stem, stage 1, the
+        train-mode BN sums, the bf16 and f32 samplers; the default) or
+        through their plain PyTorch versions, e.g. to compare the two. The
+        LBS blend and the int8 path route by device alone."""
         self.feat_extractor.res.kernels = enabled
         self.kernels = enabled
 
@@ -104,13 +104,26 @@ def init(cfg: MHEntConfig, seed: int = 0) -> MHEnt:
     return net
 
 
-def prepare(net: MHEnt, device) -> MHEnt:
-    """Eval mode on `device`; the backbone in its compute dtype and in
-    channels_last memory, the flow and heads in f32; the kernels' weights
-    folded and packed from the module's. Run it again after changing weights."""
+def prepare(net: MHEnt, device, masters: bool = False) -> MHEnt:
+    """Eval mode on `device`; the backbone in channels_last memory, the flow
+    and heads in f32; the kernels' weights folded and packed from the
+    module's. The backbone's parameters are cast to its compute dtype in
+    place, unless `masters` keeps them f32 for training (each conv then
+    casts its weight in the forward). Run it, or `refresh_kernel_weights`,
+    again after changing weights."""
     net.eval().to(device)
-    dtype = getattr(torch, net.cfg.encoder.dtype)
-    net.feat_extractor.res.to(dtype=dtype, memory_format=torch.channels_last)
+    res = net.feat_extractor.res
+    if masters:
+        res.to(memory_format=torch.channels_last)
+    else:
+        res.to(dtype=getattr(torch, net.cfg.encoder.dtype), memory_format=torch.channels_last)
+    return refresh_kernel_weights(net)
+
+
+@torch.no_grad()
+def refresh_kernel_weights(net: MHEnt) -> MHEnt:
+    """Fold the stem's and stage 1's eval BN and pack the flow for the eval
+    kernels, from the module's current weights."""
     net.feat_extractor.res.fold_kernel_weights()
     net.packed_flow = cuda_sampler.pack(net.q_z_giv_i)
     return net
@@ -135,8 +148,14 @@ def det_head_apply(net: MHEnt, feat: torch.Tensor) -> torch.Tensor:
     return net.det_head(feat)
 
 
-def extract_feat(net: MHEnt, image: torch.Tensor) -> torch.Tensor:
-    """Conditioning feature = the encoder's mu head."""
+def extract_feat(net: MHEnt, image: torch.Tensor, train: bool = False) -> torch.Tensor:
+    """Conditioning feature = the encoder's mu head. train: batch-statistics
+    BN that updates the running statistics in place; the encoder must be in
+    that mode already (`net.train()` / `net.eval()`)."""
+    if net.feat_extractor.training != train:
+        raise ValueError(f"extract_feat(train={train}) on an encoder in "
+                         f"{'train' if net.feat_extractor.training else 'eval'} mode: call "
+                         f"net.{'train' if train else 'eval'}() first")
     mn, _ = net.feat_extractor(image)
     return mn
 
@@ -163,8 +182,13 @@ def sample_q_z(net: MHEnt, feat: torch.Tensor, n: int, temp: float = 1.0,
     Rows are hypothesis-major (N blocks of B). base_noise: (n * B, 45), already
     times temp; drawn from `generator` when None. flow_q: the int8 sampler's
     tree; the draw then runs the W8A8 sampler (its kernel on the card).
-    differentiable: the plain f32 flow on every device, as the JAX package
-    runs the XLA scan for the reverse-KL draw.
+    differentiable: the reverse-KL draw, gradients to the flow, feat and the
+    noise; on the card it runs the f32 sampler kernel under autograd
+    (`cuda_sampler.sample_fused_diff`), on the CPU the plain f32 flow. The
+    JAX package's gates on its fused samplers (`use_pallas_sampler`,
+    `pallas_min_rows`, off under grad) were set on the TPU; on the card the
+    kernels always run, and `set_kernels(False)` is the A/B switch (PERF.md
+    has the H100 A/B).
 
     Returns z (n * B, 61) and log q (n * B,).
     """
@@ -174,9 +198,12 @@ def sample_q_z(net: MHEnt, feat: torch.Tensor, n: int, temp: float = 1.0,
     if base_noise is None:
         base_noise = torch.randn((n * b, cfg.flow.dim), generator=generator,
                                  device=feat.device) * temp
+    fused = feat.is_cuda and net.kernels
     if flow_q is not None and not differentiable:
         z_flow, log_q = cuda_sampler_int8.sample_fused_q(flow, flow_q, feat, n, base_noise)
-    elif feat.is_cuda and net.kernels and not differentiable:
+    elif fused and differentiable:
+        z_flow, log_q = cuda_sampler.sample_fused_diff(flow, feat, n, base_noise)
+    elif fused:
         if net.packed_flow is None:
             raise RuntimeError("the fused sampler needs the packed flow; run mhent.prepare")
         z_flow, log_q = cuda_sampler.sample_fused(flow, net.packed_flow, feat, n, base_noise)
@@ -246,15 +273,14 @@ def reverse_kld(model: ManoModel, net: MHEnt, y: dict, image: torch.Tensor,
                 base_noise: torch.Tensor | None = None, train: bool = False, mods=("uv",),
                 generator: torch.Generator | None = None,
                 fold: mano.KeypointFold | None = None) -> dict:
-    """-KL(q(z|I) || p(y|z) p~(z)) up to a constant, per image: the eval
-    step's log p. base_noise: (n_train_hypotheses * B, 45) standard normal
-    (temperature 1), drawn from `generator` when None. Training (train=True)
-    is not ported yet."""
-    if train:
-        raise NotImplementedError("the training objective is not ported yet (ROADMAP queue 1, "
-                                  "item 4)")
+    """-KL(q(z|I) || p(y|z) p~(z)) up to a constant, per image: the
+    training objective and the eval step's log p. base_noise:
+    (n_train_hypotheses * B, 45) standard normal (temperature 1), drawn from
+    `generator` when None. train: batch-statistics BN (the net in train
+    mode, its running statistics updated in place); differentiate the
+    result under autograd for the training step."""
     cfg = net.cfg
-    feat = extract_feat(net, image)
+    feat = extract_feat(net, image, train=train)
     n, b = cfg.n_train_hypotheses, feat.shape[0]
     z, log_q = sample_q_z(net, feat, n, temp=1.0, base_noise=base_noise, generator=generator,
                           differentiable=True)

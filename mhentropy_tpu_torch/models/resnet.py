@@ -1,7 +1,8 @@
-"""ResNet-18/50 image backbone, eval mode, as PyTorch modules.
+"""ResNet-18/50 image backbone, eval and train mode, as PyTorch modules.
 
 Port of mhentropy_tpu/models/resnet.py: `BasicBlock` :159, `Bottleneck`
-:185 (v1.5, stride on the 3x3), `ResNet` :215, `resnet18` :328 and
+:185 (v1.5, stride on the 3x3), `ResNet` :215 (`__call__(train=)` :242 with
+`norm` :254-260 and `fused_train_bn` :239/:244-251), `resnet18` :328 and
 `resnet50` :336, under torchvision's parameter names (`conv1`, `bn1`,
 `layer1.0.conv1`, ..., `downsample.0/1`), so a reference checkpoint loads
 as-is. The space-to-depth stem (`S2DStemConv` :27) is not ported: it is off
@@ -15,6 +16,17 @@ in bfloat16, the stem and stage 1 run the port's CUDA kernels
 on the TPU; stages 2-4, the pool and the heads stay in plain PyTorch, as
 XLA ran them outside any kernel. Setting `kernels = False` runs the plain
 PyTorch modules there instead, to compare the two paths.
+
+In train mode (`.train()`) the stem and stage-1 kernels stay off, as their
+JAX gates say (`not train`), and every BatchNorm runs the flax train-mode
+math of `bn_cuda.batch_norm_train`: its channel sums are the `bn_cuda`
+kernels on the card, and `kernels = False` gives flax's plain statistics.
+`bn_mode` ("stats" or "full") picks the autograd structure around the
+kernels. The parameters may stay f32 masters while the compute runs in
+`dtype` (bf16): each conv casts its weight to its input's dtype in the
+forward (flax's `param_dtype` f32 / `dtype` bf16), and `.to` returns the
+very tensor when the dtypes already match, as on the serving path after
+`mhent.prepare` cast the module.
 """
 
 from __future__ import annotations
@@ -22,12 +34,33 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from mhentropy_tpu_torch.models import stage1_cuda, stem_cuda
+from mhentropy_tpu_torch.models import bn_cuda, stage1_cuda, stem_cuda
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in its input's dtype (the weight cast to it)."""
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype), self.bias)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d (same state_dict) whose train mode is flax's
+    (`bn_cuda.batch_norm_train`); eval mode is nn.BatchNorm2d's.
+    `mode` and `kernels` are set by the owning ResNet."""
+
+    mode = "stats"
+    kernels = True
+
+    def forward(self, x):
+        if self.training:
+            return bn_cuda.batch_norm_train(x, self, self.mode, self.kernels)
+        return super().forward(x)
 
 
 def _conv_bn(cin: int, cout: int, k: int, stride: int = 1):
-    return (nn.Conv2d(cin, cout, k, stride, k // 2, bias=False),
-            nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1))
+    return (Conv2d(cin, cout, k, stride, k // 2, bias=False),
+            BatchNorm2d(cout, eps=1e-5, momentum=0.1))
 
 
 class BasicBlock(nn.Module):
@@ -71,16 +104,18 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """Feature extractor: (B, H, W, 3) -> (B, feat_dim) pooled f32 features.
 
-    Compute runs in the parameters' dtype (cast the module to bfloat16 for the
-    kernel path); the image is cast to it at entry. The kernel path reads the
-    weights that `fold_kernel_weights` folded, so call it (`mhent.prepare`
-    does) after the weights are loaded and moved, and again after any change.
+    Compute runs in `dtype`, or in the parameters' dtype when it is None;
+    the image is cast to it at entry. The eval kernel path reads the weights
+    that `fold_kernel_weights` folded, so call it (`mhent.prepare` does)
+    after the weights are loaded and moved, and again after any change.
+    In train mode the BN running statistics are updated in place.
     """
 
-    def __init__(self, stage_sizes, block_cls, num_filters: int = 64):
+    def __init__(self, stage_sizes, block_cls, num_filters: int = 64, dtype=None,
+                 bn_mode: str = "stats"):
         super().__init__()
         self.block_cls = block_cls
-        self.kernels = True
+        self.dtype = dtype
         self.conv1, self.bn1 = _conv_bn(3, num_filters, 7, 2)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         inplanes = num_filters
@@ -95,6 +130,32 @@ class ResNet(nn.Module):
         # (folded stem (w, b), folded stage-1 blocks or None when stage 1 is
         # not resnet50's), set by fold_kernel_weights.
         self.folded = None
+        self.kernels = True
+        self.bn_mode = bn_mode
+
+    @property
+    def kernels(self) -> bool:
+        return self._kernels
+
+    @kernels.setter
+    def kernels(self, enabled: bool) -> None:
+        self._kernels = enabled
+        for m in self.modules():
+            if isinstance(m, BatchNorm2d):
+                m.kernels = enabled
+
+    @property
+    def bn_mode(self) -> str:
+        return self._bn_mode
+
+    @bn_mode.setter
+    def bn_mode(self, mode: str) -> None:
+        if mode not in ("stats", "full"):
+            raise ValueError(f"train BN mode {mode!r}; expected 'stats' or 'full'")
+        self._bn_mode = mode
+        for m in self.modules():
+            if isinstance(m, BatchNorm2d):
+                m.mode = mode
 
     @torch.no_grad()
     def fold_kernel_weights(self) -> None:
@@ -110,8 +171,7 @@ class ResNet(nn.Module):
         return self.kernels and not self.training and x.is_cuda and x.dtype == torch.bfloat16
 
     def forward(self, image: torch.Tensor) -> torch.Tensor:
-        dtype = self.conv1.weight.dtype
-        image = image.to(dtype)
+        image = image.to(self.dtype if self.dtype is not None else self.conv1.weight.dtype)
         kernels = self._use_kernels(image)
         if kernels and self.folded is None:
             raise RuntimeError("the CUDA kernel path needs ResNet.fold_kernel_weights() "
@@ -128,7 +188,8 @@ class ResNet(nn.Module):
         else:
             x = self.layer1(x)
         x = self.layer4(self.layer3(self.layer2(x)))
-        return x.mean(dim=(2, 3)).float()
+        x = x.mean(dim=(2, 3))
+        return x.to(torch.promote_types(x.dtype, torch.float32))  # f32 (f64 stays)
 
 
 def resnet18(**kw) -> ResNet:

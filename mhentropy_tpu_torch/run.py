@@ -1,11 +1,11 @@
 """CLI entry point of the port: `python -m mhentropy_tpu_torch.run --cfg configs/ho3d.yaml`.
 
 Port of run.py: reads the experiment YAML, builds the experiment and
-dispatches on training.mode. `baseline_VAE` with `epochs: 0` runs the
-initial eval loop (as the JAX `train_baseline` does before its first
-epoch); `eval` evaluates training.pth. Training (epochs > 0) is not ported
-yet (ROADMAP queue 1, item 4). Runs on the card unless --device says
-otherwise (e.g. --device cpu).
+dispatches on training.mode. `baseline_VAE` runs the JAX `train_baseline`:
+the initial eval, then `training.epochs` epochs of train steps with their
+evals and .pth checkpoints under model_dir (`epochs: 0` stops after the
+initial eval); `eval` evaluates training.pth. Runs on the card unless
+--device says otherwise (e.g. --device cpu).
 """
 
 from __future__ import annotations

@@ -1,18 +1,22 @@
-"""Model assembly from the YAML schema, the MANO asset loader, and the
-multi-hypothesis eval step and loop.
+"""Model assembly from the YAML schema, the MANO asset loader, the training
+step and the multi-hypothesis eval step, and the experiment loop around them.
 
-Port of mhentropy_tpu/train/engine.py: `build_model_config` :63,
-`load_mano_model` :330 (with `_mano_fingerprint` :308), `_prep_image` :197,
-`_prep_batch` :225, `make_eval_step` :426, and of `Experiment` the
-synthetic branch of `make_datasets` :654-667, `train_baseline`'s initial
-eval :865-866, `_quant_spec` :921, `eval_loop` :950 and `eval` :1016.
-Training (epochs > 0) is not ported yet (ROADMAP queue 1, item 4), nor are
-the real-dataset loaders (item 5).
+Port of mhentropy_tpu/train/engine.py: `_fused_bn_mode` :54,
+`build_model_config` :63, `load_mano_model` :330 (with `_mano_fingerprint`
+:308), `_prep_image` :197, `_prep_batch` :225, `make_optimizer` :338 with
+the TrainState :47 / `init_state` :349 it sits in (a module, an optimizer
+and a step count here), `make_train_step` :359, `make_eval_step` :426, and
+of `Experiment` the synthetic branch of `make_datasets` :654-667,
+`_get_optimizer` :692, `_ensure_state` :718, `train_baseline` :841,
+`train_epoch` :876, `_quant_spec` :921, `eval_loop` :950, `eval` :1016 and
+`save_model` :1043. Not ported yet: autoresume and orbax checkpoints
+(ROADMAP queue 1, item 4; checkpoints are the reference's .pth), the
+real-dataset loaders (item 5).
 
-The eval step is a plain function of (image, target, kld noise, hypothesis
-noise, qtree): torch cannot replay jax.random, so the reverse-KL draw's
-noise (temperature 1) and the hypotheses' noise (times temp) come from the
-caller, as the JAX step splits its key into two independent streams.
+The steps are plain functions of their batch and noise: torch cannot replay
+jax.random, so the reverse-KL draw's noise (temperature 1) and the eval
+hypotheses' noise (times temp) come from the caller, as the JAX steps split
+their keys into independent streams.
 """
 
 from __future__ import annotations
@@ -34,6 +38,13 @@ from mhentropy_tpu_torch.models.mhent import MHEntConfig
 from mhentropy_tpu_torch.train import metrics as metrics_lib
 
 
+def _fused_bn_mode(cfg):
+    """cfg.tpu.fused_train_bn -> False | True | mode string (bool() would
+    collapse "full" to True)."""
+    v = cfg.tpu.fused_train_bn
+    return v if isinstance(v, str) else bool(v)
+
+
 def build_model_config(cfg) -> MHEntConfig:
     """YAML schema -> MHEntConfig."""
     net = cfg.network
@@ -48,6 +59,7 @@ def build_model_config(cfg) -> MHEntConfig:
         sigma_act=net.acts,
         deterministic=net.deterministic,
         dtype=cfg.tpu.compute_dtype,
+        fused_train_bn=_fused_bn_mode(cfg),
     )
     flow = RealNVPConfig(
         dim=45,
@@ -134,6 +146,119 @@ def _prep_batch(image: torch.Tensor, target: dict):
     return image, target
 
 
+class Optimizer:
+    """optax.chain(clip_by_global_norm(max_norm), adam(piecewise_constant))
+    of the JAX `make_optimizer`, over every parameter of `params`, with
+    torch.optim.Adam (optax's defaults: b1 0.9, b2 0.999, eps 1e-8).
+
+    The clip is optax's exactly: g if |g| < max_norm else g / |g| * max_norm
+    with |g| the global norm over all gradients (no +1e-6, unlike
+    torch.nn.utils.clip_grad_norm_). Update k, counted from 0, runs at
+    lr * gamma ** (number of milestones m with k >= m * steps_per_epoch).
+    A parameter without a gradient (the sigma head, which no loss reads)
+    is skipped: its optax moments and update stay 0 as well.
+    """
+
+    def __init__(self, params, lr: float, milestones, steps_per_epoch: int,
+                 gamma: float = 0.1, max_norm: float = 1.0):
+        self.params = list(params)
+        self.lr = float(lr)
+        self.boundaries = sorted(int(m) * int(steps_per_epoch) for m in milestones)
+        self.gamma = gamma
+        self.max_norm = max_norm
+        self.count = 0  # updates taken; the schedule reads it
+        self.adam = torch.optim.Adam(self.params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8)
+
+    def lr_at(self, k: int) -> float:
+        return self.lr * self.gamma ** sum(k >= b for b in self.boundaries)
+
+    def zero_grad(self) -> None:
+        self.adam.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        grads = [p.grad for p in self.params if p.grad is not None]
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        # Stays on the device: no host sync for the clip decision.
+        divisor = torch.where(norm < self.max_norm, torch.ones_like(norm),
+                              norm / self.max_norm)
+        torch._foreach_div_(grads, divisor)
+        for group in self.adam.param_groups:
+            group["lr"] = self.lr_at(self.count)
+        self.adam.step()
+        self.count += 1
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "adam": self.adam.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adam.load_state_dict(state["adam"])
+        self.count = int(state["count"])
+
+    @torch.no_grad()
+    def load_moments(self, named_params: dict, state: dict) -> None:
+        """Adam moments by parameter name ({"count", "state": {name:
+        {"exp_avg", "exp_avg_sq"}}}, as `convert.opt_state_from_jax` gives
+        them), so a JAX-trained optimizer state continues here."""
+        by_id = {id(p): name for name, p in named_params.items()}
+        count = int(state["count"])
+        for p in self.params:
+            moments = state["state"].get(by_id[id(p)])
+            if moments is None:
+                continue
+            self.adam.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": torch.empty_like(p).copy_(moments["exp_avg"]),
+                "exp_avg_sq": torch.empty_like(p).copy_(moments["exp_avg_sq"]),
+            }
+        self.count = count
+
+
+def make_optimizer(net: mhent.MHEnt, lr: float, milestones, steps_per_epoch: int,
+                   gamma: float = 0.1) -> Optimizer:
+    """Adam + MultiStep LR (gamma 0.1) + global-norm clip 1.0 over every
+    parameter of `net` (CrossModalHand.py:201-203, 462-467)."""
+    return Optimizer(net.parameters(), lr, milestones, steps_per_epoch, gamma=gamma)
+
+
+def make_train_step(model: ManoModel, net: mhent.MHEnt, optimizer: Optimizer,
+                    fold: mano_lib.KeypointFold | None = None):
+    """One optimisation step of the reverse-KL objective.
+
+    Returns step_fn(image, target, noise) -> aux {loss, th_norm, bt_norm,
+    h_q, q_log_p} as 0-d tensors on the device (nothing is read on the
+    host). noise: (n_train_hypotheses * B, 45) standard normal, the
+    reverse-KL draw's base noise. The net must be in train mode: its BN
+    running statistics are updated in place and its parameters by the
+    optimizer. A padded tail batch (target["valid"]) is masked out of the
+    loss.
+    """
+    if fold is None:
+        fold = mano_lib.fold_keypoints(model)
+
+    def step_fn(image, target, noise):
+        image, target = _prep_batch(image, target)
+        out = mhent.reverse_kld(model, net, target, image, base_noise=noise, train=True,
+                                fold=fold)
+        lp = out["log_p"]  # criteria.py:55,173
+        if "valid" in target:
+            v = target["valid"]
+            loss = -(lp * v).sum() / (v.sum() + 1e-16)
+        else:
+            loss = -lp.mean()
+        optimizer.zero_grad()
+        loss.backward()
+        optimizer.step()
+        h_q = out.get("h_q_z_giv_i")
+        return {"loss": loss.detach(),
+                "th_norm": out["th_norm"].detach().mean(),
+                "bt_norm": out["bt_norm"].detach().mean(),
+                "h_q": h_q.detach().mean() if h_q is not None else loss.new_zeros(()),
+                "q_log_p": out["q_log_p_z_giv_y"].detach().mean()}
+
+    return step_fn
+
+
 def make_eval_step(model: ManoModel, net: mhent.MHEnt, n: int, temp: float,
                    n_quant: int | None = None, quant_spec=None,
                    fold: mano_lib.KeypointFold | None = None):
@@ -169,10 +294,13 @@ def make_eval_step(model: ManoModel, net: mhent.MHEnt, n: int, temp: float,
 
 
 class Experiment:
-    """The eval half of the JAX Experiment: config -> MANO, fresh or restored
-    weights on the device, the synthetic eval split, the eval loop.
+    """The JAX Experiment on the synthetic data: config -> MANO, fresh or
+    restored weights on the device, the train loop and the eval loop.
 
     device: the card unless the caller passes another one (e.g. "cpu").
+    With training.epochs > 0 the backbone keeps f32 master parameters and
+    computes in tpu.compute_dtype; the eval kernels' weights are folded and
+    packed again from them before each eval.
     """
 
     def __init__(self, cfg, device=None, mano_dir: str = "./mano/"):
@@ -183,22 +311,34 @@ class Experiment:
         self.fold = mano_lib.fold_keypoints(self.model)
         seed = cfg.training.seed
         self.seed = int(seed) if seed is not None else int(time.time()) % 10000
+        self.masters = bool(cfg.training.epochs)
+        self.optimizer = None
+        self.steps_per_epoch = None
+        self.step = 0
+        self.losses = []  # every train step's loss, read on the host at log points
+        self._pending_opt = None
         net = mhent.init(self.model_cfg, seed=self.seed)
         if cfg.training.pth:
-            self._restore(net, cfg.training.pth)
-        self.net = mhent.prepare(net, self.device)
+            ckpt = self._restore(net, cfg.training.pth)
+            self._pending_opt = ckpt.get("optimizer")
+            self.step = int(ckpt.get("step", 0))
+        self.net = mhent.prepare(net, self.device, masters=self.masters)
         self.gen = torch.Generator(device=self.device).manual_seed(self.seed)
         self.quant_spec = None
         self.qtree = None
+        self._train_step = None
 
     @staticmethod
-    def _restore(net: mhent.MHEnt, path: str) -> None:
+    def _restore(net: mhent.MHEnt, path: str) -> dict:
+        """Load a .pth in the reference's schema ({"encoderRGB": state_dict,
+        ...}, or a bare state_dict) into net; returns the checkpoint dict."""
         if not path.endswith(".pth"):
             raise NotImplementedError(
                 f"{path!r}: orbax checkpoints are not ported yet (ROADMAP queue 1, item 4); "
                 f"pass a reference .pth")
         ckpt = torch.load(path, map_location="cpu")
         net.load_state_dict(ckpt.get("encoderRGB", ckpt), strict=True)
+        return ckpt
 
     def make_datasets(self, which=("train", "eval")):
         """The synthetic fixture: (train, eval), None for a split not asked."""
@@ -216,14 +356,107 @@ class Experiment:
                                        seed=self.seed + 1, ds=ds) if "eval" in which else None
         return train, evald
 
+    def _get_optimizer(self, steps_per_epoch: int) -> Optimizer:
+        t = self.cfg.training
+        return make_optimizer(self.net, t.lr, t.milestones, steps_per_epoch)
+
+    def _ensure_state(self, steps_per_epoch: int) -> None:
+        """The optimizer for this schedule. A restored checkpoint's optimizer
+        state is loaded into the first one built. An optimizer sized for
+        another number of steps per epoch is rebuilt while no update has
+        been taken (the JAX step rebuilds after an eval sized it); after
+        that the Adam moments and the schedule are kept, with a warning."""
+        if self.optimizer is not None and steps_per_epoch != self.steps_per_epoch:
+            if self.optimizer.count == 0:
+                print(f"rebuilding optimizer: steps_per_epoch {self.steps_per_epoch} -> "
+                      f"{steps_per_epoch}", flush=True)
+                self.optimizer = None
+            else:
+                print(f"WARNING: steps_per_epoch changed {self.steps_per_epoch} -> "
+                      f"{steps_per_epoch} on an already-trained state (step "
+                      f"{self.optimizer.count}); keeping the existing optimizer and schedule",
+                      flush=True)
+        if self.optimizer is None:
+            self.steps_per_epoch = steps_per_epoch
+            self.optimizer = self._get_optimizer(steps_per_epoch)
+            if self._pending_opt is not None:
+                self.optimizer.load_state_dict(self._pending_opt)
+                self._pending_opt = None
+            self._train_step = make_train_step(self.model, self.net, self.optimizer,
+                                               fold=self.fold)
+
     def train_baseline(self):
-        """epochs: 0 runs the initial eval only; training is not ported."""
-        if self.cfg.training.epochs:
-            raise NotImplementedError(
-                f"training.epochs {self.cfg.training.epochs}: training is not ported yet "
-                f"(ROADMAP queue 1, item 4); epochs: 0 runs the initial eval")
-        _, eval_data = self.make_datasets(which=("eval",))
-        return self.eval_loop(eval_data, epoch=0)
+        """The initial eval, then `training.epochs` epochs of train steps, an
+        eval every eval_interval epochs and a checkpoint every save_interval
+        (and a final one). Returns the last eval's summary; epochs 0 runs the
+        initial eval only."""
+        if self.cfg.tpu.autoresume:
+            raise NotImplementedError("tpu.autoresume is not ported yet (ROADMAP queue 1, "
+                                      "item 4)")
+        epochs = self.cfg.training.epochs
+        if not epochs:
+            _, eval_data = self.make_datasets(which=("eval",))
+            return self.eval_loop(eval_data, epoch=0)
+        if not self.masters:
+            raise RuntimeError("training needs f32 master weights: construct the Experiment "
+                               "with training.epochs > 0")
+        train_data, eval_data = self.make_datasets()
+        bs = self.cfg.training.batch_size
+        self._ensure_state(max(1, train_data.images.shape[0] // bs))
+        summary = self.eval_loop(eval_data, epoch=0)
+        for epoch in range(epochs):
+            self.train_epoch(train_data, epoch)
+            if (epoch + 1) % self.cfg.eval_interval == 0:
+                summary = self.eval_loop(eval_data, epoch=epoch)
+            if epoch % self.cfg.save_interval == 0:
+                self.save_model(f"baseline_{self.cfg.network.decoder_type}", epoch)
+        self.save_model("baseline_final")
+        return summary
+
+    def train_epoch(self, data, epoch: int) -> float:
+        """One pass over `data` in the epoch's shuffled batch order; the
+        losses are read on the host only at log points and at the end.
+        Returns the epoch's mean loss."""
+        tr = self.cfg.training
+        bs = tr.batch_size
+        n_kld = self.model_cfg.n_train_hypotheses
+        dim = self.model_cfg.flow.dim
+        self.net.train()
+        pending, epoch_losses = [], []
+
+        def drain():
+            if pending:
+                epoch_losses.extend(torch.stack(pending).tolist())
+                pending.clear()
+
+        for idx, (image, target) in enumerate(synthetic.batches(
+                data, bs, pad_remainder=True, device=self.device, shuffle=True,
+                seed=self.seed + epoch)):
+            noise = torch.randn((n_kld * bs, dim), generator=self.gen, device=self.device)
+            aux = self._train_step(image, target, noise)
+            pending.append(aux["loss"])
+            self.step += 1
+            if idx % self.cfg.info_interval == 0:
+                drain()
+                extras = torch.stack([aux["h_q"], aux["q_log_p"]]).tolist()
+                avg = sum(epoch_losses) / len(epoch_losses)
+                print(f"Epoch:{epoch}| Step:{idx}| Avg_Loss:{avg:.4f}| h_q:{extras[0]:.4f}| "
+                      f"q_log_p:{extras[1]:.4f}|", flush=True)
+        drain()
+        self.losses.extend(epoch_losses)
+        return sum(epoch_losses) / max(1, len(epoch_losses))
+
+    def save_model(self, name: str, epoch: int | None = None) -> str:
+        """<model_dir>/<name>[_<epoch>].pth in the reference's schema:
+        {"encoderRGB": state_dict, "optimizer": ..., "step": ...}."""
+        tag = name if epoch is None else f"{name}_{epoch}"
+        path = os.path.abspath(os.path.join(self.cfg.model_dir, f"{tag}.pth"))
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save({"encoderRGB": {k: v.detach().cpu() for k, v in self.net.state_dict().items()},
+                    "optimizer": self.optimizer.state_dict() if self.optimizer else None,
+                    "step": self.step}, path)
+        print(f"save model in {path}", flush=True)
+        return path
 
     def eval(self, name: str | None = None):
         """Evaluate checkpoint `name` (a reference .pth), or the weights at
@@ -233,7 +466,7 @@ class Experiment:
                 raise FileNotFoundError(f"eval(name={name!r}): no checkpoint at "
                                         f"{os.path.abspath(name)}")
             self._restore(self.net, name)
-            self.net = mhent.prepare(self.net, self.device)
+            self.net = mhent.prepare(self.net, self.device, masters=self.masters)
         _, eval_data = self.make_datasets(which=("eval",))
         return self.eval_loop(eval_data)
 
@@ -255,6 +488,9 @@ class Experiment:
         """One pass over `data`: valid-weighted metric means, printed as the
         JAX loop's summary line. With tpu.quantize_encoder the int8 qtree is
         calibrated on the first batch (the sampler at this eval's temp)."""
+        self.net.eval()
+        if self.masters:
+            mhent.refresh_kernel_weights(self.net)
         tr = self.cfg.training
         n = n or tr.test_samples
         bs = tr.batch_size

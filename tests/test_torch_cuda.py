@@ -8,7 +8,8 @@ card run them with
 This file imports neither JAX nor the JAX package, so it runs where only the
 port is installed. Tolerances: the kernels round activations to bf16 between
 products, so the max-abs error is held to a share of the output's range, as
-in chip_smoke.py.
+in chip_smoke.py. The BN sums and the f32 sampler are f32 on both sides:
+their bounds are f32 rounding in another summation order.
 """
 
 import math
@@ -19,7 +20,8 @@ import torch
 
 from mhentropy_tpu_torch.core import lbs_cuda
 from mhentropy_tpu_torch.flows import cuda_sampler, cuda_sampler_int8, realnvp
-from mhentropy_tpu_torch.models import resnet, stage1_cuda, stage1_int8_cuda, stem_cuda
+from mhentropy_tpu_torch.models import (bn_cuda, resnet, stage1_cuda, stage1_int8_cuda,
+                                        stem_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -218,3 +220,134 @@ def test_int8_conv_on_the_card_is_the_exact_integer_sum(dev, shape, k, stride):
     want = quant._int_conv(xq, w8, stride, pad)
     got = quant._int_conv(xq.to(dev), w8.to(dev), stride, pad)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 8, 8, 64), torch.bfloat16), ((4, 4, 4, 2048), torch.bfloat16),
+    ((3, 5, 5, 21), torch.float32), ((3, 3, 3, 20), torch.bfloat16),
+    ((5, 7, 3, 24), torch.float32)])
+def test_bn_sums_kernels_match_plain(dev, shape, dtype):
+    """Any (M, C): 16-byte loads where C allows, one channel a load where it
+    does not (21, 20 bf16). f32 sums in another order: each channel within
+    1e-5 of its sum of absolute values. The kernel repeats itself bit for
+    bit (no atomics)."""
+    g = torch.Generator().manual_seed(7)
+    x = (torch.randn(shape, generator=g) * 2 + 0.5).to(dev, dtype).permute(0, 3, 1, 2)
+    dy = torch.randn(shape, generator=g).to(dev, dtype).permute(0, 3, 1, 2)
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    before = (bn_cuda.stats_launches, bn_cuda.grad_launches)
+    got = bn_cuda.stats_sums(x) + bn_cuda.grad_sums(dy, x)
+    assert (bn_cuda.stats_launches, bn_cuda.grad_launches) == (before[0] + 1, before[1] + 1)
+    want = bn_cuda.stats_sums_plain(x) + bn_cuda.grad_sums_plain(dy, x)
+    xf, dyf = x.float(), dy.float()
+    scales = [xf.abs().sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), dyf.abs().sum((0, 2, 3)),
+              (dyf * xf).abs().sum((0, 2, 3))]
+    for a, b, sc in zip(got, want, scales):
+        assert a.shape == (shape[-1],) and a.dtype == torch.float32
+        assert bool(((a - b).abs() <= 1e-5 * sc + 1e-6).all())
+    again = bn_cuda.stats_sums(x) + bn_cuda.grad_sums(dy, x)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    rows = x.permute(0, 2, 3, 1).reshape(-1, shape[-1])
+    assert all(torch.equal(a, b) for a, b in zip(bn_cuda.stats_sums(rows), got[:2]))
+
+
+def test_bn_sums_refuse_a_layout_they_would_have_to_copy(dev):
+    x = torch.randn(2, 16, 4, 4, device=dev)  # NCHW-contiguous, not channels_last
+    with pytest.raises(ValueError, match="channels_last"):
+        bn_cuda.stats_sums(x)
+    with pytest.raises(ValueError, match="channels_last"):
+        bn_cuda.grad_sums(x, x)
+
+
+@pytest.mark.parametrize("mode", ["stats", "full"])
+def test_train_bn_kernels_match_plain_statistics(dev, mode):
+    """batch_norm_train with the kernels against flax's plain statistics on
+    the card: outputs, running statistics and gradients, f32."""
+    g = torch.Generator().manual_seed(8)
+    x0 = (torch.randn(4, 6, 6, 64, generator=g) * 2 + 0.5).to(dev).permute(0, 3, 1, 2)
+    w = torch.randn(4, 64, 6, 6, generator=g).to(dev)
+    results = []
+    for kernels in (True, False):
+        bn = resnet.BatchNorm2d(64).to(dev)
+        with torch.no_grad():
+            bn.weight.add_(0.1)
+            bn.bias.add_(0.1)
+        x = x0.clone().requires_grad_()
+        y = bn_cuda.batch_norm_train(x, bn, mode, kernels)
+        (y * w).sum().backward()
+        results.append((y, bn.running_mean, bn.running_var, x.grad, bn.weight.grad, bn.bias.grad))
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,n,h,steps", [(3, 10, 128, 2), (64, 10, 512, 6)])
+def test_f32_sampler_kernel_matches_plain(dev, b, n, h, steps):
+    """f32 weights at O(1) scale; 30 rows leave the last 8-row tile ragged.
+    f32 on both sides: within 1e-5 of the output's range."""
+    torch.manual_seed(9)
+    flow = realnvp.RealNVP(realnvp.RealNVPConfig(dim=45, cond_dim=64, h_dim=h, num_steps=steps))
+    flow = flow.to(dev).eval()
+    with torch.inference_mode():
+        cp = realnvp.cond_cache(flow, torch.randn(b, 64, device=dev)).contiguous()
+        z0 = torch.randn(b, n, 45, device=dev)
+        packed = cuda_sampler.pack(flow, dtype=torch.float32)
+        before = cuda_sampler.launches_f32
+        x, ld = cuda_sampler.transform(packed, z0, cp)
+        assert cuda_sampler.launches_f32 == before + 1
+        x_ref, ld_ref = cuda_sampler.transform_plain(packed, z0, cp)
+    assert _within(x, x_ref, 1e-5) and _within(ld, ld_ref, 1e-5)
+
+
+def test_sample_fused_diff_gradients_match_plain_autograd(dev):
+    """The Function (kernel forward, plain-flow backward) against autograd
+    through the plain f32 flow, same noise: values and gradients to the
+    flow's parameters, the features and the noise."""
+    torch.manual_seed(10)
+    flow = realnvp.RealNVP(realnvp.RealNVPConfig(dim=45, cond_dim=64, h_dim=128, num_steps=2))
+    flow = flow.to(dev)
+    b, n = 4, 10
+    feat0 = torch.randn(b, 64, device=dev)
+    noise0 = torch.randn(n * b, 45, device=dev)
+    w = torch.randn(n * b, 45, device=dev)
+    outs = []
+    for fused in (True, False):
+        flow.zero_grad()
+        feat = feat0.clone().requires_grad_()
+        noise = noise0.clone().requires_grad_()
+        if fused:
+            x, lp = cuda_sampler.sample_fused_diff(flow, feat, n, noise)
+        else:
+            cp = realnvp.cond_cache(flow, feat).repeat(1, 1, n, 1)
+            x, lp = realnvp.sample(flow, noise, cproj=cp)
+        ((x * w).sum() + lp.sum()).backward()
+        outs.append([x.detach(), lp.detach(), feat.grad, noise.grad]
+                    + [p.grad.clone() for p in flow.parameters()])
+    for a, b_ in zip(*outs):
+        torch.testing.assert_close(a, b_, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["stats", "full"])
+def test_reverse_kld_train_launches_the_training_kernels(dev, mode):
+    from mhentropy_tpu_torch.core import mano
+    from mhentropy_tpu_torch.models import mhent
+    from mhentropy_tpu_torch.models.encoder import EncoderConfig
+
+    cfg = mhent.MHEntConfig(
+        encoder=EncoderConfig(backbone="resnet18", n_latent=(64, 64), fused_train_bn=mode),
+        flow=realnvp.RealNVPConfig(dim=45, cond_dim=64, h_dim=64, num_steps=1),
+        feat_dim=64, image_size=64, n_train_hypotheses=3)
+    net = mhent.prepare(mhent.init(cfg, seed=0), dev, masters=True).train()
+    model = mano.synthetic_mano_model(0, device=dev)
+    rng = np.random.RandomState(0)
+    y = {"crop_uv": torch.from_numpy(rng.rand(2, 42).astype(np.float32) * 2 - 1).to(dev),
+         "pose3d": torch.from_numpy(rng.randn(2, 63).astype(np.float32) * 0.3).to(dev),
+         "vis": torch.ones(2, 21, device=dev)}
+    image = torch.from_numpy(rng.randn(2, 64, 64, 3).astype(np.float32)).to(dev)
+    before = (bn_cuda.stats_launches, bn_cuda.grad_launches, cuda_sampler.launches_f32)
+    out = mhent.reverse_kld(model, net, y, image, base_noise=torch.randn(6, 45, device=dev),
+                            train=True)
+    (-out["log_p"].mean()).backward()
+    n_bn = sum(isinstance(m, resnet.BatchNorm2d) for m in net.modules())
+    assert (bn_cuda.stats_launches - before[0], bn_cuda.grad_launches - before[1],
+            cuda_sampler.launches_f32 - before[2]) == (n_bn, n_bn if mode == "full" else 0, 1)
+    assert all(torch.isfinite(p.grad).all() for p in net.parameters() if p.grad is not None)

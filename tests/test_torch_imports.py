@@ -4,6 +4,7 @@ tables equal the JAX package's, and its YAML reader gives the JAX loader's
 values for every key the port reads."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -28,6 +29,8 @@ def test_port_imports_no_jax():
         "import mhentropy_tpu_torch.train.metrics, mhentropy_tpu_torch.models.quant\n"
         "import mhentropy_tpu_torch.flows.cuda_sampler_int8, mhentropy_tpu_torch.core.lbs_cuda\n"
         "import mhentropy_tpu_torch.data.synthetic, mhentropy_tpu_torch.profile_serve\n"
+        "import mhentropy_tpu_torch.models.bn_cuda, mhentropy_tpu_torch.flows.cuda_sampler\n"
+        "import mhentropy_tpu_torch.models.resnet, mhentropy_tpu_torch.models.encoder\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'mhentropy_tpu'))\n"
         "print(bad)\n"
@@ -53,12 +56,19 @@ def test_skeleton_tables_equal():
 
 
 def _read_keys(cfg):
-    return {group: {k: getattr(getattr(cfg, group), k) for k in keys}
-            for group, keys in config.DEFAULTS.items()}
+    """Every key the port reads; model_dir's default is random per load in
+    both packages, so a default one is compared by its pattern."""
+    out = {key: {k: getattr(getattr(cfg, key), k) for k in keys} if isinstance(keys, dict)
+           else getattr(cfg, key) for key, keys in config.DEFAULTS.items()}
+    if re.fullmatch(r"\./model/[A-Za-z0-9]{6}/", out["model_dir"]):
+        out["model_dir"] = "./model/<random>/"
+    return out
 
 
 def test_config_defaults_equal():
     assert _read_keys(config.make_cfg()) == _read_keys(jconfig.get_cfg_defaults())
+    assert config.make_cfg({"model_dir": "/x/", "tpu": {"fused_train_bn": "full"}}).model_dir \
+        == "/x/"
 
 
 @pytest.mark.parametrize("name", sorted(f for f in os.listdir(os.path.join(REPO, "configs"))
