@@ -8,10 +8,17 @@
    source, in parallel, sm_90a).
 3. Runs each kernel against its plain PyTorch version on the card at the
    main path's shapes with random weights of realistic magnitude: stem
-   (8, 256, 256, 3); stage 1 (8, 64, 64, 64); bf16 sampler B=8, N=200,
-   L=12, H=512; LBS blend at 12,800 rows (N=200, B=64); int8 stage 1
-   (8, 64, 64, 64) on sites calibrated from a He-initialised resnet50 with
-   random BN; int8 sampler B=8, N=200, L=12, H=512 on an O(1) flow. Each
+   (8, 256, 256, 3); stage 1 (8, 64, 64, 64); each of the two and int8
+   stage 1 also at the ProHMR path's 224 px (56 x 56 after the stem) at
+   B=8 and B=32; bf16 sampler B=8, N=200, L=12, H=512; LBS blend at
+   12,800 rows (N=200, B=64) on MANO (V=778, J=16) and at 3,200 rows
+   (N=100, B=32) on SMPL (V=6,890, J=24); int8
+   stage 1 (8, 64, 64, 64) on sites calibrated from a He-initialised
+   resnet50 with random BN; int8 sampler B=8, N=200, L=12, H=512 on an O(1)
+   flow; after the kernels of 8, the Glow sampler at B=32, N=100, D=144,
+   H=1024, 4 layers (ProHMR) and at B=8, N=200, D=45, H=512 (the MHEnt
+   Glow) on O(1) flows, x and the log-det each against its tolerance (max-
+   and mean-abs), with a torch.profiler breakdown of its launches. Each
    error is held to its stated tolerance, and each pair is timed with CUDA
    events: RUNS windows of at least KERNEL_WINDOW_S seconds, kernel and
    plain alternating, called eagerly (ms, plain_ms) and as CUDA-graph
@@ -34,6 +41,13 @@
    f32 kernel existed), in alternating windows.
 7. Verts: mhent.sample_hypotheses with its default mods at B=64, N=200
    launches the LBS blend; its vertices against the plain blend's.
+   ProHMR: eval_prohmr at B=8, N=100 (resnet50 at 224 px, the
+   ConditionalGlow(144, 1024, 4, 2, context 2048), the 6,890-vertex SMPL
+   fixture, fresh seeded weights): every metric finite, launches stem 1,
+   stage 1 3, Glow 1, LBS 1; the kernel path against the plain path and
+   int8 against float on that batch (joints3d, uv, log q); bench_prohmr's
+   steps at B=32, N=100 for the kernel, plain and int8 variants in
+   alternating windows (ms per step, hypotheses/s), and the peak memory.
 8. BN sums: the stats and grad kernels against their plain versions at
    (64, 128, 128, 64) and (64, 8, 8, 2048) bf16 channels-last, timed as in
    3, with torch.batch_norm_stats / torch.batch_norm_backward_reduce as the
@@ -79,7 +93,8 @@ BATCH = 8
 # f32: the kernel rounds its activations to bf16 (2^-9 relative) between
 # products, so the max-abs error is held to a share of the output's range.
 TOL = {"stem": 2e-2, "stage1": 3e-2, "sampler": 1e-2,
-       "lbs_blend": 2e-5, "stage1_int8": 1e-2, "realnvp_sampler_int8": 1e-2}
+       "lbs_blend": 2e-5, "stage1_int8": 1e-2, "realnvp_sampler_int8": 1e-2,
+       "glow_sampler": 1e-2}
 # LBS blend: f32 on both sides, 16-term sums in another order: a share of
 # the output's range. int8 stage 1: exact integer products and identically
 # rounded epilogues, so the kernel's bf16 output is the plain f32 result
@@ -123,6 +138,31 @@ N_TRAIN_HYPO = 10
 INT8_TOL = {"xyz": 0.2, "uv": 25.0}
 # Sampled vertices (normalised by the bone length), kernel blend vs plain.
 VERTS_TOL = 1e-4
+# Glow sampler: kernel and transform_plain round the same operands to bf16
+# and differ by the order of f32 sums, which can move an activation's bf16
+# rounding; the 1e-3 floor of the coupling scale divides, so an error may
+# grow up to 1000x a layer near saturation. x is held to
+# TOL["glow_sampler"] of its range; the log-det (tens of nats, where a
+# share of the range would pass a wrong mask on a few lanes) to GLOW_LD_TOL
+# nats, and the mean-abs errors of x and the log-det to GLOW_MEAN_TOL. On an
+# H100 (700 W) the ProHMR shape differed by 0.0033 nats (log-det max-abs),
+# 3.6e-4 and 1.5e-4 (x and log-det mean-abs).
+GLOW_LD_TOL = 0.02
+GLOW_MEAN_TOL = 1e-3
+# ProHMR path (B=8, N=100, fresh seeded weights, 6,890-vertex SMPL): the
+# kernel path (bf16 Glow operands, stem and stage-1 kernels) against the
+# plain path (cuDNN, the f32 flow), and int8 against float, on the same
+# base noise; joints3d in metres, uv in the crop's normalised units, log q
+# in nats. On an H100 the kernel and plain paths differed by 0.041
+# (joints3d), 0.038 (uv) and 0.0046 (log q), int8 and float by 0.107,
+# 0.102 and 0.0134; the bounds are about three times that.
+PROHMR_TOL = {"joints3d": 0.12, "uv": 0.12, "log_q": 0.015}
+PROHMR_INT8_TOL = {"joints3d": 0.3, "uv": 0.3, "log_q": 0.04}
+PROHMR_EVAL = (8, 100)  # tools/eval_prohmr.py's B, N
+PROHMR_BENCH = (32, 100)  # tools/bench_prohmr.py's B, N
+# The stem's, stage 1's and int8 stage 1's inputs on the ProHMR path
+# (resnet50 at 224 px, 56 x 56 after the stem) at both batches: (B, px).
+PROHMR_SHAPES = ((PROHMR_EVAL[0], 224), (PROHMR_BENCH[0], 224))
 # Timing: RUNS windows per version, each at least this many seconds long.
 RUNS = 3
 KERNEL_WINDOW_S = 0.5
@@ -220,7 +260,7 @@ def he_(torch, w, g) -> None:
 def kernel_counters() -> dict:
     """Every kernel of the port, by name: (wrapper module, its launch count)."""
     from mhentropy_tpu_torch.core import lbs_cuda
-    from mhentropy_tpu_torch.flows import cuda_sampler, cuda_sampler_int8
+    from mhentropy_tpu_torch.flows import cuda_glow_sampler, cuda_sampler, cuda_sampler_int8
     from mhentropy_tpu_torch.models import bn_cuda, stage1_cuda, stage1_int8_cuda, stem_cuda
 
     return {"stem": (stem_cuda, "launches"), "stage1": (stage1_cuda, "launches"),
@@ -229,7 +269,8 @@ def kernel_counters() -> dict:
             "realnvp_sampler_int8": (cuda_sampler_int8, "launches"),
             "bn_stats_sums": (bn_cuda, "stats_launches"),
             "bn_grad_sums": (bn_cuda, "grad_launches"),
-            "realnvp_sampler_f32": (cuda_sampler, "launches_f32")}
+            "realnvp_sampler_f32": (cuda_sampler, "launches_f32"),
+            "glow_sampler": (cuda_glow_sampler, "launches")}
 
 
 def reset_launches() -> None:
@@ -264,7 +305,38 @@ def sampler_macs(rows: int, d: int, h: int, n_layers: int) -> int:
     return rows * n_layers * 2 * (d * h + h * h + h * d)
 
 
+def side_line(entry: dict) -> dict:
+    """A further shape's numbers beside a kernel's main line: each timing's
+    median and its [min, max]."""
+    return {**{k: (v["median"] if k in TIMES else v) for k, v in entry.items()},
+            **{f"{k}_min_max": [entry[k]["min"], entry[k]["max"]] for k in TIMES}}
+
+
+def stem_case(torch, image, w, b) -> dict:
+    """The stem kernel against its plain version on one image batch: the
+    error within TOL["stem"] of the output's range, the timings and bound."""
+    from mhentropy_tpu_torch.models import stem_cuda
+
+    bb, px = image.shape[:2]
+    out = stem_cuda.stem_forward(image, w, b)
+    torch.cuda.synchronize()
+    ref = stem_cuda.stem_plain(image.float(), w.float(), b)
+    check(out.shape == (bb, px // 4, px // 4, 64), f"stem {px} px: shape {tuple(out.shape)}")
+    err = (out.float() - ref).abs().max().item()
+    tol = TOL["stem"] * max(1.0, ref.abs().max().item())
+    check(err <= tol, f"stem {tuple(image.shape)}: max-abs error {err} > {tol}")
+    times = ab_ms(torch, lambda: stem_cuda.stem_forward(image, w, b),
+                  lambda: stem_cuda.stem_plain(image, w, b))
+    # Conv products only (no halo recompute); bf16 image in, bf16 out.
+    macs = bb * (px // 2) ** 2 * 64 * stem_cuda.TAPS
+    n_bytes = image.numel() * 2 + out.numel() * 2 + w.numel() * 2 + b.numel() * 4
+    return {"shape": list(image.shape), "max_abs_err": err, "tol": tol, **times,
+            **roofline(n_bytes, 2 * macs, "bf16")}
+
+
 def phase_stem(torch, dev):
+    """The serving shape (8, 256, 256, 3) makes the line; the ProHMR path's
+    224 px at eval_prohmr's and bench_prohmr's batch stand beside it."""
     from mhentropy_tpu_torch.models import stem_cuda
 
     g = torch.Generator().manual_seed(1)
@@ -272,29 +344,39 @@ def phase_stem(torch, dev):
     he_(torch, conv_w, g)
     bn = torch.nn.BatchNorm2d(64)
     rand_bn(torch, bn, g)
-    image = torch.randn((BATCH, 256, 256, 3), generator=g).to(dev, torch.bfloat16)
     w, b = stem_cuda.fold(conv_w, bn.weight, bn.bias, bn.running_mean, bn.running_var)
     w, b = w.to(dev), b.to(dev)
-    out = stem_cuda.stem_forward(image, w, b)
-    torch.cuda.synchronize()
-    ref = stem_cuda.stem_plain(image.float(), w.float(), b)
-    check(out.shape == (BATCH, 64, 64, 64), f"stem: shape {tuple(out.shape)}")
-    err = (out.float() - ref).abs().max().item()
-    tol = TOL["stem"] * max(1.0, ref.abs().max().item())
-    check(err <= tol, f"stem: max-abs error {err} > {tol}")
-    times = ab_ms(torch, lambda: stem_cuda.stem_forward(image, w, b),
-                  lambda: stem_cuda.stem_plain(image, w, b))
-    # Conv products only (no halo recompute); bf16 image in, bf16 out.
-    macs = BATCH * 128 * 128 * 64 * stem_cuda.TAPS
-    n_bytes = image.numel() * 2 + out.numel() * 2 + w.numel() * 2 + b.numel() * 4
+    cases = [stem_case(torch, torch.randn((bb, px, px, 3), generator=g).to(dev, torch.bfloat16),
+                       w, b) for bb, px in ((BATCH, 256), *PROHMR_SHAPES)]
     return {"name": "stem", "source": "mhentropy_tpu_torch/csrc/stem.cu",
-            "replaces": "mhentropy_tpu/models/stem_pallas.py:120",
-            "max_abs_err": err, "tol": tol, **times,
+            "replaces": "mhentropy_tpu/models/stem_pallas.py:120", **cases[0],
             # The plain version is cuDNN's conv + PyTorch's ReLU and max-pool.
-            "library": "plain", **roofline(n_bytes, 2 * macs, "bf16")}
+            "library": "plain", "prohmr_shapes": [side_line(c) for c in cases[1:]]}
+
+
+def stage1_case(torch, x, folded) -> dict:
+    from mhentropy_tpu_torch.models import stage1_cuda
+
+    bb, hh, ww, _ = x.shape
+    out = stage1_cuda.stage1_forward(x, folded)
+    torch.cuda.synchronize()
+    ref = stage1_cuda.stage1_plain(x.float(), folded)
+    check(out.shape == (bb, hh, ww, 256), f"stage 1: shape {tuple(out.shape)}")
+    err = (out.float() - ref).abs().max().item()
+    tol = TOL["stage1"] * max(1.0, ref.abs().max().item())
+    check(err <= tol, f"stage 1 {tuple(x.shape)}: max-abs error {err} > {tol}")
+    times = ab_ms(torch, lambda: stage1_cuda.stage1_forward(x, folded),
+                  lambda: stage1_cuda.stage1_plain(x, folded))
+    n_weights = sum(t.numel() * t.element_size() for blk in folded for t in blk
+                    if t is not None)
+    n_bytes = x.numel() * 2 + out.numel() * 2 + n_weights
+    return {"shape": list(x.shape), "max_abs_err": err, "tol": tol, **times,
+            **roofline(n_bytes, 2 * stage1_macs(bb, hh, ww), "bf16")}
 
 
 def phase_stage1(torch, dev):
+    """(8, 64, 64, 64) of the 256 px serving path makes the line; the ProHMR
+    path's 56 x 56 (a ragged last 16-wide column tile) stand beside it."""
     from mhentropy_tpu_torch.models import resnet, stage1_cuda
 
     g = torch.Generator().manual_seed(2)
@@ -307,25 +389,13 @@ def phase_stage1(torch, dev):
             rand_bn(torch, m, g)
     folded = [stage1_cuda.FoldedBlock(*(None if t is None else t.to(dev) for t in blk))
               for blk in stage1_cuda.fold(layer1)]
-    x = torch.relu(torch.randn((BATCH, 64, 64, 64), generator=g)).to(dev, torch.bfloat16)
-    out = stage1_cuda.stage1_forward(x, folded)
-    torch.cuda.synchronize()
-    ref = stage1_cuda.stage1_plain(x.float(), folded)
-    check(out.shape == (BATCH, 64, 64, 256), f"stage 1: shape {tuple(out.shape)}")
-    err = (out.float() - ref).abs().max().item()
-    tol = TOL["stage1"] * max(1.0, ref.abs().max().item())
-    check(err <= tol, f"stage 1: max-abs error {err} > {tol}")
-    times = ab_ms(torch, lambda: stage1_cuda.stage1_forward(x, folded),
-                  lambda: stage1_cuda.stage1_plain(x, folded))
-    n_weights = sum(t.numel() * t.element_size() for blk in folded for t in blk
-                    if t is not None)
-    n_bytes = x.numel() * 2 + out.numel() * 2 + n_weights
+    cases = [stage1_case(torch, torch.relu(torch.randn((bb, px // 4, px // 4, 64), generator=g))
+                         .to(dev, torch.bfloat16), folded)
+             for bb, px in ((BATCH, 256), *PROHMR_SHAPES)]
     return {"name": "stage1", "source": "mhentropy_tpu_torch/csrc/stage1.cu",
-            "replaces": "mhentropy_tpu/models/stage1_pallas.py:160",
-            "max_abs_err": err, "tol": tol, **times,
+            "replaces": "mhentropy_tpu/models/stage1_pallas.py:160", **cases[0],
             # The plain version is the stage's cuDNN convolutions.
-            "library": "plain",
-            **roofline(n_bytes, 2 * stage1_macs(BATCH, 64, 64), "bf16")}
+            "library": "plain", "prohmr_shapes": [side_line(c) for c in cases[1:]]}
 
 
 def phase_sampler(torch, dev):
@@ -365,9 +435,49 @@ def phase_sampler(torch, dev):
             **roofline(n_bytes, 2 * macs, "bf16")}
 
 
+def lbs_bound(args, out) -> dict:
+    """Each input read once, the vertices written once; per vertex and row
+    12 coefficients of J joints and the 3 x 3 + t blend, f32 FMAs."""
+    w = args[0]
+    v, j = w.shape
+    rows = out.shape[-1]
+    n_bytes = sum(t.numel() * 4 for t in args) + out.numel() * 4
+    return roofline(n_bytes, 2 * v * rows * (12 * j + 9), "f32")
+
+
+def phase_lbs_smpl(torch, dev) -> dict:
+    """The blend at the ProHMR shape (B=32, N=100 -> 3,200 rows) on the SMPL
+    fixture at SMPL's size (V=6,890, J=24) and a chain from random 6D poses:
+    seven vertex tiles a row block."""
+    from mhentropy_tpu_torch.core import lbs_cuda, rotations, smpl
+
+    rows = PROHMR_BENCH[0] * PROHMR_BENCH[1]
+    model = smpl.synthetic_smpl_model(0, n_verts=smpl.N_VERTS, device=dev)
+    g = torch.Generator(device=dev).manual_seed(15)
+    rotmats = rotations.rotmat_from_6d(torch.randn((rows, 24, 6), generator=g, device=dev))
+    betas = torch.randn((rows, 10), generator=g, device=dev)
+    with torch.inference_mode():
+        chain_r, chain_t, joints = smpl._chain_nl(model, rotmats, betas)
+        skin_t = chain_t - smpl.mv3(chain_r, joints)
+        args = [t.contiguous() for t in (model.lbs_weights, chain_r, skin_t,
+                                         smpl._v_posed_nl(model, rotmats, betas))]
+        out = lbs_cuda.lbs_blend(*args)
+        torch.cuda.synchronize()
+        ref = lbs_cuda.lbs_blend_plain(*args)
+        check(out.shape == (3, smpl.N_VERTS, rows), f"lbs smpl: shape {tuple(out.shape)}")
+        err = (out - ref).abs().max().item()
+        tol = TOL["lbs_blend"] * ref.abs().max().item()
+        check(err <= tol, f"lbs smpl: max-abs error {err} > {tol}")
+        times = ab_ms(torch, lambda: lbs_cuda.lbs_blend(*args),
+                      lambda: lbs_cuda.lbs_blend_plain(*args))
+    return side_line({"shape": {"V": smpl.N_VERTS, "J": 24, "rows": rows}, "max_abs_err": err,
+                      "tol": tol, **times, **lbs_bound(args, out)})
+
+
 def phase_lbs(torch, dev):
-    """The blend at the eval shape (N=200, B=64 -> 12,800 rows) on the MANO
-    stand-in's skinning weights and a real chain from random poses."""
+    """The blend at MANO's eval shape (N=200, B=64 -> 12,800 rows) on the
+    MANO stand-in's skinning weights and a real chain from random poses;
+    then at SMPL's (phase_lbs_smpl), its line beside MANO's."""
     from mhentropy_tpu_torch.core import lbs_cuda, mano
 
     rows = N_HYPO * EVAL_BATCH
@@ -391,12 +501,108 @@ def phase_lbs(torch, dev):
         check(err <= tol, f"lbs: max-abs error {err} > {tol}")
         times = ab_ms(torch, lambda: lbs_cuda.lbs_blend(*args),
                       lambda: lbs_cuda.lbs_blend_plain(*args))
-    n_bytes = sum(t.numel() * 4 for t in args) + out.numel() * 4
-    flops = 2 * 778 * rows * (12 * 16 + 9)  # 12 coefficients of 16 joints, the 3x3 + t blend
+        bound = lbs_bound(args, out)
+        del args, out, ref, v_posed
     return {"name": "lbs_blend", "source": "mhentropy_tpu_torch/csrc/lbs_blend.cu",
             "replaces": "mhentropy_tpu/core/lbs_pallas.py:56",
-            "max_abs_err": err, "tol": tol, **times, "library": None,
-            **roofline(n_bytes, flops, "f32")}
+            "max_abs_err": err, "tol": tol, **times, "library": None, **bound,
+            "smpl_shape": phase_lbs_smpl(torch, dev)}
+
+
+# The Glow sampler's two shapes: ProHMR's (bench_prohmr's B=32, N=100) and
+# the MHEnt Glow regressor's (models/mhent.py's glow branch: D=45, H=512,
+# context 512, B=8, N=200), which will launch the same kernel.
+GLOW_SHAPES = {"prohmr": {"d": 144, "h": 1024, "c": 2048, "b": 32, "n": 100},
+               "mhent_glow": {"d": 45, "h": 512, "c": 512, "b": 8, "n": 200}}
+
+
+def o1_glow(torch, cfg, seed: int, dev):
+    """A ConditionalGlow with O(1) outputs: torch-default Linears throughout
+    (the blocks' last Linears too, not the near-zero init), actnorm and the
+    LU factors drawn around the identity."""
+    from mhentropy_tpu_torch.flows import glow
+
+    torch.manual_seed(seed)
+    flow = glow.ConditionalGlow(cfg)
+    g = torch.Generator().manual_seed(seed)
+    d = cfg.features
+    with torch.no_grad():
+        for i in range(cfg.num_layers):
+            an, lin, _ = flow.step(i)
+            an.log_scale.copy_(0.1 * torch.randn(d, generator=g))
+            an.shift.copy_(0.1 * torch.randn(d, generator=g))
+            for p in (lin.lower_entries, lin.upper_entries):
+                p.copy_(0.3 / math.sqrt(d) * torch.randn(p.shape, generator=g))
+    return flow.to(dev).eval()
+
+
+def glow_macs(rows: int, d: int, h: int, n_layers: int) -> int:
+    """A layer's products per row: the four H x H of the residual blocks,
+    the initial (D x H) and the shift / scale (H x D each), the LU (D x D)."""
+    return rows * n_layers * (4 * h * h + 3 * d * h + d * d)
+
+
+def phase_glow_sampler(torch, dev):
+    """The Glow kernel against transform_plain at both GLOW_SHAPES on an
+    O(1) flow; the ProHMR shape's numbers make the line, the MHEnt shape's
+    stand beside them."""
+    from mhentropy_tpu_torch.flows import cuda_glow_sampler as cgs
+    from mhentropy_tpu_torch.flows import glow
+
+    out = {}
+    for label, s in GLOW_SHAPES.items():
+        cfg = glow.GlowConfig(features=s["d"], hidden=s["h"], num_layers=4, num_blocks=2,
+                              context_features=s["c"])
+        flow = o1_glow(torch, cfg, 14, dev)
+        b, n, d = s["b"], s["n"], s["d"]
+        g = torch.Generator(device=dev).manual_seed(14)
+        feat = torch.randn((b, s["c"]), generator=g, device=dev)
+        z0 = torch.randn((b, n, d), generator=g, device=dev)
+        with torch.inference_mode():
+            packed = cgs.pack(flow)
+            ctx = cgs.pack_context(flow, feat)
+            x, ld = cgs.transform(packed, z0, ctx)
+            torch.cuda.synchronize()
+            x_ref, ld_ref = cgs.transform_plain(packed, z0, ctx)
+            check(x.shape == (b, n, d) and ld.shape == (b, n),
+                  f"glow {label}: shapes {tuple(x.shape)} {tuple(ld.shape)}")
+            check(bool(torch.isfinite(x).all() and torch.isfinite(ld).all()),
+                  f"glow {label}: non-finite outputs")
+            err_x = (x - x_ref).abs().max().item()
+            err_ld = (ld - ld_ref).abs().max().item()
+            mean_x = (x - x_ref).abs().mean().item()
+            mean_ld = (ld - ld_ref).abs().mean().item()
+            tol_x = TOL["glow_sampler"] * max(1.0, x_ref.abs().max().item())
+            tol_ld = GLOW_LD_TOL
+            print(f"glow {label}: x max-abs {err_x:.4g} mean {mean_x:.4g} (tol {tol_x:.4g}, "
+                  f"largest {x_ref.abs().max().item():.4g}); log-det max-abs {err_ld:.4g} "
+                  f"mean {mean_ld:.4g} (tol {tol_ld:.4g}, largest "
+                  f"{ld_ref.abs().max().item():.4g})", flush=True)
+            check(err_x <= tol_x, f"glow {label}: x max-abs error {err_x} > {tol_x}")
+            check(err_ld <= tol_ld, f"glow {label}: log-det max-abs error {err_ld} > {tol_ld}")
+            check(mean_x <= GLOW_MEAN_TOL and mean_ld <= GLOW_MEAN_TOL,
+                  f"glow {label}: mean-abs errors x {mean_x}, log-det {mean_ld} > "
+                  f"{GLOW_MEAN_TOL}")
+            times = ab_ms(torch, lambda: cgs.transform(packed, z0, ctx),
+                          lambda: cgs.transform_plain(packed, z0, ctx))
+            # Device time by kernel (the GEMMs, the coupling steps) of 10 calls.
+            trace = trace_steps(torch, lambda: cgs.transform(packed, z0, ctx),
+                                times["ms"]["median"], n=10, top=6)
+        n_weights = sum(t.numel() * t.element_size() for t in packed[:13])
+        n_bytes = 2 * z0.numel() * 4 + b * n * 4 + ctx.numel() * 4 + n_weights
+        entry = {"shape": {**s, "layers": 4}, "max_abs_err": max(err_x, err_ld),
+                 "max_abs_err_x": err_x, "max_abs_err_logdet": err_ld,
+                 "mean_abs_err_x": mean_x, "mean_abs_err_logdet": mean_ld, "tol": tol_x,
+                 "tol_logdet": tol_ld, "tol_mean": GLOW_MEAN_TOL, **times, "trace": trace,
+                 **roofline(n_bytes, 2 * glow_macs(b * n, d, s["h"], 4), "bf16")}
+        if label == "prohmr":
+            out = {"name": "glow_sampler", "source": "mhentropy_tpu_torch/csrc/glow_sampler.cu",
+                   "replaces": "mhentropy_tpu/flows/pallas_glow_sampler.py:324",
+                   "library": None, **entry}
+        else:
+            out["other_shape"] = side_line(entry)
+        del flow, packed, x, x_ref
+    return out
 
 
 def he_resnet50(torch, dev, seed: int):
@@ -416,37 +622,46 @@ def he_resnet50(torch, dev, seed: int):
     return res
 
 
-def phase_stage1_int8(torch, dev):
-    """Sites calibrated (q_from = 0) on 8 random 256 px images through a
-    He-initialised resnet50; the input is those images' stem output."""
+def stage1_int8_case(torch, res, images) -> dict:
+    """Sites calibrated (q_from = 0) on the images through res; the input
+    is those images' stem output."""
     from mhentropy_tpu_torch.models import quant, stage1_int8_cuda, stem_cuda
 
-    res = he_resnet50(torch, dev, 5)
-    g = torch.Generator(device=dev).manual_seed(5)
-    images = torch.randn((BATCH, 256, 256, 3), generator=g, device=dev)
+    bb, px = images.shape[:2]
     spec = quant.QuantSpec(backbone="resnet50", q_from=0)
-    with torch.inference_mode():
-        qtree = quant.prepare(spec, res, quant.calibrate(spec, res, images))
-        packed = qtree["stage1"]
-        x = stem_cuda.stem_forward(images.to(torch.bfloat16).contiguous(), *res.folded[0])
-        out = stage1_int8_cuda.stage1_forward_q(x, packed)
-        torch.cuda.synchronize()
-        ref = stage1_int8_cuda.stage1_plain(x, packed)
-        check(out.shape == (BATCH, 64, 64, 256) and out.dtype == torch.bfloat16,
-              f"stage 1 int8: {tuple(out.shape)} {out.dtype}")
-        err = (out.float() - ref).abs().max().item()
-        exact = (out == ref.to(torch.bfloat16)).float().mean().item()
-        tol = TOL["stage1_int8"] * max(1.0, ref.abs().max().item())
-        check(err <= tol, f"stage 1 int8: max-abs error {err} > {tol}")
-        times = ab_ms(torch, lambda: stage1_int8_cuda.stage1_forward_q(x, packed),
-                      lambda: stage1_int8_cuda.stage1_plain(x, packed))
+    qtree = quant.prepare(spec, res, quant.calibrate(spec, res, images))
+    packed = qtree["stage1"]
+    x = stem_cuda.stem_forward(images.to(torch.bfloat16).contiguous(), *res.folded[0])
+    out = stage1_int8_cuda.stage1_forward_q(x, packed)
+    torch.cuda.synchronize()
+    ref = stage1_int8_cuda.stage1_plain(x, packed)
+    check(out.shape == (bb, px // 4, px // 4, 256) and out.dtype == torch.bfloat16,
+          f"stage 1 int8: {tuple(out.shape)} {out.dtype}")
+    err = (out.float() - ref).abs().max().item()
+    exact = (out == ref.to(torch.bfloat16)).float().mean().item()
+    tol = TOL["stage1_int8"] * max(1.0, ref.abs().max().item())
+    check(err <= tol, f"stage 1 int8 {tuple(x.shape)}: max-abs error {err} > {tol}")
+    times = ab_ms(torch, lambda: stage1_int8_cuda.stage1_forward_q(x, packed),
+                  lambda: stage1_int8_cuda.stage1_plain(x, packed))
     n_weights = sum(t.numel() * t.element_size() for blk in packed for t in blk
                     if t is not None)
     n_bytes = x.numel() * 2 + out.numel() * 2 + n_weights
+    return {"shape": list(x.shape), "max_abs_err": err, "tol": tol, "bf16_exact_share": exact,
+            **times, **roofline(n_bytes, 2 * stage1_macs(bb, px // 4, px // 4), "int8")}
+
+
+def phase_stage1_int8(torch, dev):
+    """A He-initialised resnet50 with random BN; 8 random 256 px images make
+    the line, the ProHMR path's 224 px at its two batches stand beside it."""
+    res = he_resnet50(torch, dev, 5)
+    g = torch.Generator(device=dev).manual_seed(5)
+    with torch.inference_mode():
+        cases = [stage1_int8_case(torch, res, torch.randn((bb, px, px, 3), generator=g,
+                                                          device=dev))
+                 for bb, px in ((BATCH, 256), *PROHMR_SHAPES)]
     return {"name": "stage1_int8", "source": "mhentropy_tpu_torch/csrc/stage1_int8.cu",
-            "replaces": "mhentropy_tpu/models/stage1_int8.py:207",
-            "max_abs_err": err, "tol": tol, "bf16_exact_share": exact, **times,
-            "library": None, **roofline(n_bytes, 2 * stage1_macs(BATCH, 64, 64), "int8")}
+            "replaces": "mhentropy_tpu/models/stage1_int8.py:207", **cases[0],
+            "library": None, "prohmr_shapes": [side_line(c) for c in cases[1:]]}
 
 
 def phase_sampler_int8(torch, dev):
@@ -818,6 +1033,96 @@ def phase_verts(torch, dev):
     return launches, err
 
 
+def max_abs(a: dict, b: dict, keys) -> dict:
+    return {k: float((a[k].float() - b[k].float()).abs().max()) for k in keys}
+
+
+def phase_prohmr(torch, dev):
+    """The Humans path: eval_prohmr at B=8, N=100 (resnet50 at 224 px, the
+    ConditionalGlow(144, 1024, 4, 2, context 2048), the 6,890-vertex SMPL
+    fixture, fresh seeded weights) with its launches counted; the kernel path
+    against the plain path and int8 against float on that batch with the
+    same base noise; then bench_prohmr's steps at B=32, N=100 for the
+    kernel, plain and int8 variants in alternating windows, and the peak
+    memory."""
+    from mhentropy_tpu_torch import bench_prohmr, eval_prohmr
+    from mhentropy_tpu_torch.flows.glow import GlowConfig
+    from mhentropy_tpu_torch.models import quant
+
+    t0 = time.perf_counter()
+    model, net = eval_prohmr.build(dev)
+    check(model.v_template.shape[0] == 6890 and net.cfg.image_size == 224
+          and net.cfg.flow == GlowConfig(144, 1024, 4, 2, 2048)
+          and net.cfg.encoder.backbone == "resnet50",
+          f"prohmr: not the ProHMR geometry: {net.cfg}, V={model.v_template.shape[0]}")
+    b, n = PROHMR_EVAL
+    image, gt = eval_prohmr.synthetic_batch(model, net, b)
+    g = torch.Generator(device=dev).manual_seed(16)
+    noise = torch.randn((n * b, 144), generator=g, device=dev)
+    eval_prohmr.evaluate(model, net, image, gt, n, noise=noise)  # cuDNN plans, the build
+    torch.cuda.synchronize()
+    print(f"prohmr: built and warmed up in {time.perf_counter() - t0:.1f} s", flush=True)
+    reset_launches()
+    samples, mets = eval_prohmr.evaluate(model, net, image, gt, n, noise=noise)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {"stem": 1, "stage1": 3, "glow_sampler": 1, "lbs_blend": 1}
+    check(all(v == want.get(k, 0) for k, v in launches.items()),
+          f"prohmr: launches {launches}, expected {want} and no others")
+    shapes = {k: tuple(samples[k].shape) for k in ("pose_6d", "log_q", "verts", "joints3d", "uv")}
+    check(shapes == {"pose_6d": (n, b, 144), "log_q": (n, b), "verts": (n, b, 6890, 3),
+                     "joints3d": (n, b, 24, 3), "uv": (n, b, 24, 2)}, f"prohmr: shapes {shapes}")
+    check(all(bool(torch.isfinite(samples[k]).all()) for k in shapes)
+          and all(bool(torch.isfinite(v).all()) for v in mets.values()),
+          "prohmr: non-finite samples or metrics")
+    metrics = {k: float(v.mean()) for k, v in mets.items()}
+    print(f"prohmr: eval_prohmr B={b} N={n}: {metrics}; launches {launches}", flush=True)
+
+    keys = ("joints3d", "uv", "log_q")
+    net.set_kernels(False)
+    plain, _ = eval_prohmr.evaluate(model, net, image, gt, n, noise=noise)
+    net.set_kernels(True)
+    agree = max_abs(samples, plain, keys)
+    scale = {k: float(plain[k].abs().max()) for k in keys}
+    print(f"prohmr: kernel vs plain path, max-abs difference {agree} (tolerance {PROHMR_TOL}; "
+          f"largest plain value {scale})", flush=True)
+    for k, v in agree.items():
+        check(v <= PROHMR_TOL[k], f"prohmr: kernel and plain paths differ in {k} by {v}")
+
+    with torch.inference_mode():
+        q = quant.quantize_encoder(net.encoder, image)
+    check(q[0].q_from == 0, f"prohmr: int8 spec {q[0]}")
+    reset_launches()
+    qs, qm = eval_prohmr.evaluate(model, net, image, gt, n, noise=noise, quant=q)
+    torch.cuda.synchronize()
+    q_launches = read_launches()
+    want = {"stem": 1, "stage1_int8": 3, "glow_sampler": 1, "lbs_blend": 1}
+    check(all(v == want.get(k, 0) for k, v in q_launches.items()),
+          f"prohmr int8: launches {q_launches}, expected {want} and no others")
+    check(all(bool(torch.isfinite(qs[k]).all()) for k in keys), "prohmr int8: non-finite")
+    q_diff = max_abs(qs, samples, keys)
+    q_mean = {k: float((qs[k] - samples[k]).abs().mean()) for k in keys}
+    print(f"prohmr: int8 vs float, max-abs difference {q_diff}, mean {q_mean} (tolerance "
+          f"{PROHMR_INT8_TOL}); launches {q_launches}", flush=True)
+    for k, v in q_diff.items():
+        check(v <= PROHMR_INT8_TOL[k], f"prohmr: int8 and float differ in {k} by {v}")
+    del plain, qs
+
+    bb, bn = PROHMR_BENCH
+    steps = bench_prohmr.make_steps(model, net, bb, bn, ("kernel", "plain", "quant"))
+    torch.cuda.reset_peak_memory_stats()
+    runs = bench_prohmr.alternate(steps, True, RUNS, SLICE_WINDOW_S)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    bench = bench_prohmr.summary(runs, bb, bn)
+    trace = trace_steps(torch, steps["kernel"], bench["kernel"]["ms_per_step"])
+    net.set_kernels(True)
+    return {"trace": trace, "launches": launches, "int8_launches": q_launches, "metrics": metrics,
+            "int8_metrics": {k: float(v.mean()) for k, v in qm.items()},
+            "kernel_vs_plain_max_abs": agree, "int8_vs_float_max_abs": q_diff,
+            "int8_vs_float_mean_abs": q_mean, "bench": bench,
+            "bench_runs_ms": runs, "peak_memory_gb": peak}
+
+
 BN_SHAPES = ((64, 128, 128, 64), (64, 8, 8, 2048))
 
 
@@ -963,6 +1268,30 @@ def one_step_grads(torch, net, model, fold, image, target, noise):
     stats = {n: t.detach().clone() for n, t in net.state_dict().items()
              if n.endswith(("running_mean", "running_var"))}
     return loss.item(), grads, stats
+
+
+def trace_steps(torch, step, untraced_ms: float, n: int = 3, top: int = 15) -> dict:
+    """A torch.profiler trace of n steps (after one traced warm step that
+    pays the tracer's start-up): device kernel time and operations per step,
+    the busy share against the untraced step time, the top operations."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        step()
+        torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in device) / 1e3 / n
+    print(events.table(sort_by="self_device_time_total", row_limit=20,
+                       max_name_column_width=70), flush=True)
+    return {"device_ms_per_step": dev_ms, "device_ops_per_step": sum(e.count for e in device) / n,
+            "busy_share": dev_ms / untraced_ms,
+            "top_ops": [{"name": e.key[:90], "ms_per_step": e.self_device_time_total / 1e3 / n,
+                         "calls_per_step": e.count / n}
+                        for e in sorted(device, key=lambda e: -e.self_device_time_total)[:top]]}
 
 
 def phase_train(torch, dev):
@@ -1119,29 +1448,9 @@ def phase_train(torch, dev):
         results["steps_timed"] = n_steps
         results["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
-        # Where a step's time goes: a torch.profiler trace of 3 steps of the
-        # default variant (kernels, "stats").
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts):  # pays the tracer's start-up
-            run("kernels_stats")
-            torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(3):
-                run("kernels_stats")
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_ms = sum(e.self_device_time_total for e in device) / 1e3 / 3
-        untraced = results["ms_per_step"]["kernels_stats"]["median"]
-        top = sorted(device, key=lambda e: -e.self_device_time_total)[:15]
-        results["trace"] = {"device_ms_per_step": dev_ms,
-                            "device_ops_per_step": sum(e.count for e in device) / 3,
-                            "busy_share": dev_ms / untraced,
-                            "top_ops": [{"name": e.key[:90],
-                                         "ms_per_step": e.self_device_time_total / 1e3 / 3,
-                                         "calls_per_step": e.count / 3} for e in top]}
-        print(events.table(sort_by="self_device_time_total", row_limit=20,
-                           max_name_column_width=70), flush=True)
+        # Where a step's time goes: the default variant (kernels, "stats").
+        results["trace"] = trace_steps(torch, lambda: run("kernels_stats"),
+                                       results["ms_per_step"]["kernels_stats"]["median"])
         net.set_kernels(True)
         res.bn_mode = "full"
     return results
@@ -1174,7 +1483,7 @@ def main() -> int:
 
     results = []
     for phase in (phase_stem, phase_stage1, phase_sampler, phase_lbs, phase_stage1_int8,
-                  phase_sampler_int8, phase_bn_sums, phase_sampler_f32):
+                  phase_sampler_int8, phase_bn_sums, phase_sampler_f32, phase_glow_sampler):
         out = phase(torch, dev)
         for r in (out if isinstance(out, list) else [out]):
             results.append(r)
@@ -1189,9 +1498,11 @@ def main() -> int:
                 print(f"  {key}: {t['median']:.4f} [{t['min']:.4f}, {t['max']:.4f}]", flush=True)
             if "library_ms" in r:
                 print(f"  library ({r['library']}): {r['library_ms']:.4f}", flush=True)
-            if "other_shape" in r:
-                print(f"  at {r['other_shape']['shape']}: {json.dumps(r['other_shape'])}",
-                      flush=True)
+            for key in ("other_shape", "smpl_shape"):
+                if key in r:
+                    print(f"  at {r[key]['shape']}: {json.dumps(r[key])}", flush=True)
+            for side in r.get("prohmr_shapes", []):
+                print(f"  at {side['shape']} (ProHMR): {json.dumps(side)}", flush=True)
 
     launches, agree, http_ms, timing = phase_slice(torch, dev)
     for b, t in timing.items():
@@ -1219,6 +1530,14 @@ def main() -> int:
                   f"the f32 kernel), same windows alternating: median {old['median']:.3f} "
                   f"ms/batch [{old['min']:.3f}, {old['max']:.3f}] [{card}]", flush=True)
     verts_launches, verts_err = phase_verts(torch, dev)
+    humans = phase_prohmr(torch, dev)
+    for variant, t in humans["bench"].items():
+        print(f"prohmr {variant}: median {t['ms_per_step']:.3f} ms/step of B={PROHMR_BENCH[0]}, "
+              f"N={PROHMR_BENCH[1]} [{t['ms_min_max'][0]:.3f}, {t['ms_min_max'][1]:.3f}] over "
+              f"{RUNS} windows of >= {SLICE_WINDOW_S} s, {t['hypotheses_per_s']:.1f} "
+              f"hypotheses/s [{card}]", flush=True)
+    print(f"prohmr: peak memory {humans['peak_memory_gb']:.2f} GB; trace of the kernel step "
+          f"{json.dumps(humans['trace'])}", flush=True)
     train = phase_train(torch, dev)
     for variant, t in train["ms_per_step"].items():
         print(f"train step {variant}: median {t['median']:.3f} ms/step of B={TRAIN_BATCH} "
@@ -1233,7 +1552,8 @@ def main() -> int:
                      "realnvp_sampler_int8": int8_launches[f"b{BATCH}"],
                      "bn_stats_sums": train["false"]["launches"],
                      "realnvp_sampler_f32": train["false"]["launches"],
-                     "bn_grad_sums": train["full"]["launches"]}
+                     "bn_grad_sums": train["full"]["launches"],
+                     "glow_sampler": humans["launches"]}
     kernels = [{"name": r["name"], "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": path_launches[r["name"]][r["name"]],
                 "max_abs_err": r["max_abs_err"],
@@ -1242,8 +1562,10 @@ def main() -> int:
                 "library_ms": r.get("library_ms", r["plain_ms"]["median"]
                                     if r["library"] == "plain" else None),
                 **{k: r[k] for k in ("tol", "max_abs_err_x", "max_abs_err_logdet",
-                                     "mean_abs_err_x", "bf16_exact_share", "err_share",
-                                     "grad_rel_err", "other_shape") if k in r},
+                                     "mean_abs_err_x", "mean_abs_err_logdet", "tol_logdet",
+                                     "tol_mean", "bf16_exact_share", "err_share", "grad_rel_err",
+                                     "other_shape", "smpl_shape", "prohmr_shapes", "trace")
+                   if k in r},
                 **{f"{key}_min_max": [r[key]["min"], r[key]["max"]] for key in TIMES}}
                for r in results]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1253,7 +1575,7 @@ def main() -> int:
                                        "int8_vs_float": int8_diff},
                       "eval": evals, "verts": {"launches": verts_launches,
                                                "kernel_vs_plain_max_abs": verts_err},
-                      "train": train}),
+                      "train": train, "prohmr": humans}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -8,6 +8,13 @@ state_dict names, which are also the port's module names. The result loads
 into `models.mhent.MHEnt` with `strict=True`; so does a reference
 `ent_ho3d.pth`'s `encoderRGB` entry.
 
+`glow_from_jax` turns the JAX ConditionalGlow params (flows/glow.py) into
+the nkolot/nflows fork's state_dict names, which are the port's
+`flows.glow.ConditionalGlow` names; `prohmr_from_jax` does the same for a
+whole JAX ProHMR model (`models.prohmr.ProHMR`), and
+`load_prohmr_smpl_flow` loads a released ProHMR SMPL-flow checkpoint by
+name (the counterpart of tools/convert_torch.py:304).
+
 `qtree_from_jax` and `flowq_from_jax` turn the JAX package's quantised
 trees (models/quant.py's qtree, flows/pallas_sampler_int8.py's FlowQTree),
 given as numpy arrays, into the port's, so that both packages compute with
@@ -180,3 +187,97 @@ def flowq_from_jax(ftree, dim: int = 45, device="cpu"):
             raise ValueError(f"{name}: weights on the lane padding beyond D={dim}")
         fields[name] = _tensor(a, torch.int8 if "_w" in name else torch.float32, device)
     return q8.with_kernel_layout(q8.FlowQTree(**fields))
+
+
+def glow_from_jax(params: list, prefix: str = "") -> dict:
+    """JAX ConditionalGlow params (a list of per-step {actnorm, linear,
+    coupling} dicts) -> the fork-named state_dict of
+    flows.glow.ConditionalGlow. ActNorm's `initialized` is True: the values
+    are final and a later train-mode forward must not re-initialise them."""
+    from mhentropy_tpu_torch.flows import glow
+
+    d = np.asarray(params[0]["actnorm"]["log_scale"]).shape[0]
+    masks = glow.coupling_masks(d, len(params))
+    sd: dict = {}
+    for i, layer in enumerate(params):
+        base = f"{prefix}_transform._transforms."
+        an, lin, cpl = layer["actnorm"], layer["linear"], layer["coupling"]
+        sd[f"{base}{3 * i}.initialized"] = torch.tensor(True)
+        sd[f"{base}{3 * i}.log_scale"] = _t(an["log_scale"])
+        sd[f"{base}{3 * i}.shift"] = _t(an["shift"])
+        for name in ("bias", "lower_entries", "upper_entries", "unconstrained_upper_diag"):
+            sd[f"{base}{3 * i + 1}.{name}"] = _t(lin[name])
+        c = f"{base}{3 * i + 2}"
+        sd[f"{c}.identity_features"] = torch.as_tensor(masks[i][0], dtype=torch.long)
+        sd[f"{c}.transform_features"] = torch.as_tensor(masks[i][1], dtype=torch.long)
+        _linear(sd, f"{c}.transform_net.initial_layer", cpl["initial"])
+        _linear(sd, f"{c}.transform_net.final_layer", cpl["final"])
+        for k, blk in enumerate(cpl["blocks"]):
+            if "bn0" in blk:
+                raise NotImplementedError("Glow coupling nets with BatchNorm are not ported yet "
+                                          "(ROADMAP queue 1, item 9)")
+            b = f"{c}.transform_net.blocks.{k}"
+            _linear(sd, f"{b}.context_layer", blk["ctx"])
+            _linear(sd, f"{b}.linear_layers.0", blk["l0"])
+            _linear(sd, f"{b}.linear_layers.1", blk["l1"])
+    return sd
+
+
+def prohmr_from_jax(params: dict, batch_stats: dict) -> dict:
+    """JAX ProHMR params {'encoder', 'flow', 'betas_head', 'cam_head'} +
+    backbone batch stats -> state_dict for models.prohmr.ProHMR."""
+    sd: dict = {}
+    enc = params["encoder"]
+    _resnet(sd, "encoder.res.", enc["backbone"], batch_stats)
+    for head in ("l1", "l2"):
+        _linear(sd, f"encoder.{head}.0", enc[head])
+    sd.update(glow_from_jax(params["flow"], "flow."))
+    _linear(sd, "betas_head", params["betas_head"])
+    _linear(sd, "cam_head", params["cam_head"])
+    return sd
+
+
+_GLOW_MARKER = "_transform._transforms.0.log_scale"
+
+
+def glow_config_of(sd: dict, prefix: str = ""):
+    """The GlowConfig a fork-named state_dict was built with."""
+    from mhentropy_tpu_torch.flows import glow
+
+    steps = {int(m.group(1)) for k in sd
+             if (m := re.match(re.escape(prefix) + r"_transform\._transforms\.(\d+)\.", k))}
+    net = f"{prefix}_transform._transforms.2.transform_net"
+    blocks = {int(m.group(1)) for k in sd
+              if (m := re.match(re.escape(net) + r"\.blocks\.(\d+)\.", k))}
+    init_w = sd[f"{net}.initial_layer.weight"]
+    ctx = sd[f"{net}.blocks.0.context_layer.weight"].shape[1]
+    return glow.GlowConfig(features=sd[f"{prefix}{_GLOW_MARKER}"].shape[0],
+                           hidden=init_w.shape[0], num_layers=len(steps) // 3,
+                           num_blocks=len(blocks), context_features=ctx,
+                           use_batch_norm=any("batch_norm_layers" in k for k in sd))
+
+
+def load_prohmr_smpl_flow(path: str, cfg=None, device="cpu"):
+    """A released ProHMR SMPL-flow checkpoint (or any torch file holding a
+    fork ConditionalGlow) -> flows.glow.ConditionalGlow, loaded by name
+    with strict=True. The key prefix (ProHMR stores the flow as `flow.`,
+    standalone dumps use none) is found from the first ActNorm's key. cfg:
+    the GlowConfig the caller expects; a checkpoint of another geometry
+    raises with both configs."""
+    from mhentropy_tpu_torch.flows import glow
+
+    sd = torch.load(path, map_location="cpu")
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    prefixes = sorted({k[:-len(_GLOW_MARKER)] for k in sd if k.endswith(_GLOW_MARKER)})
+    if not prefixes:
+        raise ValueError(f"{path}: no ConditionalGlow found; keys like {sorted(sd)[:5]}")
+    prefix = prefixes[0]
+    got = glow_config_of(sd, prefix)
+    if cfg is not None and got != cfg._replace(dropout=got.dropout):
+        raise ValueError(f"{path}: checkpoint geometry {got} does not match the configured "
+                         f"flow {cfg}")
+    flow = glow.ConditionalGlow(got if cfg is None else cfg)
+    flow.load_state_dict({k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)},
+                         strict=True)
+    return flow.to(device).eval()

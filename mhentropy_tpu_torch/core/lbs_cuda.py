@@ -6,8 +6,11 @@ the H100 and how its design answers that. `lbs_blend` takes batch-last
 planes, as the JAX function does: W (V, J), R (3, 3, J, rows),
 t (3, J, rows), v_posed (3, V, rows) -> verts (3, V, rows), all f32. CPU
 tensors take `lbs_blend_plain`; CUDA tensors launch the kernel, and
-anything it does not take raises. No row-count gate: the TPU's 8M-element
-gate was measured on the TPU.
+anything it does not take raises. The kernel tiles the vertices (1,024 a
+block), so it takes any V and row count, MANO's 778 and SMPL's 6,890
+vertices alike, and J up to 150 (the C entry point's vertex tile says
+what fits). No row-count gate: the TPU's 8M-element gate was measured on
+the TPU.
 """
 
 from __future__ import annotations
@@ -48,8 +51,12 @@ def _lbs_kernel(w, rot, trans, vposed) -> torch.Tensor:
         ext.require(t.dtype == torch.float32 and t.device == vposed.device,
                     f"lbs blend: {name} must be float32 on {vposed.device}")
     w, rot, trans, vposed = (t.contiguous() for t in (w, rot, trans, vposed))
-    out = torch.empty_like(vposed)
     lib = ext.load()
+    ext.require(lib.mhent_lbs_vertex_tile(v, j) >= 1,
+                f"lbs blend: W {tuple(w.shape)} has {j} joints, too many for one vertex's "
+                f"weights beside the rows' transforms in a block's shared memory "
+                f"(R {tuple(rot.shape)}, v_posed {tuple(vposed.shape)})")
+    out = torch.empty_like(vposed)
     err = lib.mhent_lbs_blend(w.data_ptr(), rot.data_ptr(), trans.data_ptr(), vposed.data_ptr(),
                               out.data_ptr(), v, j, rows, ext.stream_of(vposed))
     ext.check(err, "mhent_lbs_blend")

@@ -1,8 +1,9 @@
 """Batched rotation math on torch tensors.
 
 Port of mhentropy_tpu/core/rotations.py (`quat_to_rotmat` :22,
-`batch_rodrigues` :49): axis-angle -> rotation matrix through the
-quaternion path, with the reference's `+ eps` norm.
+`batch_rodrigues` :49, `rotmat_from_6d` :68): axis-angle -> rotation matrix
+through the quaternion path, with the reference's `+ eps` norm, and the 6D
+representation -> rotation matrix.
 """
 
 from __future__ import annotations
@@ -36,3 +37,17 @@ def batch_rodrigues(axisang: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     half = angle * 0.5
     quat = torch.cat([torch.cos(half), torch.sin(half) * axis], dim=-1)
     return quat_to_rotmat(quat)
+
+
+def rotmat_from_6d(x6d: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """(..., 6) = two stacked 3-vectors (a1, a2) -> (..., 3, 3) whose COLUMNS
+    are [b1 | b2 | b3] (Gram-Schmidt, then the cross product): the ProHMR
+    convention. Stacking them as rows instead returns the transpose, which
+    decodes every joint rotation of a released checkpoint as its inverse
+    without any error showing."""
+    a1, a2 = x6d[..., :3], x6d[..., 3:]
+    b1 = a1 / (torch.linalg.norm(a1, dim=-1, keepdim=True) + eps)
+    b2 = a2 - torch.sum(b1 * a2, dim=-1, keepdim=True) * b1
+    b2 = b2 / (torch.linalg.norm(b2, dim=-1, keepdim=True) + eps)
+    b3 = torch.linalg.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-1)

@@ -11,6 +11,7 @@ PyTorch's idiom for the new batch stats the JAX `apply` returns.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -66,3 +67,25 @@ class Encoder(nn.Module):
         elif self.cfg.sigma_act == "sigmoid":
             sd = torch.sigmoid(sd)
         return mn, sd
+
+
+def backbone_features(encoder: Encoder, image: torch.Tensor) -> torch.Tensor:
+    """Raw pooled backbone features (B, feat_dim) f32, no mu / sigma heads:
+    what the ProHMR flow conditions on (models/prohmr.py)."""
+    return encoder.res(image)
+
+
+@torch.no_grad()
+def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
+    """The JAX package's init distributions for every conv and linear under
+    `module`, in module order: lecun-normal (truncated) convs, torch-default
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)) linears."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+        elif isinstance(m, nn.Linear):
+            lim = 1.0 / math.sqrt(m.in_features)
+            m.weight.uniform_(-lim, lim, generator=generator)
+            m.bias.uniform_(-lim, lim, generator=generator)

@@ -29,7 +29,7 @@ from mhentropy_tpu_torch.core.mano import ManoConfig, ManoModel
 from mhentropy_tpu_torch.flows import cuda_sampler, cuda_sampler_int8, priors, realnvp
 from mhentropy_tpu_torch.flows.realnvp import RealNVPConfig
 from mhentropy_tpu_torch.models import quant as quant_mod
-from mhentropy_tpu_torch.models.encoder import Encoder, EncoderConfig
+from mhentropy_tpu_torch.models.encoder import Encoder, EncoderConfig, init_weights_
 from mhentropy_tpu_torch.train import metrics as metrics_lib
 
 # z layout (network.py:367-373 of the reference).
@@ -91,15 +91,7 @@ def init(cfg: MHEntConfig, seed: int = 0) -> MHEnt:
     lecun-normal convs, unit BN, torch-default linears, near-identity flow."""
     g = torch.Generator().manual_seed(seed)
     net = MHEnt(cfg)
-    for m in net.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_in = m.weight[0].numel()
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=g)
-        elif isinstance(m, nn.Linear):
-            lim = 1.0 / math.sqrt(m.in_features)
-            m.weight.uniform_(-lim, lim, generator=g)
-            m.bias.uniform_(-lim, lim, generator=g)
+    init_weights_(net, g)
     net.q_z_giv_i.init_params(g)
     return net
 

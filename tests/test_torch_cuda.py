@@ -8,8 +8,9 @@ card run them with
 This file imports neither JAX nor the JAX package, so it runs where only the
 port is installed. Tolerances: the kernels round activations to bf16 between
 products, so the max-abs error is held to a share of the output's range, as
-in chip_smoke.py. The BN sums and the f32 sampler are f32 on both sides:
-their bounds are f32 rounding in another summation order.
+in chip_smoke.py. The BN sums, the f32 sampler and the LBS blend are f32 on both
+sides: their bounds are f32 rounding in another summation order. The Glow
+sampler and its plain version round the same operands to bf16.
 """
 
 import math
@@ -19,7 +20,8 @@ import pytest
 import torch
 
 from mhentropy_tpu_torch.core import lbs_cuda
-from mhentropy_tpu_torch.flows import cuda_sampler, cuda_sampler_int8, realnvp
+from mhentropy_tpu_torch.flows import cuda_glow_sampler, cuda_sampler, cuda_sampler_int8, glow
+from mhentropy_tpu_torch.flows import realnvp
 from mhentropy_tpu_torch.models import (bn_cuda, resnet, stage1_cuda, stage1_int8_cuda,
                                         stem_cuda)
 
@@ -46,7 +48,7 @@ def _within(out, ref, share):
     return (out.float() - ref).abs().max().item() <= share * max(1.0, ref.abs().max().item())
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 64, 3), (1, 37, 50, 3)])
+@pytest.mark.parametrize("shape", [(2, 64, 64, 3), (1, 37, 50, 3), (2, 224, 224, 3)])
 def test_stem_kernel_matches_plain(dev, shape):
     g = torch.Generator().manual_seed(0)
     conv = torch.randn(64, 3, 7, 7, generator=g) * math.sqrt(2 / 147)
@@ -61,7 +63,7 @@ def test_stem_kernel_matches_plain(dev, shape):
     assert _within(out, stem_cuda.stem_plain(image.float(), w.float(), b), 2e-2)
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 64, 64), (1, 13, 37, 64)])
+@pytest.mark.parametrize("shape", [(2, 64, 64, 64), (1, 13, 37, 64), (2, 56, 56, 64)])
 def test_stage1_kernel_matches_plain(dev, shape):
     g = torch.Generator().manual_seed(1)
     layer1 = torch.nn.Sequential(resnet.Bottleneck(64, 64), resnet.Bottleneck(256, 64),
@@ -168,7 +170,8 @@ def _int8_sites(g, dev):
     return sites
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 16, 64), (1, 13, 37, 64), (8, 64, 64, 64)])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 64), (1, 13, 37, 64), (8, 64, 64, 64),
+                                   (8, 56, 56, 64)])
 def test_stage1_int8_kernel_matches_plain(dev, shape):
     """The integer products are exact and every epilogue op is rounded the
     same way in both, so the kernel's bf16 output is the plain f32 result
@@ -351,3 +354,98 @@ def test_reverse_kld_train_launches_the_training_kernels(dev, mode):
     assert (bn_cuda.stats_launches - before[0], bn_cuda.grad_launches - before[1],
             cuda_sampler.launches_f32 - before[2]) == (n_bn, n_bn if mode == "full" else 0, 1)
     assert all(torch.isfinite(p.grad).all() for p in net.parameters() if p.grad is not None)
+
+
+@pytest.mark.parametrize("rows", [1001, 3200])
+def test_lbs_blend_kernel_takes_smpl(dev, rows):
+    """SMPL's V = 6,890 and J = 24: seven vertex tiles of 1,024, the last
+    ragged; 3,200 rows is the ProHMR shape (B = 32, N = 100)."""
+    g = torch.Generator().manual_seed(4)
+    w = torch.rand(6890, 24, generator=g)
+    w = (w / w.sum(1, keepdim=True)).to(dev)
+    rot = torch.randn(3, 3, 24, rows, generator=g).to(dev)
+    trans = torch.randn(3, 24, rows, generator=g).to(dev) * 0.05
+    vposed = torch.randn(3, 6890, rows, generator=g).to(dev) * 0.5
+    before = lbs_cuda.launches
+    out = lbs_cuda.lbs_blend(w, rot, trans, vposed)
+    assert lbs_cuda.launches == before + 1
+    torch.testing.assert_close(out, lbs_cuda.lbs_blend_plain(w, rot, trans, vposed),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_lbs_blend_raises_with_the_shapes_past_its_joint_limit(dev):
+    """150 joints still fit one vertex beside 32 rows' transforms (the
+    header's limit); 151 raise, naming the shapes."""
+    def args(j):
+        return (torch.zeros(10, j, device=dev), torch.zeros(3, 3, j, 4, device=dev),
+                torch.zeros(3, j, 4, device=dev), torch.zeros(3, 10, 4, device=dev))
+
+    assert lbs_cuda.lbs_blend(*args(150)).shape == (3, 10, 4)
+    with pytest.raises(ValueError, match="151 joints"):
+        lbs_cuda.lbs_blend(*args(151))
+
+
+def _o1_glow(cfg, seed, dev):
+    torch.manual_seed(seed)
+    flow = glow.ConditionalGlow(cfg)  # torch-default Linears: O(1) outputs
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for i in range(cfg.num_layers):
+            an, lin, _ = flow.step(i)
+            an.log_scale.copy_(0.1 * torch.randn(cfg.features, generator=g))
+            an.shift.copy_(0.1 * torch.randn(cfg.features, generator=g))
+            for p in (lin.lower_entries, lin.upper_entries):
+                p.copy_(0.3 / math.sqrt(cfg.features) * torch.randn(p.shape, generator=g))
+    return flow.to(dev).eval()
+
+
+@pytest.mark.parametrize("d,h,c,b,n", [(144, 1024, 2048, 4, 100), (45, 512, 512, 8, 200),
+                                       (12, 64, 8, 3, 37)])
+def test_glow_sampler_kernel_matches_plain(dev, d, h, c, b, n):
+    """The ProHMR widths, the MHEnt Glow shape, and a ragged small one (3 x 37
+    rows, D = 12 padded to 16)."""
+    flow = _o1_glow(glow.GlowConfig(d, h, 4, 2, c), 5, dev)
+    with torch.inference_mode():
+        packed = cuda_glow_sampler.pack(flow)
+        ctx = cuda_glow_sampler.pack_context(flow, torch.randn(b, c, device=dev))
+        z0 = torch.randn(b, n, d, device=dev)
+        before = cuda_glow_sampler.launches
+        x, ld = cuda_glow_sampler.transform(packed, z0, ctx)
+        assert cuda_glow_sampler.launches == before + 1
+        x_ref, ld_ref = cuda_glow_sampler.transform_plain(packed, z0, ctx)
+    assert _within(x, x_ref, 1e-2) and _within(ld, ld_ref, 1e-2)
+
+
+def test_glow_sampler_raises_on_what_the_kernel_does_not_take(dev):
+    flow = _o1_glow(glow.GlowConfig(12, 64, 2, 2, 8), 6, dev)
+    ctx = cuda_glow_sampler.pack_context(flow, torch.randn(2, 8, device=dev)).detach()
+    z0 = torch.randn(2, 5, 12, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        cuda_glow_sampler.transform(cuda_glow_sampler.pack(flow, dtype=torch.float32), z0, ctx)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        narrow = _o1_glow(glow.GlowConfig(12, 32, 2, 2, 8), 6, dev)
+        cuda_glow_sampler.transform(cuda_glow_sampler.pack(narrow), z0,
+                                    cuda_glow_sampler.pack_context(narrow, ctx.new_zeros(2, 8)))
+
+
+def test_prohmr_path_launches_each_kernel_and_matches_plain_path(dev):
+    from mhentropy_tpu_torch import eval_prohmr
+    from mhentropy_tpu_torch.models import prohmr
+
+    model, net = eval_prohmr.build(dev)
+    image, gt = eval_prohmr.synthetic_batch(model, net, 2)
+    noise = torch.randn(16, 144, generator=torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    counts = (stem_cuda.launches, stage1_cuda.launches, cuda_glow_sampler.launches,
+              lbs_cuda.launches)
+    kern, mets = eval_prohmr.evaluate(model, net, image, gt, 8, noise=noise)
+    assert (stem_cuda.launches, stage1_cuda.launches, cuda_glow_sampler.launches,
+            lbs_cuda.launches) == (counts[0] + 1, counts[1] + 3, counts[2] + 1, counts[3] + 1)
+    assert kern["verts"].shape == (8, 2, 6890, 3)
+    assert all(torch.isfinite(v).all() for v in mets.values())
+    net.set_kernels(False)
+    plain, _ = eval_prohmr.evaluate(model, net, image, gt, 8, noise=noise)
+    assert cuda_glow_sampler.launches == counts[2] + 1
+    # bf16 Glow operands against the f32 flow: chip_smoke.PROHMR_TOL's bound.
+    assert (kern["joints3d"] - plain["joints3d"]).abs().max() <= 0.12
+    assert prohmr.multi_hypothesis_metrics(plain, {"joints3d": gt})["mpjpe_bh"].isfinite().all()

@@ -31,6 +31,9 @@ def test_port_imports_no_jax():
         "import mhentropy_tpu_torch.data.synthetic, mhentropy_tpu_torch.profile_serve\n"
         "import mhentropy_tpu_torch.models.bn_cuda, mhentropy_tpu_torch.flows.cuda_sampler\n"
         "import mhentropy_tpu_torch.models.resnet, mhentropy_tpu_torch.models.encoder\n"
+        "import mhentropy_tpu_torch.flows.glow, mhentropy_tpu_torch.flows.cuda_glow_sampler\n"
+        "import mhentropy_tpu_torch.core.smpl, mhentropy_tpu_torch.models.prohmr\n"
+        "import mhentropy_tpu_torch.eval_prohmr, mhentropy_tpu_torch.bench_prohmr\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'mhentropy_tpu'))\n"
         "print(bad)\n"
