@@ -18,12 +18,21 @@
    flow; after the kernels of 8, the Glow sampler at B=32, N=100, D=144,
    H=1024, 4 layers (ProHMR) and at B=8, N=200, D=45, H=512 (the MHEnt
    Glow) on O(1) flows, x and the log-det each against its tolerance (max-
-   and mean-abs), with a torch.profiler breakdown of its launches. Each
-   error is held to its stated tolerance, and each pair is timed with CUDA
-   events: RUNS windows of at least KERNEL_WINDOW_S seconds, kernel and
-   plain alternating, called eagerly (ms, plain_ms) and as CUDA-graph
-   replays (graph_ms, plain_graph_ms). `bound_ms` is computed from the
-   shapes (bytes over 3.35 TB/s, operations over the peak of their type).
+   and mean-abs), with a torch.profiler breakdown of its launches; the
+   opt-in int8 kernels on a He-initialised resnet50 with random BN,
+   calibrated (int8_stem, pallas_mid, q_from 1) on 8 and on 32 random
+   256 px images: the int8 stem (the bf16 stem kernel's graph time beside
+   it), stages 2 and 3 on the float stem and stage 1's output (the
+   `torch._int_mm` walk of the same stage beside them); the int8-vs-bf16
+   GEMM probe at (32768, 640) x (640, 512), its `lower` run first (one
+   launch each), each side against its plain version and its library call
+   (torch._int_mm, bf16 torch.matmul). Each error is held to its stated
+   tolerance, and each pair is timed with CUDA events: RUNS windows of at
+   least KERNEL_WINDOW_S seconds (NEW_WINDOW_S for the opt-in int8
+   kernels), kernel and plain alternating, called eagerly (ms, plain_ms)
+   and as CUDA-graph replays (graph_ms, plain_graph_ms). `bound_ms` is
+   computed from the shapes (bytes over 3.35 TB/s, operations over the
+   peak of their type).
 4. Float serving: configs/ho3d.yaml (resnet50 at 256 px, 12x512 RealNVP,
    N=200, fresh seeded weights, synthetic MANO) through InferenceServer and
    its HTTP front end (GET /healthz, POST /predict at B=1 u8, B=3 f32, B=8
@@ -32,6 +41,16 @@
 5. int8 serving: InferenceServer(quantize=True, max_batch=8): a B=8 request
    (int8 bucket) and a B=1 request (float bucket), each with its launches;
    B=8 int8 latency; int8 vs float on one batch under an O(1) flow.
+5b. The opt-in int8 path: mhent.sample_hypotheses(quant=) at B=8, N=200 on
+   configs/ho3d.yaml with QuantSpec(int8_stem=True, pallas_mid=True) at
+   q_from 0 and 1, calibrated on that batch: launches int8 stem 1, bf16
+   stem 0, the stage kernel 10 (one a bottleneck, stages 2 and 3), int8
+   stage 1 3 (q_from 0) or stage 1 3 (q_from 1), int8 sampler 1 and no
+   others; xyz and uv against the default int8 spec on the same images,
+   base noise and sampler tree within INT8_TOL. bench_quant's steps at
+   B=32, N=100 (q_from 1): bf16, int8, int8 + mid, int8 + int8 stem and
+   both in alternating windows of BENCH_QUANT_STEPS steps, hypotheses/s,
+   with a torch.profiler trace of the int8 and int8 + mid steps.
 6. Eval: the port's run.py path (Experiment.train_baseline with epochs 0)
    on configs/ho3d.yaml: the synthetic eval split of 128 at 256 px, B=64,
    N=200, float and with tpu.quantize_encoder; every metric finite; the
@@ -173,6 +192,15 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 # Eval and train steps' windows.
 STEP_WINDOW_S = 2.0
+# The int8 stem and stage 2/3 kernels against their plain versions: exact
+# integer sums and identically rounded f32 epilogues, so the kernel's bf16
+# output is the plain f32 result rounded to bf16; the max-abs error is held
+# to about one bf16 ulp of the largest output (2^-7 of it).
+INT8_KERNEL_TOL = 2.0 ** -7
+MID_BATCHES = (BATCH, 32)  # the int8 stem's and stage 2/3 kernels' checks
+NEW_WINDOW_S = 0.25  # the timing windows of the phases of the opt-in int8 kernels
+BENCH_QUANT = (32, 100)  # bench_quant's default B, N
+BENCH_QUANT_STEPS = 30  # steps a window
 
 
 def check(cond: bool, msg: str) -> None:
@@ -229,7 +257,7 @@ def graphed(torch, fn):
     return graph.replay
 
 
-def ab_ms(torch, kernel_fn, plain_fn) -> dict:
+def ab_ms(torch, kernel_fn, plain_fn, seconds: float = KERNEL_WINDOW_S) -> dict:
     """Spreads of RUNS windows each of kernel and plain, called eagerly (ms,
     plain_ms) and as CUDA-graph replays (graph_ms, plain_graph_ms), in
     alternating order (plain first on even runs, kernel first on odd ones)."""
@@ -239,7 +267,7 @@ def ab_ms(torch, kernel_fn, plain_fn) -> dict:
     for r in range(RUNS):
         for pair in (("plain_ms", "ms"), ("plain_graph_ms", "graph_ms")):
             for k in (pair if r % 2 == 0 else pair[::-1]):
-                times[k].append(cuda_ms(torch, fns[k]))
+                times[k].append(cuda_ms(torch, fns[k], seconds))
     return {k: spread(v) for k, v in times.items()}
 
 
@@ -259,9 +287,11 @@ def he_(torch, w, g) -> None:
 
 def kernel_counters() -> dict:
     """Every kernel of the port, by name: (wrapper module, its launch count)."""
+    from mhentropy_tpu_torch import int8_gemm_probe
     from mhentropy_tpu_torch.core import lbs_cuda
     from mhentropy_tpu_torch.flows import cuda_glow_sampler, cuda_sampler, cuda_sampler_int8
-    from mhentropy_tpu_torch.models import bn_cuda, stage1_cuda, stage1_int8_cuda, stem_cuda
+    from mhentropy_tpu_torch.models import (bn_cuda, stage1_cuda, stage1_int8_cuda,
+                                            stage2_int8_cuda, stem_cuda, stem_int8_cuda)
 
     return {"stem": (stem_cuda, "launches"), "stage1": (stage1_cuda, "launches"),
             "realnvp_sampler": (cuda_sampler, "launches"), "lbs_blend": (lbs_cuda, "launches"),
@@ -270,7 +300,11 @@ def kernel_counters() -> dict:
             "bn_stats_sums": (bn_cuda, "stats_launches"),
             "bn_grad_sums": (bn_cuda, "grad_launches"),
             "realnvp_sampler_f32": (cuda_sampler, "launches_f32"),
-            "glow_sampler": (cuda_glow_sampler, "launches")}
+            "glow_sampler": (cuda_glow_sampler, "launches"),
+            "stem_int8": (stem_int8_cuda, "launches"),
+            "stage2_int8": (stage2_int8_cuda, "launches"),
+            "int8_gemm_probe_s8": (int8_gemm_probe, "launches_s8"),
+            "int8_gemm_probe_bf16": (int8_gemm_probe, "launches_bf16")}
 
 
 def reset_launches() -> None:
@@ -704,6 +738,250 @@ def phase_sampler_int8(torch, dev):
             "max_abs_err": max(err_x, err_ld), "max_abs_err_x": err_x,
             "max_abs_err_logdet": err_ld, "mean_abs_err_x": (x - x_ref).abs().mean().item(),
             "tol": tol_x, **times, "library": None, **roofline(n_bytes, 2 * macs, "int8")}
+
+
+def stage_macs(b: int, g) -> int:
+    """Products of a resnet50 stage 2 or 3 (StageGeom g) at its stride-2
+    first block's kept pixels: block 0 (conv1 at the input resolution, the
+    3x3, conv3 and the downsample at the output's), blocks 1.. at the
+    output's."""
+    hw_in, hw_out = g.w_in ** 2, (g.w_in // 2) ** 2
+    w, cin, cout = g.width, g.cin, g.cout
+    first = hw_in * cin * w + hw_out * (9 * w * w + w * cout + cin * cout)
+    return b * (first + (g.n_blocks - 1) * hw_out * (cout * w + 9 * w * w + w * cout))
+
+
+def calibrated_mid(torch, res, images):
+    """(spec, qtree) with int8_stem and pallas_mid at q_from = 1, calibrated
+    on the images through res, and stage 2's input: those images through the
+    float stem and stage-1 kernels."""
+    from mhentropy_tpu_torch.models import quant, stage1_cuda, stem_cuda
+
+    spec = quant.QuantSpec(backbone="resnet50", q_from=1, int8_stem=True, pallas_mid=True)
+    qtree = quant.prepare(spec, res, quant.calibrate(spec, res, images))
+    x = stem_cuda.stem_forward(images.to(torch.bfloat16).contiguous(), *res.folded[0])
+    return spec, qtree, stage1_cuda.stage1_forward(x, res.folded[1])
+
+
+def stem_int8_case(torch, res, images, packed, site) -> dict:
+    """The int8 stem kernel against stem_plain on the site calibrated on the
+    images; the bf16 stem kernel's graph time on the same images beside."""
+    from mhentropy_tpu_torch.models import stem_cuda, stem_int8_cuda
+
+    bb, px = images.shape[:2]
+    out = stem_int8_cuda.stem_forward_q(images, packed)
+    torch.cuda.synchronize()
+    ref = stem_int8_cuda.stem_plain(images, site)
+    check(out.shape == (bb, px // 4, px // 4, 64) and out.dtype == torch.bfloat16,
+          f"stem int8: {tuple(out.shape)} {out.dtype}")
+    err = (out.float() - ref).abs().max().item()
+    exact = (out == ref.to(torch.bfloat16)).float().mean().item()
+    tol = INT8_KERNEL_TOL * ref.abs().max().item()
+    check(err <= tol, f"stem int8 {tuple(images.shape)}: max-abs error {err} > {tol}")
+    times = ab_ms(torch, lambda: stem_int8_cuda.stem_forward_q(images, packed),
+                  lambda: stem_int8_cuda.stem_plain(images, site), NEW_WINDOW_S)
+    image_bf16 = images.to(torch.bfloat16)
+    bf16_stem = cuda_ms(torch, graphed(torch, lambda: stem_cuda.stem_forward(
+        image_bf16, *res.folded[0])), NEW_WINDOW_S)
+    macs = bb * (px // 2) ** 2 * 64 * 147
+    n_bytes = (images.numel() * 4 + out.numel() * 2
+               + sum(packed[k].numel() * packed[k].element_size()
+                     for k in ("wk", "inv_a", "scale", "bias")))
+    return {"shape": list(images.shape), "max_abs_err": err, "tol": tol,
+            "bf16_exact_share": exact, "window_s": NEW_WINDOW_S, **times,
+            "bf16_stem_graph_ms": bf16_stem,
+            **roofline(n_bytes, 2 * macs, "int8")}
+
+
+def stage_int8_case(torch, spec, res, qtree, x, stage: int) -> dict:
+    """The stage kernel against stage_plain on one stage's calibrated packed
+    sites; the library yardstick is the same stage's `torch._int_mm` walk
+    (the route pallas_mid=False runs)."""
+    from mhentropy_tpu_torch.models import quant, stage2_int8_cuda
+
+    g = stage2_int8_cuda.GEOMS[stage]
+    packed = qtree[f"stage{stage}"]
+    out = stage2_int8_cuda.stage_forward_q(x, packed, stage)
+    torch.cuda.synchronize()
+    ref = stage2_int8_cuda.stage_plain(x, packed)
+    bb = x.shape[0]
+    check(out.shape == (bb, g.w_in // 2, g.w_in // 2, g.cout) and out.dtype == torch.bfloat16,
+          f"stage {stage} int8: {tuple(out.shape)} {out.dtype}")
+    err = (out.float() - ref).abs().max().item()
+    exact = (out == ref.to(torch.bfloat16)).float().mean().item()
+    tol = INT8_KERNEL_TOL * ref.abs().max().item()
+    check(err <= tol, f"stage {stage} int8 {tuple(x.shape)}: max-abs error {err} > {tol}")
+    times = ab_ms(torch, lambda: stage2_int8_cuda.stage_forward_q(x, packed, stage),
+                  lambda: stage2_int8_cuda.stage_plain(x, packed), NEW_WINDOW_S)
+    walk_spec = spec._replace(pallas_mid=False)
+    walk = lambda: quant.walk_stage(walk_spec, res, qtree["sites"], x, stage - 1)  # noqa: E731
+    walk_err = (walk().float() - ref).abs().max().item()
+    library = {"library_ms": cuda_ms(torch, walk, NEW_WINDOW_S),
+               "library_graph_ms": cuda_ms(torch, graphed(torch, walk), NEW_WINDOW_S),
+               "library_max_abs_diff": walk_err}
+    n_weights = sum(t.numel() * t.element_size() for blk in packed for t in blk
+                    if t is not None)
+    n_bytes = x.numel() * 2 + out.numel() * 2 + n_weights
+    return {"shape": list(x.shape), "stage": stage, "max_abs_err": err, "tol": tol,
+            "bf16_exact_share": exact, "window_s": NEW_WINDOW_S, **times, **library,
+            **roofline(n_bytes, 2 * stage_macs(bb, g), "int8")}
+
+
+def phase_int8_mid_kernels(torch, dev):
+    """The int8 stem and stage 2/3 kernels on a He-initialised resnet50 with
+    random BN, calibrated (int8_stem, pallas_mid, q_from = 1) on 8 and on 32
+    random 256 px images; B = 8 makes each line, B = 32 (and stage 3) stand
+    beside it."""
+    from mhentropy_tpu_torch.models import stage2_int8_cuda
+
+    res = he_resnet50(torch, dev, 20)
+    g = torch.Generator(device=dev).manual_seed(20)
+    stems, stages = [], []
+    with torch.inference_mode():
+        for bb in MID_BATCHES:
+            images = torch.randn((bb, 256, 256, 3), generator=g, device=dev)
+            spec, qtree, x2 = calibrated_mid(torch, res, images)
+            stems.append(stem_int8_case(torch, res, images, qtree["stem"],
+                                        qtree["sites"]["stem/conv1"]))
+            stages.append(stage_int8_case(torch, spec, res, qtree, x2, 2))
+            x3 = stage2_int8_cuda.stage_forward_q(x2, qtree["stage2"], 2)
+            stages.append(stage_int8_case(torch, spec, res, qtree, x3, 3))
+            if bb == BATCH:
+                # Where the two stages' device time goes, launch by launch.
+                trace = trace_steps(torch, lambda: (
+                    stage2_int8_cuda.stage_forward_q(x2, qtree["stage2"], 2),
+                    stage2_int8_cuda.stage_forward_q(x3, qtree["stage3"], 3)),
+                    stages[-2]["ms"]["median"] + stages[-1]["ms"]["median"], n=2)
+            del images, qtree, x2, x3
+    stem = {"name": "stem_int8", "source": "mhentropy_tpu_torch/csrc/stem_int8.cu",
+            "replaces": "mhentropy_tpu/models/stem_int8.py:122", **stems[0],
+            "library": None, "other_shapes": [side_line(c) for c in stems[1:]]}
+    # stages: [stage 2 B=8, stage 3 B=8, stage 2 B=32, stage 3 B=32]
+    mid = {"name": "stage2_int8", "source": "mhentropy_tpu_torch/csrc/stage2_int8.cu",
+           "replaces": "mhentropy_tpu/models/stage2_int8.py:217", **stages[0],
+           "library": "models/quant.py::walk_stage (torch._int_mm)",
+           "other_shapes": [side_line(c) for c in stages[1:]], "trace": trace}
+    return [stem, mid]
+
+
+def phase_gemm_probe(torch, dev):
+    """The probe's `lower` run (one launch of each kernel, each against its
+    plain version), then each side timed against its plain version and its
+    library call (torch._int_mm, torch.matmul in bf16)."""
+    from mhentropy_tpu_torch import int8_gemm_probe as probe
+
+    reset_launches()
+    lowered = probe.main(["lower"])
+    launches = read_launches()
+    check(lowered["ok"] and launches["int8_gemm_probe_s8"] == 1
+          and launches["int8_gemm_probe_bf16"] == 1,
+          f"gemm probe: {lowered}, launches {launches}")
+    m, k, n = probe.SHAPE
+    x8, w8, xb, wb = probe.operands(m, k, n, dev)
+    w8_kn, wb_kn = w8.T.contiguous(), wb.T.contiguous()
+    sides = {"s8": (lambda: probe.gemm_s8(x8, w8), lambda: probe.plain_s8(x8, w8),
+                    lambda: torch._int_mm(x8, w8_kn), "torch._int_mm", m * k + n * k + 4 * m * n,
+                    "int8", lowered["max_abs_err_s8"], 0),
+             "bf16": (lambda: probe.gemm_bf16(xb, wb), lambda: probe.plain_bf16(xb, wb),
+                      lambda: torch.matmul(xb, wb_kn), "torch.matmul (bf16)",
+                      2 * (m * k + n * k) + 2 * m * n, "bf16", lowered["max_abs_err_bf16"],
+                      lowered["tol_bf16"])}
+    out = []
+    for side, (kernel_fn, plain_fn, library_fn, library, n_bytes, kind, err, tol) in \
+            sides.items():
+        times = ab_ms(torch, kernel_fn, plain_fn, NEW_WINDOW_S)
+        out.append({"name": f"int8_gemm_probe_{side}",
+                    "source": "mhentropy_tpu_torch/csrc/int8_gemm_probe.cu",
+                    "replaces": "tools/mosaic_int8_probe.py:23", "shape": [m, k, n],
+                    "max_abs_err": err, "tol": tol, "window_s": NEW_WINDOW_S, **times,
+                    "library": library,
+                    "library_ms": cuda_ms(torch, library_fn, NEW_WINDOW_S),
+                    **roofline(n_bytes, 2 * m * k * n, kind)})
+    ratio = out[1]["graph_ms"]["median"] / out[0]["graph_ms"]["median"]
+    for r in out:
+        r["ratio_bf16_over_s8_graph"] = ratio
+    return out, launches
+
+
+def phase_int8_opt_in(torch, dev):
+    """mhent.sample_hypotheses(quant=) at B=8, N=200 on configs/ho3d.yaml at
+    full width (fresh seeded weights, O(1) flow), with QuantSpec(int8_stem,
+    pallas_mid) at q_from 0 and 1, calibrated on that batch: the launches of
+    each run, and xyz, uv against the default int8 spec on the same images,
+    base noise and int8 sampler tree."""
+    from mhentropy_tpu_torch import bench_quant
+    from mhentropy_tpu_torch.core import mano
+    from mhentropy_tpu_torch.models import mhent, quant
+    from mhentropy_tpu_torch.train import engine
+    from mhentropy_tpu_torch.utils.config import load_cfg
+
+    net = mhent.init(engine.build_model_config(load_cfg("configs/ho3d.yaml")), seed=0)
+    o1_flow(torch, net, 21)
+    mhent.prepare(net, dev)
+    model = engine.load_mano_model(device=dev)
+    fold = mano.fold_keypoints(model)
+    g = torch.Generator(device=dev).manual_seed(21)
+    images = torch.rand((BATCH, 256, 256, 3), generator=g, device=dev) * 2 - 1
+    noise = torch.randn((N_HYPO * BATCH, 45), generator=g, device=dev) * 0.8
+    results = {}
+    with torch.inference_mode():
+        for q_from in (0, 1):
+            default = quant.quantize_sampler_into(*bench_quant.quantize(net, images, q_from),
+                                                  net, images, temp=0.8)
+            spec, qtree = bench_quant.quantize(net, images, q_from, int8_stem=True,
+                                               pallas_mid=True)
+            opt = (spec._replace(int8_sampler=True), {**qtree, "flow": default[1]["flow"]})
+            outs = {}
+            for label, q in (("opt_in", opt), ("default", default)):
+                reset_launches()
+                out = mhent.sample_hypotheses(model, net, images, n=N_HYPO, temp=0.8,
+                                              mods=("xyz", "uv"), base_noise=noise, fold=fold,
+                                              quant=q)
+                torch.cuda.synchronize()
+                outs[label] = ({k: out[k].float().cpu().numpy() for k in ("xyz", "uv")},
+                               read_launches())
+            launches = outs["opt_in"][1]
+            want = {"stem_int8": 1, "stage2_int8": 10, "realnvp_sampler_int8": 1,
+                    ("stage1_int8" if q_from == 0 else "stage1"): 3}
+            check(all(v == want.get(k, 0) for k, v in launches.items()),
+                  f"int8 opt-in q_from={q_from}: launches {launches}, expected {want} and no "
+                  "others")
+            a, b = outs["opt_in"][0], outs["default"][0]
+            for k in ("xyz", "uv"):
+                check(np.isfinite(a[k]).all() and np.isfinite(b[k]).all()
+                      and a[k].shape == b[k].shape == (N_HYPO, BATCH, 63 if k == "xyz" else 42),
+                      f"int8 opt-in q_from={q_from}: {k} shapes {a[k].shape} or non-finite")
+            diff = {k: float(np.abs(a[k] - b[k]).max()) for k in ("xyz", "uv")}
+            mean = {k: float(np.abs(a[k] - b[k]).mean()) for k in ("xyz", "uv")}
+            print(f"int8 opt-in q_from={q_from}: launches {launches}; against the default int8 "
+                  f"spec max-abs {diff}, mean {mean} (tolerance {INT8_TOL})", flush=True)
+            for k, v in diff.items():
+                check(v <= INT8_TOL[k], f"int8 opt-in q_from={q_from}: {k} differs by {v}")
+            results[f"q_from_{q_from}"] = {"launches": launches, "default_launches":
+                                           outs["default"][1], "max_abs": diff,
+                                           "mean_abs": mean}
+    return results
+
+
+def phase_bench_quant(torch, dev):
+    """bench_quant's steps at N=100, B=32 (q_from = 1, its default): the
+    bf16, int8, int8 + mid, int8 + int8 stem and int8 + both sides in
+    alternating windows of BENCH_QUANT_STEPS steps; a torch.profiler trace
+    of two steps of the int8 and int8 + mid sides."""
+    from mhentropy_tpu_torch import bench_quant
+
+    bb, n = BENCH_QUANT
+    model, net = bench_quant.build(dev)
+    images = bench_quant.images_pool(net, bb, dev)
+    sides = bench_quant.make_sides(net, images, 1, "mid")
+    sides["int8_stem"] = bench_quant.quantize(net, images[0], 1, int8_stem=True)
+    sides["int8_stem_mid"] = bench_quant.quantize(net, images[0], 1, int8_stem=True,
+                                                  pallas_mid=True)
+    steps = bench_quant.make_steps(model, net, images, n, sides)
+    out = bench_quant.run(steps, BENCH_QUANT_STEPS, True, bb, n)
+    for side in ("int8", "int8_mid"):
+        out[side]["trace"] = trace_steps(torch, steps[side], out[side]["ms_per_step"], n=2)
+    return out
 
 
 def time_requests(server, imgs: np.ndarray) -> dict:
@@ -1482,8 +1760,10 @@ def main() -> int:
             print(f"build: {line.strip()}", flush=True)
 
     results = []
+    probe_results, probe_launches = phase_gemm_probe(torch, dev)
     for phase in (phase_stem, phase_stage1, phase_sampler, phase_lbs, phase_stage1_int8,
-                  phase_sampler_int8, phase_bn_sums, phase_sampler_f32, phase_glow_sampler):
+                  phase_sampler_int8, phase_bn_sums, phase_sampler_f32, phase_glow_sampler,
+                  phase_int8_mid_kernels, lambda torch, dev: probe_results):
         out = phase(torch, dev)
         for r in (out if isinstance(out, list) else [out]):
             results.append(r)
@@ -1491,8 +1771,8 @@ def main() -> int:
                    f"channel's sum of |values| (tol {r['tol']:.3g})" if "err_share" in r
                    else f"max-abs error {r['max_abs_err']:.6g} (tol {r['tol']:.6g})")
             print(f"kernel {r['name']}: {err}; bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
-                  f"median [min, max] of {RUNS} windows of >= {KERNEL_WINDOW_S} s [{card}]:",
-                  flush=True)
+                  f"median [min, max] of {RUNS} windows of >= "
+                  f"{r.get('window_s', KERNEL_WINDOW_S)} s [{card}]:", flush=True)
             for key in TIMES:
                 t = r[key]
                 print(f"  {key}: {t['median']:.4f} [{t['min']:.4f}, {t['max']:.4f}]", flush=True)
@@ -1501,6 +1781,8 @@ def main() -> int:
             for key in ("other_shape", "smpl_shape"):
                 if key in r:
                     print(f"  at {r[key]['shape']}: {json.dumps(r[key])}", flush=True)
+            for side in r.get("other_shapes", []):
+                print(f"  at {side['shape']}: {json.dumps(side)}", flush=True)
             for side in r.get("prohmr_shapes", []):
                 print(f"  at {side['shape']} (ProHMR): {json.dumps(side)}", flush=True)
 
@@ -1529,6 +1811,15 @@ def main() -> int:
             print(f"eval {label}, reverse-KL draw on the plain f32 flow (the routing before "
                   f"the f32 kernel), same windows alternating: median {old['median']:.3f} "
                   f"ms/batch [{old['min']:.3f}, {old['max']:.3f}] [{card}]", flush=True)
+    opt_in = phase_int8_opt_in(torch, dev)
+    bench_q = phase_bench_quant(torch, dev)
+    for side, t in bench_q.items():
+        print(f"bench_quant {side}: median {t['ms_per_step']:.3f} ms/step of B={BENCH_QUANT[0]}, "
+              f"N={BENCH_QUANT[1]} [{t['ms_min_max'][0]:.3f}, {t['ms_min_max'][1]:.3f}] over "
+              f"{RUNS} windows of {BENCH_QUANT_STEPS} steps, {t['hypotheses_per_s']:.1f} "
+              f"hypotheses/s, {t['vs_bf16']:.4f} of bf16 [{card}]", flush=True)
+        if "trace" in t:
+            print(f"bench_quant {side} trace: {json.dumps(t['trace'])}", flush=True)
     verts_launches, verts_err = phase_verts(torch, dev)
     humans = phase_prohmr(torch, dev)
     for variant, t in humans["bench"].items():
@@ -1553,7 +1844,11 @@ def main() -> int:
                      "bn_stats_sums": train["false"]["launches"],
                      "realnvp_sampler_f32": train["false"]["launches"],
                      "bn_grad_sums": train["full"]["launches"],
-                     "glow_sampler": humans["launches"]}
+                     "glow_sampler": humans["launches"],
+                     "stem_int8": opt_in["q_from_0"]["launches"],
+                     "stage2_int8": opt_in["q_from_0"]["launches"],
+                     "int8_gemm_probe_s8": probe_launches,
+                     "int8_gemm_probe_bf16": probe_launches}
     kernels = [{"name": r["name"], "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": path_launches[r["name"]][r["name"]],
                 "max_abs_err": r["max_abs_err"],
@@ -1564,7 +1859,10 @@ def main() -> int:
                 **{k: r[k] for k in ("tol", "max_abs_err_x", "max_abs_err_logdet",
                                      "mean_abs_err_x", "mean_abs_err_logdet", "tol_logdet",
                                      "tol_mean", "bf16_exact_share", "err_share", "grad_rel_err",
-                                     "other_shape", "smpl_shape", "prohmr_shapes", "trace")
+                                     "other_shape", "smpl_shape", "prohmr_shapes", "trace",
+                                     "other_shapes", "bf16_stem_graph_ms", "library_graph_ms",
+                                     "library_max_abs_diff", "ratio_bf16_over_s8_graph",
+                                     "library")
                    if k in r},
                 **{f"{key}_min_max": [r[key]["min"], r[key]["max"]] for key in TIMES}}
                for r in results]
@@ -1573,6 +1871,7 @@ def main() -> int:
                                 "kernel_vs_plain_max_abs": agree},
                       "int8_serving": {"launches": int8_launches, "timing": int8_timing,
                                        "int8_vs_float": int8_diff},
+                      "int8_opt_in": opt_in, "bench_quant": bench_q,
                       "eval": evals, "verts": {"launches": verts_launches,
                                                "kernel_vs_plain_max_abs": verts_err},
                       "train": train, "prohmr": humans}),

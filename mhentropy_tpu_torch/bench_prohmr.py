@@ -65,15 +65,15 @@ def make_steps(model, net, batch: int, n: int, variants=VARIANTS, seed: int = 2)
     return {v: table[v] for v in variants}
 
 
-def _window_ms(step, seconds: float, cuda: bool) -> float:
-    """ms per step over a window of about `seconds` (at least 3 steps), by
-    CUDA events on the card, by the host clock on the CPU."""
+def _window_ms(step, seconds: float, cuda: bool, min_steps: int = 3) -> float:
+    """ms per step over a window of about `seconds` (at least `min_steps`
+    steps), by CUDA events on the card, by the host clock on the CPU."""
     t0 = time.perf_counter()
     count = 0
     if cuda:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-    while time.perf_counter() - t0 < seconds or count < 3:
+    while time.perf_counter() - t0 < seconds or count < min_steps:
         step()
         count += 1
     if cuda:
@@ -84,9 +84,10 @@ def _window_ms(step, seconds: float, cuda: bool) -> float:
 
 
 def alternate(steps: dict, cuda: bool, windows: int = 3, seconds: float = 2.0,
-              warmup: int = 2) -> dict:
+              warmup: int = 2, min_steps: int = 3) -> dict:
     """{variant: [ms per step of each window]}, the variants in alternating
-    order (reversed on odd windows), after `warmup` steps each."""
+    order (reversed on odd windows), after `warmup` steps each; a window is
+    `seconds` long and at least `min_steps` steps."""
     for step in steps.values():
         for _ in range(warmup):
             step()
@@ -96,7 +97,7 @@ def alternate(steps: dict, cuda: bool, windows: int = 3, seconds: float = 2.0,
     runs = {v: [] for v in order}
     for r in range(windows):
         for v in (order if r % 2 == 0 else order[::-1]):
-            runs[v].append(_window_ms(steps[v], seconds, cuda))
+            runs[v].append(_window_ms(steps[v], seconds, cuda, min_steps))
     return runs
 
 

@@ -142,14 +142,14 @@ def _tensor(a, dtype=None, device="cpu") -> torch.Tensor:
 
 def qtree_from_jax(spec, qtree: dict, device="cpu") -> dict:
     """JAX quant.prepare qtree (+ optional "flow") -> the port's qtree for
-    `spec` (a port QuantSpec): int8 HWIO site weights and f32 scales as
-    they are, and a fresh ResNet module holding the float stem and stages."""
+    `spec` (a port QuantSpec): every site's keys as they are (int8 HWIO
+    `w8`, f32 scales: `inv_sa`, or the int8 stem's per-channel `inv_a`), a
+    fresh ResNet module holding the float stem and stages, and the kernels'
+    operands that `quant.finish` packs for the spec."""
     from mhentropy_tpu_torch.models import quant, resnet
 
-    sites = {key: {"w8": _tensor(s["w8"], torch.int8, device),
-                   "inv_sa": _tensor(s["inv_sa"], torch.float32, device),
-                   "scale": _tensor(s["scale"], torch.float32, device),
-                   "bias": _tensor(s["bias"], torch.float32, device)}
+    sites = {key: {name: _tensor(v, torch.int8 if name == "w8" else torch.float32, device)
+                   for name, v in s.items()}
              for key, s in qtree["sites"].items()}
     sd: dict = {}
     _resnet(sd, "", qtree["float"]["params"], qtree["float"]["batch_stats"])

@@ -20,13 +20,21 @@ q_from == 0, else the bf16 stage-1 kernel; stages 2-4's int8 convolutions
 are `torch._int_mm` library products (1x1 directly, 3x3 through an int8
 im2col), as the JAX package left them to XLA outside any Pallas kernel. On
 the CPU they are f64 convolutions of the integer-valued tensors, exact like
-XLA's s32 accumulation. The opt-in int8 stem and fused stage-2/3 kernels
-(`int8_stem`, `pallas_mid`) are not ported and raise.
+XLA's s32 accumulation. Two opt-in kernels, off by default as in the JAX
+package, take their parts over where the JAX package's gates pass: with
+`int8_stem` the stem is the W8A8 stem kernel (stem_int8_cuda, calibrated
+per input channel), and with `pallas_mid=True` stages 2 and 3 are the
+fused W8A8 stage kernel (stage2_int8_cuda). On the CPU the same dispatch
+runs their plain versions. `pallas_mid` "s8" / "fused" need the int8
+stage-1 kernel's s8 emits, which are not ported, and raise.
 
 The qtree is {"float": the ResNet module (stem and stages below q_from),
 "sites": {"layer{i}_{j}/{conv}": {"w8" (kh, kw, I, O) int8, "inv_sa" (),
-"scale" (O,), "bias" (O,)}}, "stage1": the int8 stage-1 kernel's operands
-when q_from == 0, "flow": the int8 sampler's FlowQTree}.
+"scale" (O,), "bias" (O,)}, "stem/conv1": {"w8" (7, 7, 3, 64), "inv_a" (3,),
+"scale", "bias"} with int8_stem}, "stage1": the int8 stage-1 kernel's
+operands when q_from == 0, "stem" / "stage2" / "stage3": the int8 stem's
+and stage kernel's operands when the spec asks for them, "flow": the int8
+sampler's FlowQTree}.
 """
 
 from __future__ import annotations
@@ -37,7 +45,8 @@ import torch
 from torch.nn import functional as F
 
 from mhentropy_tpu_torch.flows import cuda_sampler_int8
-from mhentropy_tpu_torch.models import stage1_cuda, stage1_int8_cuda, stem_cuda
+from mhentropy_tpu_torch.models import (stage1_cuda, stage1_int8_cuda, stage2_int8_cuda,
+                                        stem_cuda, stem_int8_cuda)
 
 EPS = 1e-5
 _ARCH = {"resnet18": ((2, 2, 2, 2), "basic"), "resnet50": ((3, 4, 6, 3), "bottleneck")}
@@ -51,16 +60,23 @@ class QuantSpec(NamedTuple):
     dtype: str = "bfloat16"  # float compute dtype of the unquantised ops
     pallas_stem: bool = True  # the bf16 stem kernel on the card
     pallas_stage1: bool = True  # the stage-1 kernels on the card
-    pallas_mid: bool | str = False  # fused int8 stages 2/3: not ported
-    int8_stem: bool = False  # int8 stem kernel: not ported
+    # The fused int8 stage-2/3 kernel: False (default) or True; "s8" and
+    # "fused" (the stage-1 kernel's s8 emits) raise.
+    pallas_mid: bool | str = False
+    int8_stem: bool = False  # the int8 stem kernel (default off)
     int8_sampler: bool = False  # the int8 fused sampler draws the hypotheses
 
 
 def _check(spec: QuantSpec) -> None:
-    if spec.pallas_mid is not False or spec.int8_stem:
+    if spec.pallas_mid not in (False, True, "s8", "fused"):
+        # Compared by identity below: an unrecognised value (a config layer's
+        # stringified bool) would run the default path while claiming a mode.
+        raise ValueError(f"QuantSpec.pallas_mid must be False/True/'s8'/'fused', got "
+                         f"{spec.pallas_mid!r}")
+    if spec.pallas_mid in ("s8", "fused"):
         raise NotImplementedError(
-            "QuantSpec.pallas_mid / int8_stem select the opt-in int8 stage-2/3 and stem "
-            "kernels, which are not ported (ROADMAP queue 2, kernels 8-9)")
+            f"QuantSpec.pallas_mid={spec.pallas_mid!r} needs the int8 stage-1 kernel's "
+            "nhwc_s8 / cm_s8 emits, which ROADMAP lists under 'Not to port'")
 
 
 def _bn_affine(bn):
@@ -130,22 +146,35 @@ def _modules(blk, conv_name: str):
     return getattr(blk, conv_name), getattr(blk, "bn" + conv_name[-1])
 
 
+def _int8_stem_ok(spec: QuantSpec, sites: dict | None, x: torch.Tensor) -> bool:
+    return (spec.int8_stem and sites is not None and "stem/conv1" in sites
+            and stem_int8_cuda.supported(x, 64, False))
+
+
 def _forward(spec: QuantSpec, res, sites: dict | None, x: torch.Tensor,
-             collect: dict | None = None, stage1=None) -> torch.Tensor:
+             collect: dict | None = None, packs: dict | None = None) -> torch.Tensor:
     """Eval-mode backbone walk on a (B, H, W, 3) NHWC image -> (B, feat) f32.
 
     With `collect`, records max|input| of every conv that will be
     quantised (calibration); with `sites`, runs those convs in int8.
-    `res` is the port's ResNet module (its float stem and stages).
+    `res` is the port's ResNet module (its float stem and stages); `packs`
+    holds the kernels' operands (the qtree's "stage1", "stem", "stage2",
+    "stage3"). The int8 kernels' gates are the JAX package's.
     """
     _check(spec)
+    packs = packs or {}
     dtype = getattr(torch, spec.dtype)
     sizes, kind = _ARCH[spec.backbone]
     kernels = x.is_cuda and dtype == torch.bfloat16
     if kernels and (spec.pallas_stem or spec.pallas_stage1) and res.folded is None:
         raise RuntimeError("the CUDA kernel path needs ResNet.fold_kernel_weights() first "
                            "(mhent.prepare runs it)")
-    if kernels and spec.pallas_stem:
+    if spec.int8_stem and collect is not None:
+        # Per input channel: the stem site quantises each channel alone.
+        collect["stem/conv1"] = x.abs().amax(dim=tuple(range(x.dim() - 1))).float()
+    if _int8_stem_ok(spec, sites, x):
+        x = stem_int8_cuda.stem_forward_q(x.float().contiguous(), packs["stem"], out_dtype=dtype)
+    elif kernels and spec.pallas_stem:
         x = stem_cuda.stem_forward(x.to(dtype).contiguous(), *res.folded[0])
     else:
         alpha, beta = _bn_affine(res.bn1)
@@ -154,58 +183,77 @@ def _forward(spec: QuantSpec, res, sites: dict | None, x: torch.Tensor,
 
     for i, n_blocks in enumerate(sizes):
         quant_stage = i >= spec.q_from
-        layer = getattr(res, f"layer{i + 1}")
         if (i == 0 and kind == "bottleneck" and spec.pallas_stage1 and kernels
                 and x.dtype == torch.bfloat16):
             if not quant_stage and res.folded[1] is not None:
                 x = stage1_cuda.stage1_forward(x.contiguous(), res.folded[1])
                 continue
-            if quant_stage and sites is not None and stage1 is not None:
-                x = stage1_int8_cuda.stage1_forward_q(x.contiguous(), stage1).to(dtype)
+            if quant_stage and sites is not None and "stage1" in packs:
+                x = stage1_int8_cuda.stage1_forward_q(x.contiguous(), packs["stage1"]).to(dtype)
                 continue
-        for j in range(n_blocks):
-            blk = layer[j]
-            stride = 2 if i > 0 and j == 0 else 1
-            path = f"layer{i + 1}_{j}"
+        if (i in (1, 2) and quant_stage and sites is not None and kind == "bottleneck"
+                and spec.pallas_mid is True):
+            stage = i + 1
+            if (stage2_int8_cuda.supported(x, stage) and stage2_int8_cuda.sites_ok(sites, stage)
+                    and stage2_int8_cuda.GEOMS[stage].n_blocks == n_blocks):
+                x = stage2_int8_cuda.stage_forward_q(x.contiguous(), packs[f"stage{stage}"],
+                                                     stage, out_dtype=dtype)
+                continue
+        x = walk_stage(spec, res, sites, x, i, collect)
+    return x.mean(dim=(1, 2)).float()
 
-            def cv(conv_name, xin, st, pad, path=path, blk=blk):
-                key = f"{path}/{conv_name}"
-                if quant_stage and sites is not None:
-                    return _qconv(xin, sites[key], st, pad).to(dtype)
-                if quant_stage and collect is not None:
-                    collect[key] = xin.abs().max().float()
-                conv, bn = _modules(blk, conv_name)
-                alpha, beta = _bn_affine(bn)
-                return _conv(xin, conv.weight, st, pad, dtype) * alpha.to(dtype) + beta.to(dtype)
 
-            r = x
-            ds_key = f"{path}/downsample_conv"
-            if quant_stage and sites is not None and ds_key in sites:
-                # conv1 and the downsample share the block input and its
-                # scale: quantise it once.
-                s1 = sites[f"{path}/conv1"]
-                xq = _quantize(x, s1["inv_sa"])
-                c1_stride, c1_pad = (1, 0) if kind == "bottleneck" else (stride, 1)
-                y = torch.relu(_qconv_pre(xq, s1, c1_stride, c1_pad).to(dtype))
-                if kind == "bottleneck":
-                    y = torch.relu(cv("conv2", y, stride, 1))
-                    y = cv("conv3", y, 1, 0)
-                else:
-                    y = cv("conv2", y, 1, 1)
-                r = _qconv_pre(xq, sites[ds_key], stride, 0).to(dtype)
-            elif kind == "bottleneck":
-                y = torch.relu(cv("conv1", x, 1, 0))
+def walk_stage(spec: QuantSpec, res, sites: dict | None, x: torch.Tensor, i: int,
+               collect: dict | None = None) -> torch.Tensor:
+    """Stage i (0-based) conv by conv on NHWC x: float convolutions below
+    q_from, int8 ones (`torch._int_mm` on the card) from it on."""
+    dtype = getattr(torch, spec.dtype)
+    sizes, kind = _ARCH[spec.backbone]
+    quant_stage = i >= spec.q_from
+    layer = getattr(res, f"layer{i + 1}")
+    for j in range(sizes[i]):
+        blk = layer[j]
+        stride = 2 if i > 0 and j == 0 else 1
+        path = f"layer{i + 1}_{j}"
+
+        def cv(conv_name, xin, st, pad, path=path, blk=blk):
+            key = f"{path}/{conv_name}"
+            if quant_stage and sites is not None:
+                return _qconv(xin, sites[key], st, pad).to(dtype)
+            if quant_stage and collect is not None:
+                collect[key] = xin.abs().max().float()
+            conv, bn = _modules(blk, conv_name)
+            alpha, beta = _bn_affine(bn)
+            return _conv(xin, conv.weight, st, pad, dtype) * alpha.to(dtype) + beta.to(dtype)
+
+        r = x
+        ds_key = f"{path}/downsample_conv"
+        if quant_stage and sites is not None and ds_key in sites:
+            # conv1 and the downsample share the block input and its
+            # scale: quantise it once.
+            s1 = sites[f"{path}/conv1"]
+            xq = _quantize(x, s1["inv_sa"])
+            c1_stride, c1_pad = (1, 0) if kind == "bottleneck" else (stride, 1)
+            y = torch.relu(_qconv_pre(xq, s1, c1_stride, c1_pad).to(dtype))
+            if kind == "bottleneck":
                 y = torch.relu(cv("conv2", y, stride, 1))
                 y = cv("conv3", y, 1, 0)
-                if r.shape != y.shape:
-                    r = cv("downsample_conv", x, stride, 0)
             else:
-                y = torch.relu(cv("conv1", x, stride, 1))
                 y = cv("conv2", y, 1, 1)
-                if r.shape != y.shape:
-                    r = cv("downsample_conv", x, stride, 0)
-            x = torch.relu(y + r)
-    return x.mean(dim=(1, 2)).float()
+            r = _qconv_pre(xq, sites[ds_key], stride, 0).to(dtype)
+        elif kind == "bottleneck":
+            y = torch.relu(cv("conv1", x, 1, 0))
+            y = torch.relu(cv("conv2", y, stride, 1))
+            y = cv("conv3", y, 1, 0)
+            if r.shape != y.shape:
+                r = cv("downsample_conv", x, stride, 0)
+        else:
+            y = torch.relu(cv("conv1", x, stride, 1))
+            y = cv("conv2", y, 1, 1)
+            if r.shape != y.shape:
+                r = cv("downsample_conv", x, stride, 0)
+        x = torch.relu(y + r)
+    return x
 
 
 @torch.no_grad()
@@ -225,6 +273,9 @@ def prepare(spec: QuantSpec, res, act_maxabs: dict) -> dict:
     sizes, kind = _ARCH[spec.backbone]
     names = ("conv1", "conv2", "conv3") if kind == "bottleneck" else ("conv1", "conv2")
     sites = {}
+    if spec.int8_stem and "stem/conv1" in act_maxabs:
+        sites["stem/conv1"] = stem_int8_cuda.prepare_stem_site(res.conv1.weight, res.bn1,
+                                                               act_maxabs["stem/conv1"])
     for i, n_blocks in enumerate(sizes):
         if i < spec.q_from:
             continue
@@ -251,17 +302,27 @@ def prepare(spec: QuantSpec, res, act_maxabs: dict) -> dict:
 
 
 def finish(qtree: dict, spec: QuantSpec) -> dict:
-    """Adds the int8 stage-1 kernel's operands when stage 1 is quantised."""
-    if spec.q_from == 0 and _ARCH[spec.backbone][1] == "bottleneck" \
-            and stage1_int8_cuda.sites_ok(qtree["sites"]):
-        qtree["stage1"] = stage1_int8_cuda.pack(qtree["sites"])
+    """Adds the kernels' operands, packed once per calibration: the int8
+    stage-1 kernel's when stage 1 is quantised, the int8 stem's with
+    `int8_stem`, and the stage kernel's for stages 2 and 3 with
+    `pallas_mid=True`, wherever their sites are there."""
+    _check(spec)
+    sites = qtree["sites"]
+    bottleneck = _ARCH[spec.backbone][1] == "bottleneck"
+    if spec.q_from == 0 and bottleneck and stage1_int8_cuda.sites_ok(sites):
+        qtree["stage1"] = stage1_int8_cuda.pack(sites)
+    if spec.int8_stem and "stem/conv1" in sites:
+        qtree["stem"] = stem_int8_cuda.pack(sites["stem/conv1"])
+    if spec.pallas_mid is True and bottleneck:
+        for stage in (2, 3):
+            if stage2_int8_cuda.sites_ok(sites, stage):
+                qtree[f"stage{stage}"] = stage2_int8_cuda.pack(sites, stage)
     return qtree
 
 
 def backbone_forward(spec: QuantSpec, qtree: dict, images: torch.Tensor) -> torch.Tensor:
     """Quantised eval-mode features: (B, H, W, 3) -> (B, feat) f32."""
-    return _forward(spec, qtree["float"], qtree["sites"], images,
-                    stage1=qtree.get("stage1"))
+    return _forward(spec, qtree["float"], qtree["sites"], images, packs=qtree)
 
 
 def resolve_q_from(q_from, backbone: str, image_shape, device) -> int:
@@ -279,11 +340,18 @@ def resolve_q_from(q_from, backbone: str, image_shape, device) -> int:
 
 def quantize_encoder(encoder, calib_images: torch.Tensor, q_from="auto") -> tuple:
     """One-call encoder quantisation -> (spec, qtree) for `encoder_feat`;
-    the heads stay float."""
+    the heads stay float. The kernel switches are read from the encoder's
+    config where it has them, with the JAX package's defaults. The port's
+    EncoderConfig has none of these fields, so today the reads give the
+    defaults; they mirror the JAX package's quantize_encoder."""
     cfg = encoder.cfg
     spec = QuantSpec(backbone=cfg.backbone, dtype=cfg.dtype,
                      q_from=resolve_q_from(q_from, cfg.backbone, calib_images.shape,
-                                           calib_images.device))
+                                           calib_images.device),
+                     pallas_stem=getattr(cfg, "pallas_stem", True),
+                     pallas_stage1=getattr(cfg, "pallas_stage1", True),
+                     pallas_mid=getattr(cfg, "pallas_mid", False),
+                     int8_stem=getattr(cfg, "int8_stem", False))
     act = calibrate(spec, encoder.res, calib_images)
     return spec, prepare(spec, encoder.res, act)
 

@@ -38,17 +38,20 @@ launches = 0
 
 
 class Int8Block(NamedTuple):
-    inv_in: torch.Tensor  # (1,) f32 quantise factor of the block input
-    w1: torch.Tensor  # (64, cin) int8 [out, in]
-    s1: torch.Tensor  # (64,) f32, conv2's inv_sa folded in
+    """One bottleneck's operands; the shapes are stage 1's (width W = 64,
+    Cout = 256)."""
+
+    inv_in: torch.Tensor  # (1,) f32 quantise factor of the block input (conv1's inv_sa)
+    w1: torch.Tensor  # (W, cin) int8 [out, in]
+    s1: torch.Tensor  # (W,) f32, conv2's inv_sa folded in
     b1: torch.Tensor
-    w2: torch.Tensor  # (64, 576) int8 [out, tap * 64 + in]
-    s2: torch.Tensor  # (64,) f32, conv3's inv_sa folded in
+    w2: torch.Tensor  # (W, 9 W) int8 [out, tap * W + in], tap = (dy + 1) * 3 + dx + 1
+    s2: torch.Tensor  # (W,) f32, conv3's inv_sa folded in
     b2: torch.Tensor
-    w3: torch.Tensor  # (256, 64) int8
-    s3: torch.Tensor  # (256,) f32
+    w3: torch.Tensor  # (Cout, W) int8
+    s3: torch.Tensor  # (Cout,) f32
     b3: torch.Tensor
-    wd: torch.Tensor | None  # (256, 64) int8 downsample on block 0
+    wd: torch.Tensor | None  # (Cout, Cin) int8 downsample on block 0
     sd: torch.Tensor | None
     bd: torch.Tensor | None
 
@@ -59,10 +62,16 @@ def sites_ok(sites: dict) -> bool:
     return all(k in sites for k in need + ["layer1_0/downsample_conv"])
 
 
-@torch.no_grad()
 def pack(sites: dict) -> list[Int8Block]:
+    return pack_stage(sites, 1, 3)
+
+
+@torch.no_grad()
+def pack_stage(sites: dict, stage: int, n_blocks: int) -> list[Int8Block]:
+    """The bottlenecks `layer{stage}_{j}` of the sites as Int8Blocks (also
+    the int8 stage 2/3 kernel's operands, models/stage2_int8_cuda.py)."""
     def site(j, name):
-        return sites[f"layer1_{j}/{name}"]
+        return sites[f"layer{stage}_{j}/{name}"]
 
     def t1x1(w8):  # (1, 1, I, O) -> (O, I)
         return w8[0, 0].T.contiguous()
@@ -74,7 +83,7 @@ def pack(sites: dict) -> list[Int8Block]:
         return scale.contiguous(), bias.contiguous()
 
     out = []
-    for j in range(3):
+    for j in range(n_blocks):
         c1, c2, c3 = site(j, "conv1"), site(j, "conv2"), site(j, "conv3")
         s1, b1 = sb(c1, c2["inv_sa"].float())
         s2, b2 = sb(c2, c3["inv_sa"].float())

@@ -10,7 +10,10 @@ port is installed. Tolerances: the kernels round activations to bf16 between
 products, so the max-abs error is held to a share of the output's range, as
 in chip_smoke.py. The BN sums, the f32 sampler and the LBS blend are f32 on both
 sides: their bounds are f32 rounding in another summation order. The Glow
-sampler and its plain version round the same operands to bf16.
+sampler and its plain version round the same operands to bf16. The int8
+stem, the int8 stage 2/3 kernel and the GEMM probe sum integers exactly and
+round every epilogue op as their plain versions do: their f32 outputs are
+equal, their bf16 outputs within a bf16 rounding (2^-7 of the largest).
 """
 
 import math
@@ -19,11 +22,12 @@ import numpy as np
 import pytest
 import torch
 
+from mhentropy_tpu_torch import int8_gemm_probe
 from mhentropy_tpu_torch.core import lbs_cuda
 from mhentropy_tpu_torch.flows import cuda_glow_sampler, cuda_sampler, cuda_sampler_int8, glow
 from mhentropy_tpu_torch.flows import realnvp
 from mhentropy_tpu_torch.models import (bn_cuda, resnet, stage1_cuda, stage1_int8_cuda,
-                                        stem_cuda)
+                                        stage2_int8_cuda, stem_cuda, stem_int8_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -449,3 +453,125 @@ def test_prohmr_path_launches_each_kernel_and_matches_plain_path(dev):
     # bf16 Glow operands against the f32 flow: chip_smoke.PROHMR_TOL's bound.
     assert (kern["joints3d"] - plain["joints3d"]).abs().max() <= 0.12
     assert prohmr.multi_hypothesis_metrics(plain, {"joints3d": gt})["mpjpe_bh"].isfinite().all()
+
+
+def _within_bf16(out, ref):
+    return (out.float() - ref).abs().max().item() <= 2.0 ** -7 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 256, 3), (1, 37, 50, 3), (8, 256, 256, 3)])
+def test_stem_int8_kernel_matches_plain(dev, shape):
+    g = torch.Generator().manual_seed(30)
+    conv = torch.randn(64, 3, 7, 7, generator=g) * math.sqrt(2 / 147)
+    bn = torch.nn.BatchNorm2d(64).eval()
+    _rand_bn(bn, g)
+    image = (torch.randn(shape, generator=g) * 1.5).to(dev)
+    site = stem_int8_cuda.prepare_stem_site(conv.to(dev), bn.to(dev),
+                                            image.abs().amax(dim=(0, 1, 2)))
+    packed = stem_int8_cuda.pack(site)
+    ref = stem_int8_cuda.stem_plain(image, site)
+    before = stem_int8_cuda.launches
+    out32 = stem_int8_cuda.stem_forward_q(image, packed, out_dtype=torch.float32)
+    out16 = stem_int8_cuda.stem_forward_q(image, packed)
+    assert stem_int8_cuda.launches == before + 2 and out16.dtype == torch.bfloat16
+    torch.testing.assert_close(out32, ref, rtol=0, atol=0)
+    assert _within_bf16(out16, ref)
+
+
+def _stage_sites(g, stage, dev):
+    geom = stage2_int8_cuda.GEOMS[stage]
+
+    def site(shape):
+        cout = shape[-1]
+        return {"w8": torch.randint(-90, 90, shape, generator=g, dtype=torch.int8).to(dev),
+                "scale": (torch.rand(cout, generator=g) * 1.8e-3 + 2e-4).to(dev),
+                "bias": (torch.randn(cout, generator=g) * 0.05).to(dev),
+                "inv_sa": (torch.rand((), generator=g) * 50 + 30).to(dev)}
+
+    sites = {}
+    for j in range(geom.n_blocks):
+        cin = geom.cin if j == 0 else geom.cout
+        sites[f"layer{stage}_{j}/conv1"] = site((1, 1, cin, geom.width))
+        sites[f"layer{stage}_{j}/conv2"] = site((3, 3, geom.width, geom.width))
+        sites[f"layer{stage}_{j}/conv3"] = site((1, 1, geom.width, geom.cout))
+    sites[f"layer{stage}_0/downsample_conv"] = site((1, 1, geom.cin, geom.cout))
+    sites[f"layer{stage}_0/downsample_conv"]["inv_sa"] = sites[f"layer{stage}_0/conv1"]["inv_sa"]
+    return sites
+
+
+@pytest.mark.parametrize("stage,b", [(2, 1), (2, 8), (3, 2), (3, 8)])
+def test_stage_int8_kernel_matches_plain(dev, stage, b):
+    g = torch.Generator().manual_seed(31)
+    geom = stage2_int8_cuda.GEOMS[stage]
+    packed = stage2_int8_cuda.pack(_stage_sites(g, stage, dev), stage)
+    x = torch.randn((b, geom.w_in, geom.w_in, geom.cin), generator=g).to(dev)
+    xb = x.to(torch.bfloat16)
+    before = stage2_int8_cuda.launches
+    out32 = stage2_int8_cuda.stage_forward_q(x, packed, stage, out_dtype=torch.float32)
+    out16 = stage2_int8_cuda.stage_forward_q(xb, packed, stage)
+    assert stage2_int8_cuda.launches == before + 2 * geom.n_blocks
+    assert out16.dtype == torch.bfloat16
+    assert out16.shape == (b, geom.w_in // 2, geom.w_in // 2, geom.cout)
+    torch.testing.assert_close(out32, stage2_int8_cuda.stage_plain(x, packed), rtol=0, atol=0)
+    assert _within_bf16(out16, stage2_int8_cuda.stage_plain(xb, packed))
+
+
+def test_int8_stage_and_stem_raise_on_what_the_kernels_do_not_take(dev):
+    g = torch.Generator().manual_seed(32)
+    packed = stage2_int8_cuda.pack(_stage_sites(g, 2, dev), 2)
+    with pytest.raises(ValueError, match="x must be"):
+        stage2_int8_cuda.stage_forward_q(torch.zeros(1, 32, 32, 256, device=dev), packed, 2)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        stage2_int8_cuda.stage_forward_q(torch.zeros(1, 64, 64, 256, device=dev,
+                                                     dtype=torch.int8), packed, 2)
+    with pytest.raises(ValueError, match="packed blocks"):
+        stage2_int8_cuda.stage_forward_q(torch.zeros(1, 64, 64, 256, device=dev), packed[:2], 2)
+    site = {"w8": torch.zeros(7, 7, 3, 64, dtype=torch.int8, device=dev),
+            "inv_a": torch.ones(3, device=dev), "scale": torch.ones(64, device=dev),
+            "bias": torch.zeros(64, device=dev)}
+    with pytest.raises(ValueError, match="float32"):
+        stem_int8_cuda.stem_forward_q(torch.zeros(1, 16, 16, 3, device=dev,
+                                                  dtype=torch.bfloat16),
+                                      stem_int8_cuda.pack(site))
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 128, 128), int8_gemm_probe.SHAPE])
+def test_gemm_probe_kernels_match_plain(dev, m, k, n):
+    x8, w8, xb, wb = int8_gemm_probe.operands(m, k, n, dev)
+    before = (int8_gemm_probe.launches_s8, int8_gemm_probe.launches_bf16)
+    got = int8_gemm_probe.check(x8, w8, xb, wb)
+    assert (int8_gemm_probe.launches_s8, int8_gemm_probe.launches_bf16) == (
+        before[0] + 1, before[1] + 1)
+    assert got["ok"] and got["max_abs_err_s8"] == 0, got
+    with pytest.raises(ValueError, match="multiples"):
+        int8_gemm_probe.gemm_s8(x8[:100], w8)
+
+
+def test_opt_in_int8_path_launches_the_int8_stem_and_stage_kernels(dev):
+    """A resnet50 at 256 px with int8_stem and pallas_mid at q_from = 0:
+    the int8 stem once, the stage kernel once a bottleneck of stages 2 and
+    3, the int8 stage 1 three times, and no bf16 stem; the features close to
+    the default int8 spec's."""
+    from mhentropy_tpu_torch.models import quant
+    from mhentropy_tpu_torch.models.encoder import Encoder, EncoderConfig
+
+    torch.manual_seed(33)
+    enc = Encoder(EncoderConfig(backbone="resnet50", n_latent=(32, 32))).to(dev).eval()
+    enc.res.to(dtype=torch.bfloat16, memory_format=torch.channels_last)
+    enc.res.fold_kernel_weights()
+    image = torch.rand((2, 256, 256, 3), device=dev) * 2 - 1
+    feats = {}
+    with torch.inference_mode():
+        for label, kw in (("opt_in", {"int8_stem": True, "pallas_mid": True}), ("default", {})):
+            spec = quant.QuantSpec(backbone="resnet50", q_from=0, **kw)
+            qt = quant.prepare(spec, enc.res, quant.calibrate(spec, enc.res, image))
+            counts = (stem_int8_cuda.launches, stage2_int8_cuda.launches,
+                      stage1_int8_cuda.launches, stem_cuda.launches)
+            feats[label] = quant.backbone_forward(spec, qt, image)
+            after = (stem_int8_cuda.launches, stage2_int8_cuda.launches,
+                     stage1_int8_cuda.launches, stem_cuda.launches)
+            want = (1, 10, 3, 0) if label == "opt_in" else (0, 0, 3, 1)
+            assert tuple(a - c for a, c in zip(after, counts)) == want, (label, after, counts)
+    a, b = feats["opt_in"], feats["default"]
+    cos = float((a * b).sum() / (a.norm() * b.norm()))
+    assert torch.isfinite(a).all() and cos > 0.99, cos

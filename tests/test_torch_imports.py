@@ -34,6 +34,8 @@ def test_port_imports_no_jax():
         "import mhentropy_tpu_torch.flows.glow, mhentropy_tpu_torch.flows.cuda_glow_sampler\n"
         "import mhentropy_tpu_torch.core.smpl, mhentropy_tpu_torch.models.prohmr\n"
         "import mhentropy_tpu_torch.eval_prohmr, mhentropy_tpu_torch.bench_prohmr\n"
+        "import mhentropy_tpu_torch.models.stem_int8_cuda, mhentropy_tpu_torch.bench_quant\n"
+        "import mhentropy_tpu_torch.models.stage2_int8_cuda, mhentropy_tpu_torch.int8_gemm_probe\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'mhentropy_tpu'))\n"
         "print(bad)\n"
