@@ -26,7 +26,13 @@
    `torch._int_mm` walk of the same stage beside them); the int8-vs-bf16
    GEMM probe at (32768, 640) x (640, 512), its `lower` run first (one
    launch each), each side against its plain version and its library call
-   (torch._int_mm, bf16 torch.matmul). Each error is held to its stated
+   (torch._int_mm, bf16 torch.matmul); the stem and stage-1 probes (each
+   probe's `check` run first, its launches counted): the im2col + GEMM stem
+   envelope on f32 planes (32, 6, 264, 128), its four cuts (rolls, im2col,
+   gemm, full) on bf16 planes at 128 and 64 conv rows, beside cuDNN's stem
+   and the stem kernel at (32, 256, 256, 3); stage-1 probes A (pixel-major)
+   and B (channel-major) at (32, 64, 64, 64) beside cuDNN's stage 1 and the
+   stage-1 kernel. Each error is held to its stated
    tolerance, and each pair is timed with CUDA events: RUNS windows of at
    least KERNEL_WINDOW_S seconds (NEW_WINDOW_S for the opt-in int8
    kernels), kernel and plain alternating, called eagerly (ms, plain_ms)
@@ -82,6 +88,9 @@
    twice, and in f32); ms per train step for kernels +
    "stats", kernels + "full" and the plain path in alternating windows;
    a torch.profiler trace of a few steps (device busy share, top ops).
+9b. The port's bench (mhentropy_tpu_torch/bench.py) at N=100, B=32 with
+   BENCH_STEPS steps a round: the headline hypotheses/s, mfu, every
+   section of bench.py (none may fail), the device time by layer.
 10. Prints the kernels' JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
@@ -98,7 +107,6 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import threading
 import time
@@ -201,6 +209,7 @@ MID_BATCHES = (BATCH, 32)  # the int8 stem's and stage 2/3 kernels' checks
 NEW_WINDOW_S = 0.25  # the timing windows of the phases of the opt-in int8 kernels
 BENCH_QUANT = (32, 100)  # bench_quant's default B, N
 BENCH_QUANT_STEPS = 30  # steps a window
+BENCH_STEPS = 100  # the port's bench: steps a round (its default is bench.py's 250)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -209,10 +218,10 @@ def check(cond: bool, msg: str) -> None:
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    """nvidia-smi's name and power limit of the first card."""
+    from mhentropy_tpu_torch import profile_step
+
+    return profile_step.card_line()
 
 
 def spread(xs: list[float]) -> dict:
@@ -221,22 +230,10 @@ def spread(xs: list[float]) -> dict:
 
 def cuda_ms(torch, fn, seconds: float = KERNEL_WINDOW_S) -> float:
     """Mean ms per call, by CUDA events, over a window of about `seconds`
-    (the call count is set from three warm calls)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    iters = max(10, math.ceil(seconds * 3 / (time.perf_counter() - t0)))
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    (profile_step.cuda_ms)."""
+    from mhentropy_tpu_torch import profile_step
+
+    return profile_step.cuda_ms(fn, seconds)
 
 
 # The timings ab_ms takes of each kernel and its plain version.
@@ -244,17 +241,10 @@ TIMES = ("ms", "plain_ms", "graph_ms", "plain_graph_ms")
 
 
 def graphed(torch, fn):
-    """One call of fn captured as a CUDA graph; its replay runs the same
-    device work without the host's launch gaps between operations."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return graph.replay
+    """One call of fn captured as a CUDA graph (profile_step.graphed)."""
+    from mhentropy_tpu_torch import profile_step
+
+    return profile_step.graphed(fn)
 
 
 def ab_ms(torch, kernel_fn, plain_fn, seconds: float = KERNEL_WINDOW_S) -> dict:
@@ -287,7 +277,7 @@ def he_(torch, w, g) -> None:
 
 def kernel_counters() -> dict:
     """Every kernel of the port, by name: (wrapper module, its launch count)."""
-    from mhentropy_tpu_torch import int8_gemm_probe
+    from mhentropy_tpu_torch import int8_gemm_probe, stage1_probe, stem_cost_attrib, stem_probe
     from mhentropy_tpu_torch.core import lbs_cuda
     from mhentropy_tpu_torch.flows import cuda_glow_sampler, cuda_sampler, cuda_sampler_int8
     from mhentropy_tpu_torch.models import (bn_cuda, stage1_cuda, stage1_int8_cuda,
@@ -304,7 +294,11 @@ def kernel_counters() -> dict:
             "stem_int8": (stem_int8_cuda, "launches"),
             "stage2_int8": (stage2_int8_cuda, "launches"),
             "int8_gemm_probe_s8": (int8_gemm_probe, "launches_s8"),
-            "int8_gemm_probe_bf16": (int8_gemm_probe, "launches_bf16")}
+            "int8_gemm_probe_bf16": (int8_gemm_probe, "launches_bf16"),
+            "stem_probe": (stem_probe, "launches"),
+            "stem_cost_attrib": (stem_cost_attrib, "launches"),
+            "stage1_probe_a": (stage1_probe, "launches_a"),
+            "stage1_probe_b": (stage1_probe, "launches_b")}
 
 
 def reset_launches() -> None:
@@ -677,11 +671,17 @@ def stage1_int8_case(torch, res, images) -> dict:
     check(err <= tol, f"stage 1 int8 {tuple(x.shape)}: max-abs error {err} > {tol}")
     times = ab_ms(torch, lambda: stage1_int8_cuda.stage1_forward_q(x, packed),
                   lambda: stage1_int8_cuda.stage1_plain(x, packed))
+    # The library yardstick: the same stage's `torch._int_mm` walk, conv by conv.
+    walk = lambda: quant.walk_stage(spec, res, qtree["sites"], x, 0)  # noqa: E731
+    library = {"library_ms": cuda_ms(torch, walk, NEW_WINDOW_S),
+               "library_graph_ms": cuda_ms(torch, graphed(torch, walk), NEW_WINDOW_S),
+               "library_max_abs_diff": (walk().float() - ref).abs().max().item()}
     n_weights = sum(t.numel() * t.element_size() for blk in packed for t in blk
                     if t is not None)
     n_bytes = x.numel() * 2 + out.numel() * 2 + n_weights
     return {"shape": list(x.shape), "max_abs_err": err, "tol": tol, "bf16_exact_share": exact,
-            **times, **roofline(n_bytes, 2 * stage1_macs(bb, px // 4, px // 4), "int8")}
+            **times, **library,
+            **roofline(n_bytes, 2 * stage1_macs(bb, px // 4, px // 4), "int8")}
 
 
 def phase_stage1_int8(torch, dev):
@@ -695,7 +695,8 @@ def phase_stage1_int8(torch, dev):
                  for bb, px in ((BATCH, 256), *PROHMR_SHAPES)]
     return {"name": "stage1_int8", "source": "mhentropy_tpu_torch/csrc/stage1_int8.cu",
             "replaces": "mhentropy_tpu/models/stage1_int8.py:207", **cases[0],
-            "library": None, "prohmr_shapes": [side_line(c) for c in cases[1:]]}
+            "library": "models/quant.py::walk_stage (torch._int_mm)",
+            "prohmr_shapes": [side_line(c) for c in cases[1:]]}
 
 
 def phase_sampler_int8(torch, dev):
@@ -901,6 +902,126 @@ def phase_gemm_probe(torch, dev):
     for r in out:
         r["ratio_bf16_over_s8_graph"] = ratio
     return out, launches
+
+
+def phase_probes(torch, dev):
+    """The stem and stage-1 probes: each probe's `check` run (its launches
+    counted), then each kernel, and each cut of the stem body, timed against
+    its plain version at B = 32 (the stem cuts also at half the conv rows,
+    to show that each cut's work scales), with the yardsticks beside: cuDNN's
+    stem and the stem kernel (csrc/stem.cu) at (32, 256, 256, 3), cuDNN's
+    stage 1 and the stage-1 kernel (csrc/stage1.cu) at (32, 64, 64, 64)."""
+    from mhentropy_tpu_torch import stage1_probe, stem_cost_attrib, stem_probe
+    from mhentropy_tpu_torch.models import stage1_cuda, stem_cuda
+
+    reset_launches()
+    checks = {m.__name__.rsplit(".", 1)[1]: m.main(["check"])
+              for m in (stem_probe, stem_cost_attrib, stage1_probe)}
+    launches = read_launches()
+    want = {"stem_probe": 1, "stem_cost_attrib": 2 * len(stem_probe.PHASES),
+            "stage1_probe_a": 3, "stage1_probe_b": 3}
+    check(all(c["ok"] for c in checks.values())
+          and all(v == want.get(k, 0) for k, v in launches.items()),
+          f"probes: check runs {checks}, launches {launches}, expected {want} and no others")
+    b = stem_probe.B
+    # Yardsticks: cuDNN's stem (probe_xla_step's ops) and the stem kernel.
+    image, w, scale, shift = stem_probe.cudnn_stem_operands(b, dev)
+    wf, bias = stem_cuda.fold(w.cpu(), scale.cpu(), shift.cpu(), torch.zeros(64),
+                              torch.ones(64))
+    wf, bias = wf.to(dev), bias.to(dev)
+    cudnn = lambda: stem_probe.cudnn_stem(image, w, scale, shift)  # noqa: E731
+    stem_yard = {"library": "cuDNN conv 7x7/2 + BN + ReLU + maxpool (bf16)",
+                 "library_ms": cuda_ms(torch, cudnn, NEW_WINDOW_S),
+                 "library_graph_ms": cuda_ms(torch, graphed(torch, cudnn), NEW_WINDOW_S),
+                 "stem_kernel_graph_ms": cuda_ms(torch, graphed(
+                     torch, lambda: stem_cuda.stem_forward(image, wf, bias)), NEW_WINDOW_S)}
+    out = []
+    planes32, a = stem_probe.inputs(b, dev)
+    env = stem_probe.stem_probe(planes32, a)
+    ref = stem_probe.phase_plain("gemm", planes32, a)
+    err, tol = (env - ref).abs().max().item(), 1e-5 * ref.abs().max().item()
+    check(err <= tol, f"stem probe: max-abs error {err} > {tol}")
+    out.append({"name": "stem_probe", "source": "mhentropy_tpu_torch/csrc/stem_probe.cu",
+                "replaces": "tools/stem_probe.py:32", "shape": list(planes32.shape),
+                "max_abs_err": err, "tol": tol, "window_s": NEW_WINDOW_S,
+                **ab_ms(torch, lambda: stem_probe.stem_probe(planes32, a),
+                        lambda: stem_probe.phase_plain("gemm", planes32, a), NEW_WINDOW_S),
+                **stem_yard,
+                **roofline(planes32.numel() * 4 + a.numel() * 2 + env.numel() * 4,
+                           stem_probe.flops(b), "bf16")})
+    planes, a = stem_probe.inputs(b, dev, dtype=torch.bfloat16)
+    g, bb, s = stem_probe.epilogue_operands(dev)
+    cuts = []
+    for rows in stem_cost_attrib.CONV_ROWS:
+        for phase in stem_probe.PHASES:
+            got = stem_cost_attrib.attrib_forward(planes, a, g, bb, s, phase, rows)
+            ref = stem_probe.phase_plain(phase, planes, a, g, bb, s, rows)
+            err, tol = (got - ref).abs().max().item(), stem_cost_attrib.tolerance(phase, ref)
+            check(err <= tol, f"stem cut {phase} at {rows} rows: max-abs error {err} > {tol}")
+            gemm = phase in ("gemm", "full")
+            n_bytes = planes.numel() * 2 + got.numel() * 4 + (a.numel() * 2 if gemm else 0) + (
+                (g.numel() + bb.numel()) * 4 + s.numel() * 2 if phase == "full" else 0)
+            cuts.append({"phase": phase, "conv_rows": rows, "shape": list(planes.shape),
+                         "max_abs_err": err, "tol": tol,
+                         **ab_ms(torch, lambda: stem_cost_attrib.attrib_forward(
+                             planes, a, g, bb, s, phase, rows),
+                             lambda: stem_probe.phase_plain(phase, planes, a, g, bb, s, rows),
+                             NEW_WINDOW_S),
+                         **roofline(n_bytes, stem_probe.flops(b, rows) if gemm else 0, "bf16")})
+    full = cuts[stem_probe.PHASES.index("full")]
+    out.append({"name": "stem_cost_attrib", "source": "mhentropy_tpu_torch/csrc/stem_probe.cu",
+                "replaces": "tools/stem_cost_attrib.py:32", **full, "window_s": NEW_WINDOW_S,
+                **stem_yard, "other_shapes": [side_line(c) for c in cuts if c is not full]})
+    # Stage 1: both layouts, against cuDNN's stage 1 and the stage-1 kernel.
+    x, folded = stage1_probe.yardsticks(b, dev)
+    stage_yard = {"library": "cuDNN stage 1 (stage1_cuda.stage1_plain, bf16, eval BN)",
+                  "library_ms": cuda_ms(torch, lambda: stage1_cuda.stage1_plain(x, folded),
+                                        NEW_WINDOW_S),
+                  "library_graph_ms": cuda_ms(torch, graphed(
+                      torch, lambda: stage1_cuda.stage1_plain(x, folded)), NEW_WINDOW_S),
+                  "stage1_kernel_graph_ms": cuda_ms(torch, graphed(
+                      torch, lambda: stage1_cuda.stage1_forward(x, folded)), NEW_WINDOW_S)}
+    wa = stage1_probe.weights_a(dev)
+    wb = stage1_probe.to_b(wa)
+    xa = stage1_probe.input_a(b, dev)
+    xb = xa.transpose(1, 2).contiguous()
+    n_weights = sum(v.numel() * 2 for v in wa.values())
+    for name, fwd, plain, xin, ws in (
+            ("stage1_probe_a", stage1_probe.forward_a, stage1_probe.plain_a, xa, wa),
+            ("stage1_probe_b", stage1_probe.forward_b, stage1_probe.plain_b, xb, wb)):
+        got = fwd(xin, ws)
+        ref = plain(xin, ws)
+        err, tol = (got.float() - ref.float()).abs().max().item(), stage1_probe.tolerance(ref)
+        check(err <= tol, f"{name}: max-abs error {err} > {tol}")
+        line = (":49" if name.endswith("a") else ":170")
+        out.append({"name": name, "source": "mhentropy_tpu_torch/csrc/stage1_probe.cu",
+                    "replaces": f"tools/stage1_probe.py{line}", "shape": list(xin.shape),
+                    "max_abs_err": err, "tol": tol, "window_s": NEW_WINDOW_S,
+                    **ab_ms(torch, lambda: fwd(xin, ws), lambda: plain(xin, ws), NEW_WINDOW_S),
+                    **stage_yard,
+                    **roofline(xin.numel() * 2 + got.numel() * 2 + n_weights,
+                               stage1_probe.flops(b), "bf16")})
+    return out, launches
+
+
+def phase_bench(torch, dev):
+    """The port's bench (mhentropy_tpu_torch/bench.py) at its headline shape
+    (N = 100, B = 32), BENCH_STEPS steps a round: every section runs, none
+    fails, the headline's rate and mfu are finite; the launches of the run."""
+    from mhentropy_tpu_torch import bench
+
+    reset_launches()
+    out = bench.main(["--steps", str(BENCH_STEPS)])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(out["value"] > 0 and math.isfinite(out["mfu"]) and 0 < out["mfu"] < 1,
+          f"bench: headline {out['value']}, mfu {out['mfu']}")
+    check(not any(k.endswith("_failed") for k in out["skipped"]) and "int8_error" not in out,
+          f"bench: sections failed: {out['skipped']} {out.get('int8_error')}")
+    for name in ("stem", "stage1", "realnvp_sampler", "stage1_int8", "realnvp_sampler_int8"):
+        check(launches[name] > 0 or "int8" in out["skipped"],
+              f"bench: {name} not launched: {launches}")
+    return {**out, "launches": launches}
 
 
 def phase_int8_opt_in(torch, dev):
@@ -1549,27 +1670,16 @@ def one_step_grads(torch, net, model, fold, image, target, noise):
 
 
 def trace_steps(torch, step, untraced_ms: float, n: int = 3, top: int = 15) -> dict:
-    """A torch.profiler trace of n steps (after one traced warm step that
-    pays the tracer's start-up): device kernel time and operations per step,
-    the busy share against the untraced step time, the top operations."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts):
-        step()
-        torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in device) / 1e3 / n
-    print(events.table(sort_by="self_device_time_total", row_limit=20,
-                       max_name_column_width=70), flush=True)
-    return {"device_ms_per_step": dev_ms, "device_ops_per_step": sum(e.count for e in device) / n,
-            "busy_share": dev_ms / untraced_ms,
-            "top_ops": [{"name": e.key[:90], "ms_per_step": e.self_device_time_total / 1e3 / n,
-                         "calls_per_step": e.count / n}
-                        for e in sorted(device, key=lambda e: -e.self_device_time_total)[:top]]}
+    """A torch.profiler trace of n steps (profile_step.step_stats): device
+    kernel time and operations per step, the busy share against the
+    untraced step time, the time by layer, the top operations."""
+    from mhentropy_tpu_torch import profile_step
+
+    stats = profile_step.step_stats(step, untraced_ms, n, top)
+    for op in stats["top_ops"]:
+        print(f"  {op['ms_per_step']:10.4f} ms {op['calls_per_step']:8.1f}x  "
+              f"{op['category']:<20} {op['name']}", flush=True)
+    return stats
 
 
 def phase_train(torch, dev):
@@ -1761,9 +1871,11 @@ def main() -> int:
 
     results = []
     probe_results, probe_launches = phase_gemm_probe(torch, dev)
+    new_probes, new_probe_launches = phase_probes(torch, dev)
     for phase in (phase_stem, phase_stage1, phase_sampler, phase_lbs, phase_stage1_int8,
                   phase_sampler_int8, phase_bn_sums, phase_sampler_f32, phase_glow_sampler,
-                  phase_int8_mid_kernels, lambda torch, dev: probe_results):
+                  phase_int8_mid_kernels, lambda torch, dev: probe_results,
+                  lambda torch, dev: new_probes):
         out = phase(torch, dev)
         for r in (out if isinstance(out, list) else [out]):
             results.append(r)
@@ -1781,8 +1893,12 @@ def main() -> int:
             for key in ("other_shape", "smpl_shape"):
                 if key in r:
                     print(f"  at {r[key]['shape']}: {json.dumps(r[key])}", flush=True)
+            for key in ("library_graph_ms", "stem_kernel_graph_ms", "stage1_kernel_graph_ms"):
+                if key in r:
+                    print(f"  {key}: {r[key]:.4f}", flush=True)
             for side in r.get("other_shapes", []):
-                print(f"  at {side['shape']}: {json.dumps(side)}", flush=True)
+                print(f"  at {side['shape']}{' ' + side['phase'] if 'phase' in side else ''}: "
+                      f"{json.dumps(side)}", flush=True)
             for side in r.get("prohmr_shapes", []):
                 print(f"  at {side['shape']} (ProHMR): {json.dumps(side)}", flush=True)
 
@@ -1837,6 +1953,9 @@ def main() -> int:
     print(f"train trace (kernels, stats): {json.dumps(train['trace'])}; peak memory "
           f"{train['peak_memory_gb']:.2f} GB; dy copies per full step "
           f"{train['full']['dy_copies']}", flush=True)
+    bench_line = phase_bench(torch, dev)
+    print(f"bench: {bench_line['value']:.1f} hypotheses/s at N=100, B=32, mfu "
+          f"{bench_line['mfu']:.4f}, skipped {bench_line['skipped']} [{card}]", flush=True)
 
     path_launches = {"stem": launches, "stage1": launches, "realnvp_sampler": launches,
                      "lbs_blend": verts_launches, "stage1_int8": int8_launches[f"b{BATCH}"],
@@ -1848,7 +1967,9 @@ def main() -> int:
                      "stem_int8": opt_in["q_from_0"]["launches"],
                      "stage2_int8": opt_in["q_from_0"]["launches"],
                      "int8_gemm_probe_s8": probe_launches,
-                     "int8_gemm_probe_bf16": probe_launches}
+                     "int8_gemm_probe_bf16": probe_launches,
+                     **{k: new_probe_launches for k in ("stem_probe", "stem_cost_attrib",
+                                                        "stage1_probe_a", "stage1_probe_b")}}
     kernels = [{"name": r["name"], "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": path_launches[r["name"]][r["name"]],
                 "max_abs_err": r["max_abs_err"],
@@ -1862,7 +1983,8 @@ def main() -> int:
                                      "other_shape", "smpl_shape", "prohmr_shapes", "trace",
                                      "other_shapes", "bf16_stem_graph_ms", "library_graph_ms",
                                      "library_max_abs_diff", "ratio_bf16_over_s8_graph",
-                                     "library")
+                                     "library", "stem_kernel_graph_ms", "stage1_kernel_graph_ms",
+                                     "phase", "conv_rows")
                    if k in r},
                 **{f"{key}_min_max": [r[key]["min"], r[key]["max"]] for key in TIMES}}
                for r in results]
@@ -1874,7 +1996,7 @@ def main() -> int:
                       "int8_opt_in": opt_in, "bench_quant": bench_q,
                       "eval": evals, "verts": {"launches": verts_launches,
                                                "kernel_vs_plain_max_abs": verts_err},
-                      "train": train, "prohmr": humans}),
+                      "train": train, "prohmr": humans, "bench": bench_line}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -264,15 +264,19 @@ def forward_log_p(model: ManoModel, cfg: MHEntConfig, z: torch.Tensor, y: dict,
 def reverse_kld(model: ManoModel, net: MHEnt, y: dict, image: torch.Tensor,
                 base_noise: torch.Tensor | None = None, train: bool = False, mods=("uv",),
                 generator: torch.Generator | None = None,
-                fold: mano.KeypointFold | None = None) -> dict:
+                fold: mano.KeypointFold | None = None,
+                feat: torch.Tensor | None = None) -> dict:
     """-KL(q(z|I) || p(y|z) p~(z)) up to a constant, per image: the
     training objective and the eval step's log p. base_noise:
     (n_train_hypotheses * B, 45) standard normal (temperature 1), drawn from
     `generator` when None. train: batch-statistics BN (the net in train
     mode, its running statistics updated in place); differentiate the
-    result under autograd for the training step."""
+    result under autograd for the training step. feat: the conditioning
+    feature `extract_feat(net, image, train)` already computed (the eval
+    step shares one encoder pass with `sample_hypotheses`)."""
     cfg = net.cfg
-    feat = extract_feat(net, image, train=train)
+    if feat is None:
+        feat = extract_feat(net, image, train=train)
     n, b = cfg.n_train_hypotheses, feat.shape[0]
     z, log_q = sample_q_z(net, feat, n, temp=1.0, base_noise=base_noise, generator=generator,
                           differentiable=True)
@@ -298,12 +302,14 @@ def sample_hypotheses(model: ManoModel, net: MHEnt, image: torch.Tensor, n: int 
                       mods=("xyz", "uv", "verts"),
                       base_noise: torch.Tensor | None = None,
                       generator: torch.Generator | None = None,
-                      fold: mano.KeypointFold | None = None, quant=None) -> dict:
+                      fold: mano.KeypointFold | None = None, quant=None,
+                      feat: torch.Tensor | None = None) -> dict:
     """Multi-hypothesis inference on a (B, H, W, 3) NHWC image batch.
 
     quant: optional (QuantSpec, qtree) of models/quant.py: the conditioning
     feature comes from the int8 encoder, and with spec.int8_sampler the
-    draw runs the int8 sampler on qtree["flow"].
+    draw runs the int8 sampler on qtree["flow"]. feat: the float feature
+    `extract_feat(net, image)` already computed; not with quant.
 
     Returns th_bt / logs_t (N', B, .), xyz (N', B, 63), uv (N', B, 42) in
     pixels, verts (N', B, 2334) and faces, for the requested mods.
@@ -311,6 +317,9 @@ def sample_hypotheses(model: ManoModel, net: MHEnt, image: torch.Tensor, n: int 
     cfg = net.cfg
     flow_q = None
     if quant is not None:
+        if feat is not None:
+            raise ValueError("sample_hypotheses: feat is the float feature; with quant the "
+                             "int8 encoder computes its own")
         spec, qtree = quant
         feat = quant_mod.encoder_feat(spec, qtree, net.feat_extractor, image)
         if spec.int8_sampler:
@@ -318,7 +327,7 @@ def sample_hypotheses(model: ManoModel, net: MHEnt, image: torch.Tensor, n: int 
             if flow_q is None:
                 raise ValueError("QuantSpec.int8_sampler is set but the qtree carries no 'flow' "
                                  "tree: calibrate one with quant.quantize_sampler_into")
-    else:
+    elif feat is None:
         feat = extract_feat(net, image)
     b = image.shape[0]
     z, log_q = sample_q_z(net, feat, n, temp=temp, base_noise=base_noise, generator=generator,

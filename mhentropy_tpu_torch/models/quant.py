@@ -326,16 +326,19 @@ def backbone_forward(spec: QuantSpec, qtree: dict, images: torch.Tensor) -> torc
 
 
 def resolve_q_from(q_from, backbone: str, image_shape, device) -> int:
-    """"auto" quantises stage 1 too (q_from = 0) exactly when the int8
-    stage-1 kernel will run: a resnet50 on a CUDA device (the kernel takes
-    any post-stem geometry; it runs in the bf16 compute dtype the configs
-    ship, and `_forward` walks stage 1 conv by conv in any other). Explicit
-    values pass through, "0"/"1" strings included."""
+    """"auto" quantises stage 1 too (q_from = 0) exactly where the JAX
+    policy does (quant.py:383): a resnet50 whose post-stem map (B, H/4, W/4,
+    64) passes the int8 stage-1 kernel's geometry gate
+    (`stage1_int8_cuda.supported`), with the gate's TPU clause read as "the
+    device is CUDA". Explicit values pass through, "0"/"1" strings
+    included."""
     if q_from != "auto":
         return int(q_from)
     if _ARCH.get(backbone, (None, None))[1] != "bottleneck" or len(image_shape) != 4:
         return 1
-    return 0 if torch.device(device).type == "cuda" else 1
+    b, h, w = image_shape[:3]
+    return 0 if (torch.device(device).type == "cuda"
+                 and stage1_int8_cuda.supported((b, h // 4, w // 4, 64))) else 1
 
 
 def quantize_encoder(encoder, calib_images: torch.Tensor, q_from="auto") -> tuple:

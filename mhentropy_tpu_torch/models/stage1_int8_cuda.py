@@ -32,6 +32,7 @@ from mhentropy_tpu_torch import ext
 F1 = 64
 FOUT = 256
 TAPS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+JAX_PAD = 128  # the TPU kernel's row margin (stage1_int8.py:41), which bounds W there
 
 # Kernel launches since the count was last reset (one per bottleneck).
 launches = 0
@@ -60,6 +61,17 @@ def sites_ok(sites: dict) -> bool:
     """All stage-1 conv sites present (calibrated with q_from == 0)."""
     need = [f"layer1_{j}/conv{k}" for j in range(3) for k in (1, 2, 3)]
     return all(k in sites for k in need + ["layer1_0/downsample_conv"])
+
+
+def supported(shape, train: bool = False) -> bool:
+    """The JAX package's geometry gate for the int8 stage-1 kernel
+    (stage1_int8.py:328) on a post-stem shape (B, H, W, C), without its
+    backend clause: C = 64, H and W multiples of 8, W <= PAD - 2 = 126,
+    H * W % 128 in {0, 64} and H * W >= 3136. `models/quant.py`'s "auto"
+    q_from reads it; the kernel itself takes any geometry."""
+    return (not train and len(shape) == 4 and shape[3] == F1 and shape[1] % 8 == 0
+            and shape[2] % 8 == 0 and shape[2] <= JAX_PAD - 2
+            and (shape[1] * shape[2]) % 128 in (0, 64) and shape[1] * shape[2] >= 3136)
 
 
 def pack(sites: dict) -> list[Int8Block]:

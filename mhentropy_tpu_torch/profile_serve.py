@@ -22,13 +22,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import numpy as np
 import torch
 
-from mhentropy_tpu_torch import serve
+from mhentropy_tpu_torch import profile_step, serve
 from mhentropy_tpu_torch.models import mhent, quant
 from mhentropy_tpu_torch.utils.config import load_cfg
 
@@ -65,27 +64,20 @@ def stage_walls(server: serve.InferenceServer, images: np.ndarray, reps: int) ->
 
 
 def trace(server: serve.InferenceServer, images: np.ndarray, n: int, reps: int):
-    """Device time and operations per request from a trace of n requests;
-    the busy share divides the device time by the untraced request time
-    (mean of `reps` requests), since tracing slows the host."""
+    """Device time and operations per request from a trace of n requests
+    (profile_step.step_stats); the busy share divides the device time by the
+    untraced request time (mean of `reps` requests), since tracing slows the
+    host."""
     t0 = time.perf_counter()
     for _ in range(reps):
         server.predict(images)
     wall = (time.perf_counter() - t0) * 1e3 / reps
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts):  # pays the tracer's start-up
-        server.predict(images)
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            server.predict(images)
-    events = prof.key_averages()
-    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in device)
-    summary = {"request_ms": wall, "device_ms": dev_us / 1e3 / n,
-               "device_ops": sum(e.count for e in device) / n}
-    summary["busy_share"] = summary["device_ms"] / wall
-    table = events.table(sort_by="self_device_time_total", row_limit=25,
-                         max_name_column_width=60)
+    stats = profile_step.step_stats(lambda: server.predict(images), wall, n, top=25)
+    summary = {"request_ms": wall, "device_ms": stats["device_ms_per_step"],
+               "device_ops": stats["device_ops_per_step"], "busy_share": stats["busy_share"],
+               "layer_ms": stats["layer_ms_per_step"]}
+    table = "\n".join(f"{op['ms_per_step']:10.4f} ms {op['calls_per_step']:8.1f}x  "
+                      f"{op['category']:<20} {op['name']}" for op in stats["top_ops"])
     return summary, table
 
 
@@ -101,9 +93,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: needs a CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    card = profile_step.card_line()
     print(f"card: {card}", flush=True)
     server = serve.InferenceServer(load_cfg(args.cfg), max_batch=args.max_batch,
                                    quantize=args.quantize, device="cuda", transports=("u8",))

@@ -277,11 +277,16 @@ def make_eval_step(model: ManoModel, net: mhent.MHEnt, n: int, temp: float,
     @torch.inference_mode()
     def eval_fn(image, target, kld_noise, hypo_noise, qtree=None):
         image, target = _prep_batch(image, target)
-        out = mhent.reverse_kld(model, net, target, image, base_noise=kld_noise, fold=fold)
+        # One float encoder pass feeds both terms; the int8 draw runs its
+        # own int8 encoder, and the reverse-KL term keeps the float feature.
+        feat = mhent.extract_feat(net, image)
+        out = mhent.reverse_kld(model, net, target, image, base_noise=kld_noise, fold=fold,
+                                feat=feat)
         samples = mhent.sample_hypotheses(
             model, net, image, n=n, n_quant=n_quant if n_quant is not None else n, temp=temp,
             mods=("xyz", "uv"), base_noise=hypo_noise, fold=fold,
-            quant=(quant_spec, qtree) if quant_spec is not None else None)
+            quant=(quant_spec, qtree) if quant_spec is not None else None,
+            feat=feat if quant_spec is None else None)
         output = dict(samples)
         output["log_p"] = out["log_p"]
         total, _, mets = metrics_lib.mhent_metrics(output, target,

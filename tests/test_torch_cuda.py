@@ -14,6 +14,8 @@ sampler and its plain version round the same operands to bf16. The int8
 stem, the int8 stage 2/3 kernel and the GEMM probe sum integers exactly and
 round every epilogue op as their plain versions do: their f32 outputs are
 equal, their bf16 outputs within a bf16 rounding (2^-7 of the largest).
+The stem and stage-1 probes use their modules' stated tolerances
+(`stem_cost_attrib.tolerance`, `stage1_probe.tolerance`).
 """
 
 import math
@@ -22,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from mhentropy_tpu_torch import int8_gemm_probe
+from mhentropy_tpu_torch import int8_gemm_probe, stage1_probe, stem_cost_attrib, stem_probe
 from mhentropy_tpu_torch.core import lbs_cuda
 from mhentropy_tpu_torch.flows import cuda_glow_sampler, cuda_sampler, cuda_sampler_int8, glow
 from mhentropy_tpu_torch.flows import realnvp
@@ -575,3 +577,66 @@ def test_opt_in_int8_path_launches_the_int8_stem_and_stage_kernels(dev):
     a, b = feats["opt_in"], feats["default"]
     cos = float((a * b).sum() / (a.norm() * b.norm()))
     assert torch.isfinite(a).all() and cos > 0.99, cos
+
+
+@pytest.mark.parametrize("phase", stem_probe.PHASES)
+@pytest.mark.parametrize("b,rows", [(2, 32), (32, 128)])
+def test_stem_probe_cut_matches_plain(dev, phase, b, rows):
+    planes, a = stem_probe.inputs(b, dev, dtype=torch.bfloat16)
+    g, bb, s = stem_probe.epilogue_operands(dev)
+    before = stem_cost_attrib.launches
+    out = stem_cost_attrib.attrib_forward(planes, a, g, bb, s, phase, rows)
+    assert stem_cost_attrib.launches == before + 1
+    ref = stem_probe.phase_plain(phase, planes, a, g, bb, s, rows)
+    assert out.shape == ref.shape == (b, 64, 128)
+    assert (out - ref).abs().max().item() <= stem_cost_attrib.tolerance(phase, ref)
+
+
+@pytest.mark.parametrize("b,rows", [(2, 32), (32, 128)])
+def test_stem_probe_envelope_matches_plain(dev, b, rows):
+    planes, a = stem_probe.inputs(b, dev)
+    before = stem_probe.launches
+    out = stem_probe.stem_probe(planes, a, rows)
+    assert stem_probe.launches == before + 1
+    ref = stem_probe.phase_plain("gemm", planes, a, conv_rows=rows)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_stem_probe_refuses_what_it_does_not_take(dev):
+    planes, a = stem_probe.inputs(1, dev)
+    for rows in (24, 16, 136):  # not a multiple of 16; below 32; beyond the planes' rows
+        with pytest.raises(ValueError, match="conv_rows"):
+            stem_probe.stem_probe(planes, a, rows)
+    with pytest.raises(ValueError, match="planes"):
+        stem_probe.stem_probe(planes[:, :, :, :64].contiguous(), a)
+    with pytest.raises(ValueError, match="full cut"):
+        stem_probe.probe_forward(planes, a, phase="full")
+
+
+@pytest.mark.parametrize("variant", ["a", "b"])
+@pytest.mark.parametrize("b,h,w", [(32, 64, 64), (2, 16, 16), (2, 32, 48)])
+def test_stage1_probe_matches_plain(dev, variant, b, h, w):
+    wa = stage1_probe.weights_a(dev)
+    x = stage1_probe.input_a(b, dev, hw=h * w)
+    if variant == "a":
+        fwd, plain, ws = stage1_probe.forward_a, stage1_probe.plain_a, wa
+    else:
+        x = x.transpose(1, 2).contiguous()
+        fwd, plain, ws = stage1_probe.forward_b, stage1_probe.plain_b, stage1_probe.to_b(wa)
+    before = getattr(stage1_probe, f"launches_{variant}")
+    out = fwd(x, ws, h, w)
+    assert getattr(stage1_probe, f"launches_{variant}") == before + 3
+    ref = plain(x, ws, w)
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert (out.float() - ref.float()).abs().max().item() <= stage1_probe.tolerance(ref)
+
+
+def test_stage1_probe_refuses_what_it_does_not_take(dev):
+    wa = stage1_probe.weights_a(dev)
+    for h, w in ((16, 24), (3, 16), (16, 80)):  # W % 16; H * W % 128; W > 64
+        with pytest.raises(ValueError, match="W must be"):
+            stage1_probe.forward_a(stage1_probe.input_a(1, dev, hw=h * w), wa, h, w)
+    with pytest.raises(ValueError, match="x must be"):
+        stage1_probe.forward_a(stage1_probe.input_a(1, dev).float(), wa)
+    with pytest.raises(ValueError, match="w1 must be"):
+        stage1_probe.forward_b(stage1_probe.input_a(1, dev).transpose(1, 2).contiguous(), wa)

@@ -246,6 +246,47 @@ def test_eval_step_matches_jax(setup, int8):
     _metric_check(got, ref, 1e-3 if int8 else 1e-4)
 
 
+def test_float_eval_step_runs_the_encoder_once(setup, monkeypatch):
+    """The float eval step computes the conditioning feature once and hands
+    it to both the reverse-KL term and the draw: one encoder forward and one
+    `extract_feat` a batch, and its metrics equal those of the two terms
+    each computing their own feature."""
+    jcfg, params, stats, jmodel, data, net, model = setup
+    rng = np.random.RandomState(3)
+    image, y = _t(data.images[:B]), _target(dict(data.targets))
+    kld = _t(rng.randn(3 * B, 45).astype(np.float32))
+    hypo = _t((rng.randn(N * B, 45) * TEMP).astype(np.float32))
+    calls = {"extract_feat": 0, "forward": 0}
+    extract = mhent.extract_feat
+
+    def counted(*args, **kwargs):
+        calls["extract_feat"] += 1
+        return extract(*args, **kwargs)
+
+    def hook(*_):
+        calls["forward"] += 1
+
+    monkeypatch.setattr(mhent, "extract_feat", counted)
+    handle = net.feat_extractor.register_forward_hook(hook)
+    try:
+        got = engine.make_eval_step(model, net, N, TEMP)(image, y, kld, hypo)
+    finally:
+        handle.remove()
+    assert calls == {"extract_feat": 1, "forward": 1}
+    with torch.inference_mode():
+        out = mhent.reverse_kld(model, net, y, image, base_noise=kld)
+        samples = mhent.sample_hypotheses(model, net, image, n=N, temp=TEMP,
+                                          mods=("xyz", "uv"), base_noise=hypo)
+    total, _, mets = metrics.mhent_metrics({**samples, "log_p": out["log_p"]}, y,
+                                           image_size=IMG)
+    ref = {k: v.mean() for k, v in mets.items()}
+    ref["loss_total"] = total
+    _metric_check(got, ref, 1e-6)
+    with pytest.raises(ValueError, match="int8 encoder"):
+        mhent.sample_hypotheses(model, net, image, n=N, feat=torch.zeros(B, 32),
+                                quant=(quant.QuantSpec(), {}))
+
+
 def test_run_cli_evaluates_tiny_config_on_cpu(tmp_path, capsys):
     path = tmp_path / "tiny.yaml"
     path.write_text(

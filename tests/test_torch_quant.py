@@ -96,6 +96,29 @@ def test_q_from_policy_and_unported_options():
             quant.prepare(quant.QuantSpec(pallas_mid=mode), None, {})
 
 
+@pytest.mark.parametrize("px", [64, 224, 256])
+def test_q_from_auto_follows_the_jax_geometry_gate(monkeypatch, px):
+    """"auto" resolves as the JAX policy does at each image size, the JAX
+    gate's backend clause patched to the TPU's and the port's device CUDA:
+    64 px (a 16 x 16 post-stem map, below hw 3136) keeps stage 1 float,
+    224 and 256 px quantise it."""
+    from mhentropy_tpu.models import stage1_int8 as jstage1_int8
+
+    gate = jstage1_int8.supported
+
+    def on_tpu(*args, **kwargs):
+        with monkeypatch.context() as m:
+            m.setattr(jax, "default_backend", lambda: "tpu")
+            return gate(*args, **kwargs)
+
+    monkeypatch.setattr(jstage1_int8, "supported", on_tpu)
+    shape = (8, px, px, 3)
+    want = jquant.resolve_q_from("auto", "resnet50", shape)
+    assert want == (1 if px == 64 else 0)
+    assert quant.resolve_q_from("auto", "resnet50", shape, "cuda") == want
+    assert quant.resolve_q_from("auto", "resnet50", shape, "cpu") == 1
+
+
 def test_int_conv_is_an_exact_integer_sum():
     """The CPU route: an f64 convolution of int8 tensors, equal to the
     integer sum (here checked against an int64 im2col product)."""
