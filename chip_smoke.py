@@ -8,9 +8,11 @@
    source, in parallel, sm_90a).
 3. Runs each kernel against its plain PyTorch version on the card at the
    main path's shapes with random weights of realistic magnitude: stem
-   (8, 256, 256, 3); stage 1 (8, 64, 64, 64); each of the two and int8
+   (8, 256, 256, 3) and the bench's (32, 256, 256, 3); stage 1
+   (8, 64, 64, 64) and (32, 64, 64, 64); each of the two and int8
    stage 1 also at the ProHMR path's 224 px (56 x 56 after the stem) at
-   B=8 and B=32; bf16 sampler B=8, N=200, L=12, H=512; LBS blend at
+   B=8 and B=32, the stem's and stage 1's plain (cuDNN) graph time as
+   their `library_graph_ms`; bf16 sampler B=8, N=200, L=12, H=512; LBS blend at
    12,800 rows (N=200, B=64) on MANO (V=778, J=16) and at 3,200 rows
    (N=100, B=32) on SMPL (V=6,890, J=24); int8
    stage 1 (8, 64, 64, 64) on sites calibrated from a He-initialised
@@ -210,6 +212,7 @@ NEW_WINDOW_S = 0.25  # the timing windows of the phases of the opt-in int8 kerne
 BENCH_QUANT = (32, 100)  # bench_quant's default B, N
 BENCH_QUANT_STEPS = 30  # steps a window
 BENCH_STEPS = 100  # the port's bench: steps a round (its default is bench.py's 250)
+BENCH_BATCH = 32  # the port's bench batch: the stem and stage 1 are also timed there
 
 
 def check(cond: bool, msg: str) -> None:
@@ -363,8 +366,11 @@ def stem_case(torch, image, w, b) -> dict:
 
 
 def phase_stem(torch, dev):
-    """The serving shape (8, 256, 256, 3) makes the line; the ProHMR path's
-    224 px at eval_prohmr's and bench_prohmr's batch stand beside it."""
+    """The serving shape (8, 256, 256, 3) makes the line; the bench's
+    (32, 256, 256, 3) and the ProHMR path's 224 px at eval_prohmr's and
+    bench_prohmr's batch stand beside it. The plain version is cuDNN's conv
+    with PyTorch's ReLU and max-pool: its graph time is `library_graph_ms`,
+    the kernel's yardstick graph against graph."""
     from mhentropy_tpu_torch.models import stem_cuda
 
     g = torch.Generator().manual_seed(1)
@@ -375,11 +381,13 @@ def phase_stem(torch, dev):
     w, b = stem_cuda.fold(conv_w, bn.weight, bn.bias, bn.running_mean, bn.running_var)
     w, b = w.to(dev), b.to(dev)
     cases = [stem_case(torch, torch.randn((bb, px, px, 3), generator=g).to(dev, torch.bfloat16),
-                       w, b) for bb, px in ((BATCH, 256), *PROHMR_SHAPES)]
+                       w, b) for bb, px in ((BATCH, 256), (BENCH_BATCH, 256), *PROHMR_SHAPES)]
     return {"name": "stem", "source": "mhentropy_tpu_torch/csrc/stem.cu",
             "replaces": "mhentropy_tpu/models/stem_pallas.py:120", **cases[0],
             # The plain version is cuDNN's conv + PyTorch's ReLU and max-pool.
-            "library": "plain", "prohmr_shapes": [side_line(c) for c in cases[1:]]}
+            "library": "plain", "library_graph_ms": cases[0]["plain_graph_ms"]["median"],
+            "other_shapes": [side_line(cases[1])],
+            "prohmr_shapes": [side_line(c) for c in cases[2:]]}
 
 
 def stage1_case(torch, x, folded) -> dict:
@@ -403,8 +411,9 @@ def stage1_case(torch, x, folded) -> dict:
 
 
 def phase_stage1(torch, dev):
-    """(8, 64, 64, 64) of the 256 px serving path makes the line; the ProHMR
-    path's 56 x 56 (a ragged last 16-wide column tile) stand beside it."""
+    """(8, 64, 64, 64) of the 256 px serving path makes the line; the bench's
+    (32, 64, 64, 64) and the ProHMR path's 56 x 56 (a ragged last 16-wide
+    column tile) stand beside it; `library_graph_ms` as in phase_stem."""
     from mhentropy_tpu_torch.models import resnet, stage1_cuda
 
     g = torch.Generator().manual_seed(2)
@@ -419,11 +428,13 @@ def phase_stage1(torch, dev):
               for blk in stage1_cuda.fold(layer1)]
     cases = [stage1_case(torch, torch.relu(torch.randn((bb, px // 4, px // 4, 64), generator=g))
                          .to(dev, torch.bfloat16), folded)
-             for bb, px in ((BATCH, 256), *PROHMR_SHAPES)]
+             for bb, px in ((BATCH, 256), (BENCH_BATCH, 256), *PROHMR_SHAPES)]
     return {"name": "stage1", "source": "mhentropy_tpu_torch/csrc/stage1.cu",
             "replaces": "mhentropy_tpu/models/stage1_pallas.py:160", **cases[0],
             # The plain version is the stage's cuDNN convolutions.
-            "library": "plain", "prohmr_shapes": [side_line(c) for c in cases[1:]]}
+            "library": "plain", "library_graph_ms": cases[0]["plain_graph_ms"]["median"],
+            "other_shapes": [side_line(cases[1])],
+            "prohmr_shapes": [side_line(c) for c in cases[2:]]}
 
 
 def phase_sampler(torch, dev):

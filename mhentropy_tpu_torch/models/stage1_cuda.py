@@ -96,29 +96,44 @@ def stage1_plain(x: torch.Tensor, folded: Sequence[FoldedBlock]) -> torch.Tensor
     return y.permute(0, 2, 3, 1)
 
 
+def check_args(x: torch.Tensor, folded: Sequence[FoldedBlock]) -> None:
+    """Raise ValueError unless the kernel takes x and the folded blocks:
+    contiguous bf16 NHWC x with 64 channels; block 0 with a downsample
+    (cin 64), every later block without one (cin 256); bf16 weights and f32
+    biases, contiguous, on x's device; x and the weights 16-byte aligned
+    (the kernel copies them 16 bytes at a time)."""
+    ext.require(x.dim() == 4 and x.shape[3] == F1,
+                f"stage 1: x must be (B, H, W, 64), got {tuple(x.shape)}")
+    ext.require(x.dtype == torch.bfloat16 and x.is_contiguous() and x.data_ptr() % 16 == 0,
+                f"stage 1: x must be contiguous, 16-byte aligned bfloat16 NHWC, got {x.dtype}")
+    cin = F1
+    for blk in folded:
+        ext.require(blk.w1.shape == (cin, F1) and blk.w2.shape == (9, F1, F1)
+                    and blk.w3.shape == (F1, FOUT),
+                    f"stage 1: folded weights do not fit cin={cin}")
+        ext.require((cin == F1 and blk.wd is not None and blk.wd.shape == (cin, FOUT))
+                    or (cin == FOUT and blk.wd is None),
+                    "stage 1: the kernel takes cin 64 with a downsample or cin 256 without")
+        for t in (blk.w1, blk.w2, blk.w3, *(() if blk.wd is None else (blk.wd,))):
+            ext.require(t.dtype == torch.bfloat16 and t.is_contiguous() and t.device == x.device
+                        and t.data_ptr() % 16 == 0,
+                        "stage 1: folded weights must be contiguous, 16-byte aligned bfloat16 "
+                        "on x's device")
+        for t in (blk.b1, blk.b2, blk.b3):
+            ext.require(t.dtype == torch.float32 and t.is_contiguous() and t.device == x.device,
+                        "stage 1: folded biases must be contiguous float32 on x's device")
+        cin = FOUT
+
+
 def _stage1_kernel(x: torch.Tensor, folded: Sequence[FoldedBlock]) -> torch.Tensor:
     global launches
     ext.require(x.is_cuda, f"stage 1: unsupported device {x.device}")
-    ext.require(x.dim() == 4 and x.shape[3] == F1,
-                f"stage 1: x must be (B, H, W, 64), got {tuple(x.shape)}")
-    ext.require(x.dtype == torch.bfloat16 and x.is_contiguous(),
-                f"stage 1: x must be contiguous bfloat16 NHWC, got {x.dtype}")
+    check_args(x, folded)
     b, h, w, _ = x.shape
     lib = ext.load()
     stream = ext.stream_of(x)
     for blk in folded:
         cin = x.shape[3]
-        ext.require(blk.w1.shape == (cin, F1) and blk.w2.shape == (9, F1, F1)
-                    and blk.w3.shape == (F1, FOUT),
-                    f"stage 1: folded weights do not fit cin={cin}")
-        ext.require((blk.wd is not None and blk.wd.shape == (cin, FOUT)) or cin == FOUT,
-                    "stage 1: a block without downsample needs cin == 256")
-        for t in (blk.w1, blk.w2, blk.w3, *(() if blk.wd is None else (blk.wd,))):
-            ext.require(t.dtype == torch.bfloat16 and t.is_contiguous() and t.device == x.device,
-                        "stage 1: folded weights must be contiguous bfloat16 on x's device")
-        for t in (blk.b1, blk.b2, blk.b3):
-            ext.require(t.dtype == torch.float32 and t.is_contiguous() and t.device == x.device,
-                        "stage 1: folded biases must be contiguous float32 on x's device")
         out = torch.empty((b, h, w, FOUT), dtype=torch.bfloat16, device=x.device)
         err = lib.mhent_stage1_block(
             x.data_ptr(), blk.w1.data_ptr(), blk.b1.data_ptr(), blk.w2.data_ptr(),

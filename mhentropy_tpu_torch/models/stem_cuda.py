@@ -20,6 +20,7 @@ from mhentropy_tpu_torch import ext
 
 F_OUT = 64  # stem filters
 TAPS = 7 * 7 * 3
+MAX_BATCH = 65535  # the kernel's grid has one z slice an image
 
 # Kernel launches since the count was last reset; nothing else touches it.
 launches = 0
@@ -57,19 +58,31 @@ def stem_plain(image: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torc
     return F.max_pool2d(y, 3, stride=2, padding=1).permute(0, 2, 3, 1)
 
 
-def _stem_kernel(image: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    global launches
-    ext.require(image.is_cuda, f"stem: unsupported device {image.device}")
+def check_args(image: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> None:
+    """Raise ValueError unless the kernel takes these: a contiguous bf16
+    (B, H, W, 3) image with B <= 65535 (the grid's z extent), fold's bf16
+    (147, 64) weights (16-byte aligned: the kernel copies their rows 16
+    bytes at a time) and f32 (64,) bias, contiguous, on the image's device."""
     ext.require(image.dim() == 4 and image.shape[3] == 3,
                 f"stem: image must be (B, H, W, 3), got {tuple(image.shape)}")
     ext.require(image.dtype == torch.bfloat16 and image.is_contiguous(),
                 f"stem: image must be contiguous bfloat16 NHWC, got {image.dtype}")
-    ext.require(w.shape == (TAPS, F_OUT) and w.dtype == torch.bfloat16 and w.is_contiguous(),
-                f"stem: folded weights must be contiguous bfloat16 {(TAPS, F_OUT)}")
+    ext.require(1 <= image.shape[0] <= MAX_BATCH and image.shape[1] >= 1 and image.shape[2] >= 1,
+                f"stem: the kernel takes 1 to {MAX_BATCH} images, got {tuple(image.shape)}")
+    ext.require(w.shape == (TAPS, F_OUT) and w.dtype == torch.bfloat16 and w.is_contiguous()
+                and w.data_ptr() % 16 == 0,
+                "stem: folded weights must be contiguous, 16-byte aligned bfloat16 "
+                f"{(TAPS, F_OUT)}")
     ext.require(bias.shape == (F_OUT,) and bias.dtype == torch.float32 and bias.is_contiguous(),
                 "stem: bias must be contiguous float32 (64,)")
     ext.require(w.device == image.device and bias.device == image.device,
                 "stem: tensors on different devices")
+
+
+def _stem_kernel(image: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    global launches
+    ext.require(image.is_cuda, f"stem: unsupported device {image.device}")
+    check_args(image, w, bias)
     b, h, wd, _ = image.shape
     hp, wp = out_hw(h, wd)
     out = torch.empty((b, hp, wp, F_OUT), dtype=torch.bfloat16, device=image.device)

@@ -54,7 +54,10 @@ def _within(out, ref, share):
     return (out.float() - ref).abs().max().item() <= share * max(1.0, ref.abs().max().item())
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 64, 3), (1, 37, 50, 3), (2, 224, 224, 3)])
+# (32, 256, 256, 3): the bench's batch; (1, 37, 50, 3) and (2, 33, 31, 3):
+# the last 8 x 8 pooled tile ragged in one or both axes.
+@pytest.mark.parametrize("shape", [(2, 64, 64, 3), (1, 37, 50, 3), (2, 224, 224, 3),
+                                   (32, 256, 256, 3), (2, 33, 31, 3)])
 def test_stem_kernel_matches_plain(dev, shape):
     g = torch.Generator().manual_seed(0)
     conv = torch.randn(64, 3, 7, 7, generator=g) * math.sqrt(2 / 147)
@@ -69,7 +72,12 @@ def test_stem_kernel_matches_plain(dev, shape):
     assert _within(out, stem_cuda.stem_plain(image.float(), w.float(), b), 2e-2)
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 64, 64), (1, 13, 37, 64), (2, 56, 56, 64)])
+# (32, 64, 64, 64): the bench's batch; (1, 13, 37, 64), (3, 9, 17, 64) and
+# 56 x 56: H or W not a multiple of the 8 x 16 tile; (1, 8, 16, 64): one
+# tile, fewer than the SMs; (64, 64, 64, 64): 2,048 tiles, 15-16 a block.
+@pytest.mark.parametrize("shape", [(2, 64, 64, 64), (1, 13, 37, 64), (2, 56, 56, 64),
+                                   (32, 64, 64, 64), (3, 9, 17, 64), (1, 8, 16, 64),
+                                   (64, 64, 64, 64)])
 def test_stage1_kernel_matches_plain(dev, shape):
     g = torch.Generator().manual_seed(1)
     layer1 = torch.nn.Sequential(resnet.Bottleneck(64, 64), resnet.Bottleneck(256, 64),
@@ -112,6 +120,21 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
                           torch.zeros(64), torch.ones(64))
     with pytest.raises(ValueError, match="bfloat16"):
         stem_cuda.stem_forward(torch.zeros(1, 16, 16, 3, device=dev), w.to(dev), b.to(dev))
+
+
+def test_stage1_entry_refuses_what_it_does_not_take(dev):
+    """The C entry takes cin 64 with a downsample or 256 without, and
+    returns cudaErrorInvalidValue (1) for anything else, launching nothing."""
+    from mhentropy_tpu_torch import ext
+
+    lib = ext.load()
+    buf = torch.zeros(1 << 20, dtype=torch.bfloat16, device=dev)
+    p = buf.data_ptr()
+    stream = ext.stream_of(buf)
+    for cin, wd in ((128, p), (256, p), (64, None), (64, p)):
+        err = lib.mhent_stage1_block(p, p, p, p, p, p, wd, p, p, 1, 8, 16, cin, stream)
+        assert (err == 0) == (cin == 64 and wd is not None), (cin, wd, err)
+    torch.cuda.synchronize()
 
 
 def test_model_path_launches_each_kernel_and_matches_plain_path(dev):

@@ -117,3 +117,45 @@ def test_wrapper_raises_off_cpu_and_cuda():
     folded = stage1_cuda.fold(_port_layer1(_rand_blocks(5)))
     with pytest.raises(ValueError, match="unsupported device"):
         stage1_cuda.stage1_forward(torch.zeros(1, 8, 8, 64, device="meta"), folded)
+
+
+def _bf16_stage(seed):
+    folded = stage1_cuda.fold(_port_layer1(_rand_blocks(seed)))
+    return torch.zeros(2, 9, 17, 64, dtype=torch.bfloat16), folded
+
+
+def test_check_args_takes_the_folded_stage():
+    """The kernel's argument check passes fold's stage and a bf16 NHWC x of
+    any H and W (on the CPU here: the check reads shapes, types, layout)."""
+    x, folded = _bf16_stage(6)
+    stage1_cuda.check_args(x, folded)
+
+
+def _misaligned(t):
+    """t's values in a contiguous tensor that starts 2 bytes past 16-byte
+    alignment."""
+    flat = torch.zeros(t.numel() + 8, dtype=t.dtype)
+    out = flat[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+_STAGE1_BREAKS = {
+    "block 0 without downsample": lambda x, f: (x, [f[0]._replace(wd=None), *f[1:]]),
+    "block 1 with downsample": lambda x, f: (
+        x, [f[0], f[1]._replace(wd=torch.zeros(256, 256, dtype=torch.bfloat16)), f[2]]),
+    "f32 weights": lambda x, f: (x, [f[0]._replace(w2=f[0].w2.float()), *f[1:]]),
+    "f64 bias": lambda x, f: (x, [f[0], f[1]._replace(b3=f[1].b3.double()), f[2]]),
+    "x of 32 channels": lambda x, f: (x[..., :32].contiguous(), f),
+    "f32 x": lambda x, f: (x.float(), f),
+    "non-contiguous x": lambda x, f: (x.transpose(1, 2), f),
+    "misaligned x": lambda x, f: (_misaligned(x), f),
+    "misaligned w3": lambda x, f: (x, [f[0], f[1], f[2]._replace(w3=_misaligned(f[2].w3))]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_STAGE1_BREAKS))
+def test_check_args_refuses_what_the_kernel_does_not_take(case):
+    x, folded = _STAGE1_BREAKS[case](*_bf16_stage(7))
+    with pytest.raises(ValueError, match="stage 1"):
+        stage1_cuda.check_args(x, folded)

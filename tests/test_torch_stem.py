@@ -47,9 +47,10 @@ def _fold(p, dtype=torch.float32):
                           t["mean"], t["var"], dtype=dtype)
 
 
-@pytest.mark.parametrize("shape", [(2, 32, 48, 3), (1, 33, 29, 3)])
+@pytest.mark.parametrize("shape", [(2, 32, 48, 3), (1, 33, 29, 3), (2, 33, 31, 3)])
 def test_plain_stem_matches_jax_oracle(shape):
-    """(1, 33, 29): odd sizes put the last pool window on the edge."""
+    """(1, 33, 29), (2, 33, 31): odd sizes put the last pool window on the
+    edge, and the kernel's last 8 x 8 pooled tile is ragged in both axes."""
     p = _rand_stem(0)
     image = np.random.RandomState(1).randn(*shape).astype(np.float32)
     ref = _xla_reference(jnp.asarray(image), *(jnp.asarray(p[k]) for k in
@@ -78,3 +79,37 @@ def test_wrapper_raises_off_cpu_and_cuda():
     w, b = _fold(_rand_stem(3), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="unsupported device"):
         stem_cuda.stem_forward(torch.zeros(1, 16, 16, 3, device="meta"), w, b)
+
+
+def test_check_args_takes_a_bf16_image_and_folds_weights():
+    w, b = _fold(_rand_stem(4), dtype=torch.bfloat16)
+    stem_cuda.check_args(torch.zeros(2, 33, 31, 3, dtype=torch.bfloat16), w, b)
+
+
+def _misaligned(t):
+    """t's values in a contiguous tensor that starts 2 bytes past 16-byte
+    alignment."""
+    flat = torch.zeros(t.numel() + 8, dtype=t.dtype)
+    out = flat[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+_STEM_BREAKS = {
+    "f32 image": lambda i, w, b: (i.float(), w, b),
+    "4 channels": lambda i, w, b: (torch.zeros(2, 33, 31, 4, dtype=torch.bfloat16), w, b),
+    "non-contiguous image": lambda i, w, b: (i.transpose(1, 2), w, b),
+    "65536 images": lambda i, w, b: (torch.zeros(65536, 1, 1, 3, dtype=torch.bfloat16), w, b),
+    "f32 weights": lambda i, w, b: (i, w.float(), b),
+    "weights not (147, 64)": lambda i, w, b: (i, w[:144].contiguous(), b),
+    "misaligned weights": lambda i, w, b: (i, _misaligned(w), b),
+    "f64 bias": lambda i, w, b: (i, w, b.double()),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_STEM_BREAKS))
+def test_check_args_refuses_what_the_kernel_does_not_take(case):
+    w, b = _fold(_rand_stem(5), dtype=torch.bfloat16)
+    args = _STEM_BREAKS[case](torch.zeros(2, 33, 31, 3, dtype=torch.bfloat16), w, b)
+    with pytest.raises(ValueError, match="stem"):
+        stem_cuda.check_args(*args)
