@@ -12,7 +12,9 @@
    (8, 64, 64, 64) and (32, 64, 64, 64); each of the two and int8
    stage 1 also at the ProHMR path's 224 px (56 x 56 after the stem) at
    B=8 and B=32, the stem's and stage 1's plain (cuDNN) graph time as
-   their `library_graph_ms`; bf16 sampler B=8, N=200, L=12, H=512; LBS blend at
+   their `library_graph_ms`; bf16 sampler at L=12, H=512 and B=8, N=200 (the
+   line), B=1, N=200, B=32, N=100 and B=64, N=200, each with its launch
+   plan; LBS blend at
    12,800 rows (N=200, B=64) on MANO (V=778, J=16) and at 3,200 rows
    (N=100, B=32) on SMPL (V=6,890, J=24); int8
    stage 1 (8, 64, 64, 64) on sites calibrated from a He-initialised
@@ -79,8 +81,9 @@
    (64, 128, 128, 64) and (64, 8, 8, 2048) bf16 channels-last, timed as in
    3, with torch.batch_norm_stats / torch.batch_norm_backward_reduce as the
    library yardsticks. f32 sampler: the kernel against transform_plain at
-   B=64, N=10, L=12, H=512 on an O(1) flow, and the autograd Function's
-   gradients against plain autograd.
+   B=64, N=10, L=12, H=512 and at a ragged B=7, N=93 on an O(1) flow (its
+   bound counts the three TF32 products of each f32 one at 495 TFLOP/s),
+   and the autograd Function's gradients against plain autograd.
 9. Train: the run.py path (Experiment.train_baseline) on configs/rhd.yaml
    with training.epochs 1 (initial eval at N=100, 4 train steps at B=64,
    N=10, checkpoints) with tpu.fused_train_bn false and "full": finite
@@ -199,7 +202,7 @@ SLICE_WINDOW_S = 2.0
 EVAL_BATCH = 64
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense rates, 700 W).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12}
 # Eval and train steps' windows.
 STEP_WINDOW_S = 2.0
 # The int8 stem and stage 2/3 kernels against their plain versions: exact
@@ -437,41 +440,71 @@ def phase_stage1(torch, dev):
             "prohmr_shapes": [side_line(c) for c in cases[2:]]}
 
 
+# The bf16 draw's row counts on the main path, (B, N): a served request at
+# B = 1, the B = 8 request (the line's shape), the bench step and the eval
+# batch.
+SAMPLER_SHAPES = ((BATCH, N_HYPO), (1, N_HYPO), (BENCH_BATCH, 100), (EVAL_BATCH, N_HYPO))
+
+
+def sampler_case(torch, packed, packed_plain, z0, cproj, tol: float, kind: str) -> dict:
+    """One sampler kernel at one shape: x and the log-det against
+    transform_plain (max-abs, held to tol times the output's range, at
+    least 1), kernel and plain timed as ab_ms does, the bound from these
+    inputs (each read once, x and the log-det written once) and the launch
+    plan."""
+    from mhentropy_tpu_torch.flows import cuda_sampler
+
+    b, n, d = z0.shape
+    x, ld = cuda_sampler.transform(packed, z0, cproj)
+    torch.cuda.synchronize()
+    x_ref, ld_ref = cuda_sampler.transform_plain(packed, z0, cproj)
+    check(x.shape == (b, n, d) and ld.shape == (b, n),
+          f"sampler {kind}: shapes {tuple(x.shape)} {tuple(ld.shape)}")
+    err_x = (x - x_ref).abs().max().item()
+    err_ld = (ld - ld_ref).abs().max().item()
+    bound_x = tol * max(1.0, x_ref.abs().max().item())
+    bound_ld = tol * max(1.0, ld_ref.abs().max().item())
+    check(err_x <= bound_x, f"sampler {kind} at {(b, n)}: x max-abs error {err_x} > {bound_x}")
+    check(err_ld <= bound_ld,
+          f"sampler {kind} at {(b, n)}: logdet max-abs error {err_ld} > {bound_ld}")
+    times = ab_ms(torch, lambda: cuda_sampler.transform(packed, z0, cproj),
+                  lambda: cuda_sampler.transform_plain(packed_plain, z0, cproj))
+    n_weights = sum(getattr(packed, k).numel() * getattr(packed, k).element_size()
+                    for k in ("w0", "w1", "w2", "b0", "b1", "b2"))
+    n_bytes = 2 * z0.numel() * 4 + b * n * 4 + cproj.numel() * 4 + n_weights
+    h = packed.w1.shape[-1]
+    macs = sampler_macs(b * n, d, h, packed.masks.shape[0])
+    f32 = kind == "f32"
+    plan = cuda_sampler.launch_plan(z0.device.index, b * n, h, packed.masks.shape[1], f32)
+    # 3xTF32: three TF32 tensor-core products for each f32 one.
+    ops = (3 * 2 * macs, "tf32") if f32 else (2 * macs, "bf16")
+    return {"shape": [b, n], "rows": b * n, "max_abs_err": max(err_x, err_ld),
+            "max_abs_err_x": err_x, "max_abs_err_logdet": err_ld, "tol": bound_x,
+            "plan": plan._asdict(), **times, **roofline(n_bytes, *ops)}
+
+
 def phase_sampler(torch, dev):
+    """The bf16 sampler at every main-path row count; B = 8, N = 200 makes
+    the line."""
     from mhentropy_tpu_torch.flows import cuda_sampler, realnvp
 
     torch.manual_seed(3)  # torch-default Linear init: the reference's own
     cfg = realnvp.RealNVPConfig(dim=45, cond_dim=512, h_dim=512, num_steps=6)
     flow = realnvp.RealNVP(cfg).to(dev).eval()
     g = torch.Generator(device=dev).manual_seed(3)
-    feat = torch.randn((BATCH, 512), generator=g, device=dev)
-    z0 = torch.randn((BATCH, N_HYPO, 45), generator=g, device=dev) * 0.8
+    cases = []
     with torch.inference_mode():
-        cproj = realnvp.cond_cache(flow, feat).contiguous()
         packed = cuda_sampler.pack(flow)  # bf16 weights, as the kernel runs
         packed_f32 = cuda_sampler.pack(flow, dtype=torch.float32)
-        x, ld = cuda_sampler.transform(packed, z0, cproj)
-        torch.cuda.synchronize()
-        x_ref, ld_ref = cuda_sampler.transform_plain(packed, z0, cproj)
-        check(x.shape == (BATCH, N_HYPO, 45) and ld.shape == (BATCH, N_HYPO),
-              f"sampler: shapes {tuple(x.shape)} {tuple(ld.shape)}")
-        err_x = (x - x_ref).abs().max().item()
-        err_ld = (ld - ld_ref).abs().max().item()
-        bound_x = TOL["sampler"] * max(1.0, x_ref.abs().max().item())
-        bound_ld = TOL["sampler"] * max(1.0, ld_ref.abs().max().item())
-        check(err_x <= bound_x, f"sampler: x max-abs error {err_x} > {bound_x}")
-        check(err_ld <= bound_ld, f"sampler: logdet max-abs error {err_ld} > {bound_ld}")
-        times = ab_ms(torch, lambda: cuda_sampler.transform(packed, z0, cproj),
-                      lambda: cuda_sampler.transform_plain(packed_f32, z0, cproj))
-    n_weights = sum(getattr(packed, k).numel() * getattr(packed, k).element_size()
-                    for k in ("w0", "w1", "w2", "b0", "b1", "b2"))
-    n_bytes = 2 * z0.numel() * 4 + BATCH * N_HYPO * 4 + cproj.numel() * 4 + n_weights
-    macs = sampler_macs(BATCH * N_HYPO, 45, 512, cfg.n_layers)
+        for b, n in SAMPLER_SHAPES:
+            feat = torch.randn((b, 512), generator=g, device=dev)
+            z0 = torch.randn((b, n, 45), generator=g, device=dev) * 0.8
+            cproj = realnvp.cond_cache(flow, feat).contiguous()
+            cases.append(sampler_case(torch, packed, packed_f32, z0, cproj, TOL["sampler"],
+                                      "bf16"))
     return {"name": "realnvp_sampler", "source": "mhentropy_tpu_torch/csrc/realnvp_sampler.cu",
-            "replaces": "mhentropy_tpu/flows/pallas_sampler.py:191",
-            "max_abs_err": max(err_x, err_ld), "max_abs_err_x": err_x,
-            "max_abs_err_logdet": err_ld, "tol": bound_x, **times, "library": None,
-            **roofline(n_bytes, 2 * macs, "bf16")}
+            "replaces": "mhentropy_tpu/flows/pallas_sampler.py:191", **cases[0],
+            "library": None, "other_shapes": [side_line(c) for c in cases[1:]]}
 
 
 def lbs_bound(args, out) -> dict:
@@ -1597,8 +1630,9 @@ def phase_bn_sums(torch, dev):
 
 def phase_sampler_f32(torch, dev):
     """The f32 sampler kernel against transform_plain at the train draw's
-    shape (B=64, N=10: 640 rows, L=12, H=512) on an O(1) flow, then the
-    autograd Function's values and gradients against plain autograd."""
+    shape (B=64, N=10: 640 rows, L=12, H=512) and at a ragged 7 x 93 = 651
+    rows on an O(1) flow, then the autograd Function's values and gradients
+    against plain autograd."""
     from mhentropy_tpu_torch.flows import cuda_sampler, realnvp
 
     torch.manual_seed(12)  # torch-default Linear init: O(1) weights
@@ -1611,18 +1645,12 @@ def phase_sampler_f32(torch, dev):
     with torch.no_grad():
         cproj = realnvp.cond_cache(flow, feat).contiguous()
         packed = cuda_sampler.pack(flow, dtype=torch.float32)
-        x, ld = cuda_sampler.transform(packed, z0, cproj)
-        torch.cuda.synchronize()
-        x_ref, ld_ref = cuda_sampler.transform_plain(packed, z0, cproj)
-        check(x.shape == (b, n, 45) and ld.shape == (b, n), "f32 sampler: shapes")
-        err_x = (x - x_ref).abs().max().item()
-        err_ld = (ld - ld_ref).abs().max().item()
-        tol_x = SAMPLER_F32_TOL * max(1.0, x_ref.abs().max().item())
-        tol_ld = SAMPLER_F32_TOL * max(1.0, ld_ref.abs().max().item())
-        check(err_x <= tol_x, f"f32 sampler: x max-abs error {err_x} > {tol_x}")
-        check(err_ld <= tol_ld, f"f32 sampler: logdet max-abs error {err_ld} > {tol_ld}")
-        times = ab_ms(torch, lambda: cuda_sampler.transform(packed, z0, cproj),
-                      lambda: cuda_sampler.transform_plain(packed, z0, cproj))
+        main = sampler_case(torch, packed, packed, z0, cproj, SAMPLER_F32_TOL, "f32")
+        feat_r = torch.randn((7, 512), generator=g, device=dev)
+        z0_r = torch.randn((7, 93, 45), generator=g, device=dev)
+        ragged = sampler_case(torch, packed, packed, z0_r,
+                              realnvp.cond_cache(flow, feat_r).contiguous(), SAMPLER_F32_TOL,
+                              "f32")
     noise = z0.transpose(0, 1).reshape(n * b, 45)  # hypothesis-major rows
     w = torch.randn((n * b, 45), generator=g, device=dev)
     outs = []
@@ -1641,14 +1669,9 @@ def phase_sampler_f32(torch, dev):
                    for a, r in zip(*outs))
     check(grad_err <= SAMPLER_F32_TOL,
           f"f32 sampler Function: values or gradients {grad_err} from plain autograd")
-    n_weights = sum(getattr(packed, k).numel() * 4 for k in ("w0", "w1", "w2", "b0", "b1", "b2"))
-    n_bytes = 2 * z0.numel() * 4 + b * n * 4 + cproj.numel() * 4 + n_weights
-    macs = sampler_macs(b * n, 45, 512, cfg.n_layers)
     return {"name": "realnvp_sampler_f32", "source": "mhentropy_tpu_torch/csrc/realnvp_sampler_f32.cu",
-            "replaces": "mhentropy_tpu/flows/pallas_sampler.py:304",
-            "max_abs_err": max(err_x, err_ld), "max_abs_err_x": err_x,
-            "max_abs_err_logdet": err_ld, "tol": tol_x, "grad_rel_err": grad_err, **times,
-            "library": None, **roofline(n_bytes, 2 * macs, "f32")}
+            "replaces": "mhentropy_tpu/flows/pallas_sampler.py:304", **main,
+            "grad_rel_err": grad_err, "library": None, "other_shapes": [side_line(ragged)]}
 
 
 def train_cfg(fused, model_dir: str):
@@ -1995,7 +2018,7 @@ def main() -> int:
                                      "other_shapes", "bf16_stem_graph_ms", "library_graph_ms",
                                      "library_max_abs_diff", "ratio_bf16_over_s8_graph",
                                      "library", "stem_kernel_graph_ms", "stage1_kernel_graph_ms",
-                                     "phase", "conv_rows")
+                                     "phase", "conv_rows", "plan", "bound_ops_type")
                    if k in r},
                 **{f"{key}_min_max": [r[key]["min"], r[key]["max"]] for key in TIMES}}
                for r in results]

@@ -36,12 +36,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "mhent_stem_forward": [_P, _P, _P, _P, _I, _I, _I, _P],
     "mhent_stage1_block": [_P] * 9 + [_I, _I, _I, _I, _P],
-    "mhent_realnvp_sample": [_P] * 11 + [_I] * 6 + [_P],
+    "mhent_realnvp_sample": [_P] * 11 + [_I] * 8 + [_P],
+    "mhent_realnvp_sample_smem": [_I] * 4,
+    "mhent_realnvp_sample_clusters": [_I] * 4,
     "mhent_lbs_blend": [_P] * 5 + [_I] * 3 + [_P],
     "mhent_lbs_vertex_tile": [_I, _I],
     "mhent_stage1_int8_block": [_P] * 15 + [_I] * 4 + [_P],
     "mhent_realnvp_sample_q": [_P] * 13 + [_I] * 6 + [_P],
-    "mhent_realnvp_sample_f32": [_P] * 11 + [_I] * 6 + [_P],
+    "mhent_realnvp_sample_f32": [_P] * 11 + [_I] * 8 + [_P],
+    "mhent_realnvp_sample_f32_smem": [_I] * 4,
+    "mhent_realnvp_sample_f32_clusters": [_I] * 4,
     "mhent_bn_stats_sums": [_P] * 4 + [_I] * 4 + [_P],
     "mhent_bn_grad_sums": [_P] * 5 + [_I] * 4 + [_P],
     "mhent_glow_sample": [_P] * 22 + [_I] * 6 + [_P],

@@ -14,6 +14,10 @@ bounds its kernel on the H100 and how its design answers that. Here:
   per-image conditioning cache (L, 4, B, H) -> (x (B, R, D), logdet (B, R)).
   CPU tensors take `transform_plain`; CUDA tensors launch the kernel of the
   packed weights' dtype, and anything it does not take raises.
+* `plan` picks each launch's tile rows and cluster size from the row count,
+  H, Dp, the card's occupancy and the kernel's shared-memory layout, which
+  it is given (CPU-testable); `launch_plan` gives it the card's, once a
+  shape.
 * `sample_fused` is the drop-in for the flow draw: hypothesis-major rows in,
   hypothesis-major rows and log q out.
 * `sample_fused_diff` is the same draw under autograd: `TransformDiff`'s
@@ -24,12 +28,15 @@ bounds its kernel on the H100 and how its design answers that. Here:
   are a buffer and get no gradient (`stop_gradient` in the JAX flow).
 
 The bf16 kernel accumulates in f32, with x and the log-det in f32, as the
-JAX path runs the fused sampler at h <= 512; the f32 kernel computes in f32
-FMAs, so its forward is the plain f32 flow's to rounding.
+JAX path runs the fused sampler at h <= 512; the f32 kernel computes its
+products as 3xTF32 on the tensor cores, so its forward is the plain f32
+flow's to about f32 rounding.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -57,6 +64,83 @@ class Packed(NamedTuple):
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+# The kernels' shape limits (csrc/realnvp_cluster.cuh); their shared-memory
+# layout is the C entries' `mhent_realnvp_sample[_f32]_smem`.
+CLUSTERS = (8, 4, 2, 1)  # CTAs a cluster, largest first
+MAX_TILE_ROWS = 128  # one m16 row tile a warp
+MAX_SLICE = 64  # hidden columns a CTA
+MAX_DP = 64  # padded flow width
+
+
+class Plan(NamedTuple):
+    tile_rows: int  # rows a cluster owns (a multiple of 16)
+    cluster: int  # CTAs a cluster: each takes H / cluster hidden columns
+    tiles: int  # clusters launched
+    smem: int  # shared memory a CTA (bytes)
+
+
+def cluster_size(h: int) -> int | None:
+    """The largest cluster whose CTAs each take a slice of 16 to 64 hidden
+    columns in n16 tiles, or None if H has none."""
+    for c in CLUSTERS:
+        if h % (16 * c) == 0 and h // c <= MAX_SLICE:
+            return c
+    return None
+
+
+def check_shape(h: int, dp: int) -> int:
+    """The cluster size for hidden width h and padded width dp; raises on a
+    shape the kernels do not take."""
+    cluster = cluster_size(h)
+    ext.require(cluster is not None and dp <= MAX_DP and dp % 16 == 0,
+                f"fused sampler: no kernel shape for hidden width {h} and padded "
+                f"width {dp}: H must be a multiple of 16 with H / C <= {MAX_SLICE} for "
+                f"a cluster C of 1, 2, 4 or 8, and Dp <= {MAX_DP}")
+    return cluster
+
+
+def max_tile_rows(dp: int, h: int, cluster: int, smem) -> int:
+    """The largest tile (a multiple of 16, at most 128 rows) that `smem`
+    (tile_rows, dp, h, cluster) -> bytes, or -1 where it does not fit,
+    fits."""
+    rows = MAX_TILE_ROWS
+    while rows > 16 and smem(rows, dp, h, cluster) < 0:
+        rows -= 16
+    return rows
+
+
+def plan(rows: int, h: int, dp: int, wave_clusters: int, smem) -> Plan:
+    """Tile rows and cluster size for `rows` flattened rows: as few waves of
+    `wave_clusters` clusters (the card's occupancy) as the largest tile
+    allows, and in them tiles just large enough to cover the rows, so that
+    one wave fills the card at small row counts (200 rows on an H100: 13
+    tiles of 16) and few rows are padding. `smem` is the kernel's layout,
+    as `max_tile_rows` takes it."""
+    cluster = check_shape(h, dp)
+    wave = max(1, wave_clusters)
+    r_max = max_tile_rows(dp, h, cluster, smem)
+    rounds = math.ceil(rows / (r_max * wave))
+    tile = min(r_max, _round_up(math.ceil(rows / (rounds * wave)), 16))
+    return Plan(tile, cluster, math.ceil(rows / tile), smem(tile, dp, h, cluster))
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(device_index: int, rows: int, h: int, dp: int, f32: bool) -> Plan:
+    """`plan` on the card, once a shape: the kernel's own shared-memory
+    layout, and the clusters of its largest tile resident at once (CUDA's
+    occupancy query)."""
+    cluster = check_shape(h, dp)
+    lib = ext.load()
+    smem, resident = ((lib.mhent_realnvp_sample_f32_smem, lib.mhent_realnvp_sample_f32_clusters)
+                      if f32 else (lib.mhent_realnvp_sample_smem, lib.mhent_realnvp_sample_clusters))
+    with torch.cuda.device(device_index):
+        n = resident(max_tile_rows(dp, h, cluster, smem), dp, h, cluster)
+    if n < 0:
+        ext.check(-n, "fused sampler cluster occupancy")
+    ext.require(n > 0, f"fused sampler: no cluster of {cluster} CTAs fits on the card")
+    return plan(rows, h, dp, n, smem)
 
 
 @torch.no_grad()
@@ -133,34 +217,33 @@ def _transform_kernel(packed: Packed, z0: torch.Tensor, cproj: torch.Tensor):
                 and cproj.is_contiguous(),
                 f"fused sampler: cproj must be contiguous float32 {(n_layers, 4, b, h)}, "
                 f"got {tuple(cproj.shape)} {cproj.dtype}")
-    if wdtype == torch.bfloat16:
-        ext.require(h % 64 == 0, f"fused sampler: hidden width {h} is not a multiple of 64")
-    else:
-        ext.require(h % 4 == 0, f"fused f32 sampler: hidden width {h} is not a multiple of 4")
     for name in ("w0", "w1", "w2"):
         t = getattr(packed, name)
-        ext.require(t.dtype == wdtype and t.is_contiguous(),
-                    f"fused sampler: packed {name} must be contiguous {wdtype}")
+        ext.require(t.dtype == wdtype and t.is_contiguous() and t.data_ptr() % 16 == 0,
+                    f"fused sampler: packed {name} must be contiguous 16-byte-aligned {wdtype}")
     for name in ("masks", "b0", "b1", "b2"):
         t = getattr(packed, name)
         ext.require(t.dtype == torch.float32 and t.is_contiguous(),
                     f"fused sampler: packed {name} must be contiguous float32")
     for t in (cproj, *packed[:7]):
         ext.require(t.device == z0.device, "fused sampler: tensors on different devices")
+    f32 = wdtype == torch.float32
+    pl = launch_plan(z0.device.index, b * r, h, dp, f32)
     x = torch.empty_like(z0)
     logdet = torch.empty((b, r), dtype=torch.float32, device=z0.device)
     lib = ext.load()
-    fn, name = ((lib.mhent_realnvp_sample, "mhent_realnvp_sample") if wdtype == torch.bfloat16
-                else (lib.mhent_realnvp_sample_f32, "mhent_realnvp_sample_f32"))
+    fn, name = ((lib.mhent_realnvp_sample_f32, "mhent_realnvp_sample_f32") if f32
+                else (lib.mhent_realnvp_sample, "mhent_realnvp_sample"))
     err = fn(z0.data_ptr(), cproj.data_ptr(), packed.masks.data_ptr(),
              packed.w0.data_ptr(), packed.w1.data_ptr(), packed.w2.data_ptr(),
              packed.b0.data_ptr(), packed.b1.data_ptr(), packed.b2.data_ptr(),
-             x.data_ptr(), logdet.data_ptr(), b, r, d, dp, h, n_layers, ext.stream_of(z0))
+             x.data_ptr(), logdet.data_ptr(), b, r, d, dp, h, n_layers, pl.tile_rows,
+             pl.cluster, ext.stream_of(z0))
     ext.check(err, name)
-    if wdtype == torch.bfloat16:
-        launches += 1
-    else:
+    if f32:
         launches_f32 += 1
+    else:
+        launches += 1
     return x, logdet
 
 

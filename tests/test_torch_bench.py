@@ -84,6 +84,10 @@ def test_summarize_reads_busy_time_ops_and_gaps():
     ("void (anonymous namespace)::bottleneck_probe_kernel<true>", "probe kernels"),
     ("void (anonymous namespace)::bottleneck_kernel(Params)", "stage-1 kernel"),
     ("void (anonymous namespace)::realnvp_sample_kernel", "flow sampler kernel"),
+    ("void (anonymous namespace)::realnvp_sample_kernel<(anonymous namespace)::Bf16>"
+     "((anonymous namespace)::Params)", "flow sampler kernel"),
+    ("void (anonymous namespace)::realnvp_sample_kernel<(anonymous namespace)::Tf32x3>"
+     "((anonymous namespace)::Params)", "flow sampler kernel"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32", "matmul (cuBLAS)"),
     ("Memcpy DtoD (Device -> Device)", "copy / fill"),
     ("void at::native::(anonymous namespace)::CatArrayBatchedCopy<float>", "copy / fill"),

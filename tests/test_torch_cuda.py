@@ -98,12 +98,19 @@ def test_stage1_kernel_matches_plain(dev, shape):
     assert _within(out, stage1_cuda.stage1_plain(x.float(), folded), 3e-2)
 
 
-def test_sampler_kernel_matches_plain(dev):
-    """N = 37 leaves the last 32-row tile partly empty."""
+# Row counts that leave the last cluster tile ragged (3 x 37, 5 x 100) and
+# tiles that straddle images (every case with N < the tile's rows); a B = 1
+# request (13 tiles of 16 rows), the B = 8 request, the bench step and the
+# eval batch (tiles of 112 rows, 1 to 8 waves); H = 128 (16 columns a CTA)
+# and 512 (64), and 64 (a cluster of 4) as the model tests run it.
+@pytest.mark.parametrize("b,n,h,steps", [(3, 37, 128, 2), (3, 37, 512, 6), (1, 200, 512, 6),
+                                         (5, 100, 512, 6), (1, 200, 128, 2), (2, 10, 64, 1),
+                                         (8, 200, 512, 6), (32, 100, 512, 6),
+                                         (64, 200, 512, 6)])
+def test_sampler_kernel_matches_plain(dev, b, n, h, steps):
     torch.manual_seed(2)
-    flow = realnvp.RealNVP(realnvp.RealNVPConfig(dim=45, cond_dim=64, h_dim=128, num_steps=2))
+    flow = realnvp.RealNVP(realnvp.RealNVPConfig(dim=45, cond_dim=64, h_dim=h, num_steps=steps))
     flow = flow.to(dev).eval()
-    b, n = 3, 37
     with torch.inference_mode():
         cp = realnvp.cond_cache(flow, torch.randn(b, 64, device=dev)).contiguous()
         z0 = torch.randn(b, n, 45, device=dev)
@@ -113,6 +120,49 @@ def test_sampler_kernel_matches_plain(dev):
         assert cuda_sampler.launches == before + 1
         x_ref, ld_ref = cuda_sampler.transform_plain(packed, z0, cp)
     assert _within(x, x_ref, 1e-2) and _within(ld, ld_ref, 1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h", [1024, 40])
+def test_sampler_raises_on_an_h_the_kernels_do_not_take(dev, dtype, h):
+    """H = 1024 would give each of 8 CTAs 128 columns (64 at most); 40 is
+    no multiple of 16. Neither launches nor falls back to the plain flow."""
+    flow = realnvp.RealNVP(realnvp.RealNVPConfig(dim=45, cond_dim=64, h_dim=h, num_steps=1))
+    flow = flow.to(dev).eval()
+    with torch.inference_mode():
+        cp = realnvp.cond_cache(flow, torch.randn(2, 64, device=dev)).contiguous()
+        packed = cuda_sampler.pack(flow, dtype=dtype)
+        before = (cuda_sampler.launches, cuda_sampler.launches_f32)
+        with pytest.raises(ValueError, match="no kernel shape"):
+            cuda_sampler.transform(packed, torch.randn(2, 5, 45, device=dev), cp)
+    assert (cuda_sampler.launches, cuda_sampler.launches_f32) == before
+
+
+# The launch plans (tile rows, cluster, tiles, shared memory a CTA) that
+# tests/test_torch_sampler.py's model of the kernels' layout gives at 15
+# clusters a wave (L = 12, H = 512, Dp = 48); the card's occupancy query and
+# the kernels' own layout must give the same.
+CARD_PLANS = {False: {200: (16, 8, 13, 63952), 1600: (112, 8, 15, 226432),
+                      3200: (112, 8, 29, 226432), 12800: (112, 8, 115, 226432)},
+              True: {640: (48, 8, 14, 178016), 651: (48, 8, 14, 178016)}}
+
+
+@pytest.mark.parametrize("f32", [False, True])
+def test_sampler_plan_shared_memory_is_the_kernels(dev, f32):
+    """The card's launch plans at the main path's row counts are the ones
+    the CPU-tested plan gives on a model of the kernels' layout; the C
+    entry refuses a tile past the largest (112 rows bf16, 64 f32) and a
+    shape the kernels do not take."""
+    from mhentropy_tpu_torch import ext
+
+    lib = ext.load()
+    fn = lib.mhent_realnvp_sample_f32_smem if f32 else lib.mhent_realnvp_sample_smem
+    for rows, want in CARD_PLANS[f32].items():
+        assert tuple(cuda_sampler.launch_plan(dev.index or 0, rows, 512, 48, f32)) == want
+    r_max = 64 if f32 else 112
+    assert all(0 < fn(r, 48, 512, 8) <= 227 * 1024 for r in range(16, r_max + 1, 16))
+    assert fn(r_max + 16, 48, 512, 8) == -1
+    assert fn(24, 48, 512, 8) == -1 and fn(16, 48, 1024, 8) == -1
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -312,10 +362,14 @@ def test_train_bn_kernels_match_plain_statistics(dev, mode):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("b,n,h,steps", [(3, 10, 128, 2), (64, 10, 512, 6)])
+# 30 and 111 rows leave the last cluster tile ragged; 640 is the train draw
+# (14 tiles of 48 rows across images); 651 is ragged at that size.
+@pytest.mark.parametrize("b,n,h,steps", [(3, 10, 128, 2), (64, 10, 512, 6), (3, 37, 128, 2),
+                                         (1, 200, 512, 6), (5, 100, 512, 6), (7, 93, 512, 6),
+                                         (4, 10, 64, 1)])
 def test_f32_sampler_kernel_matches_plain(dev, b, n, h, steps):
-    """f32 weights at O(1) scale; 30 rows leave the last 8-row tile ragged.
-    f32 on both sides: within 1e-5 of the output's range."""
+    """f32 weights at O(1) scale. f32 on both sides (3xTF32 products in the
+    kernel): within 1e-5 of the output's range."""
     torch.manual_seed(9)
     flow = realnvp.RealNVP(realnvp.RealNVPConfig(dim=45, cond_dim=64, h_dim=h, num_steps=steps))
     flow = flow.to(dev).eval()

@@ -143,3 +143,78 @@ def test_wrapper_takes_plain_path_only_on_cpu():
     assert cuda_sampler.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_sampler.transform(packed, z0.to("meta"), cp.to("meta"))
+
+
+# The main path's row counts: a served request (B = 1, N = 200), the eval's
+# f32 reverse-KL draw (B = 64, N = 10), a B = 8 request, the bench step
+# (B = 32, N = 100) and the eval batch (B = 64, N = 200); and ragged ones.
+PLAN_ROWS = [200, 640, 1600, 3200, 12800, 1, 111, 651]
+WAVE = 15  # clusters of 8 an H100 holds at once (the occupancy query on the card)
+SMEM_LIMIT = 227 * 1024  # shared memory a CTA may use on the H100
+
+
+def kernel_smem(f32: bool):
+    """A model of the kernels' shared memory a CTA (csrc/realnvp_cluster.cuh
+    `Layout`, which the C entries `mhent_realnvp_sample[_f32]_smem` give
+    `plan` on the card): the weight ring (2 chunks of 128 K-rows of bf16 or
+    64 of f32), the full h1 (unpadded, swizzled), the h2 slice, x_m, two f32
+    partial outputs, each row's image, x and the log-det of the rows the CTA
+    owns, and h1's arrival mbarrier; -1 where that does not fit."""
+    size, chunk_k = (4, 64) if f32 else (2, 128)
+
+    def a_pitch(w):
+        return w * size + 16
+
+    def b_pitch(w):
+        return (w + 8) * 4 if f32 else a_pitch(w)
+
+    def smem(tile_rows, dp, h, cluster):
+        ns = h // cluster
+        ring = 2 * chunk_k * max(b_pitch(ns), b_pitch(dp))
+        per_row = h * size + a_pitch(ns) + a_pitch(dp) + 2 * dp * 4 + 4
+        n = ring + tile_rows * per_row + tile_rows // cluster * (dp * 4 + 4) + 8
+        return n if n <= SMEM_LIMIT else -1
+
+    return smem
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("rows", PLAN_ROWS)
+def test_plan_covers_every_row_once_within_the_card_limits(rows, f32):
+    """Tiles of whole m16 row tiles cover the rows exactly once (the last
+    one ragged, never empty), the grid fits its limit, a CTA asks for at
+    most 227 KB of shared memory, and where one wave of clusters can hold
+    the rows it does."""
+    smem = kernel_smem(f32)
+    pl = cuda_sampler.plan(rows, 512, 48, WAVE, smem)
+    assert pl.tile_rows % 16 == 0 and 16 <= pl.tile_rows <= cuda_sampler.MAX_TILE_ROWS
+    assert (pl.tiles - 1) * pl.tile_rows < rows <= pl.tiles * pl.tile_rows
+    assert pl.cluster == 8 and pl.tiles * pl.cluster < 2 ** 31
+    assert 0 < pl.smem == smem(pl.tile_rows, 48, 512, 8) <= SMEM_LIMIT
+    r_max = cuda_sampler.max_tile_rows(48, 512, 8, smem)
+    if rows <= WAVE * r_max:
+        assert pl.tiles <= WAVE
+    assert r_max == cuda_sampler.MAX_TILE_ROWS or smem(r_max + 16, 48, 512, 8) == -1
+
+
+def test_plan_spreads_small_row_counts_over_the_card():
+    """A B = 1 request fills 13 clusters of 8 CTAs (104 of 132 SMs), where
+    one block of 32 rows an image used 7; the f32 train draw 14."""
+    bf16, f32 = kernel_smem(False), kernel_smem(True)
+    assert cuda_sampler.plan(200, 512, 48, WAVE, bf16)[:3] == (16, 8, 13)
+    assert cuda_sampler.plan(640, 512, 48, WAVE, f32)[:3] == (48, 8, 14)
+    assert cuda_sampler.plan(1600, 512, 48, WAVE, bf16)[:3] == (112, 8, 15)
+
+
+@pytest.mark.parametrize("h,cluster", [(512, 8), (384, 8), (256, 8), (128, 8), (64, 4),
+                                       (32, 2), (48, 1), (16, 1)])
+def test_cluster_size_gives_each_cta_whole_n16_tiles(h, cluster):
+    assert cuda_sampler.check_shape(h, 48) == cluster
+    ns = h // cluster
+    assert ns % 16 == 0 and ns <= cuda_sampler.MAX_SLICE
+
+
+@pytest.mark.parametrize("h,dp", [(1024, 48), (640, 48), (40, 48), (8, 48), (512, 80)])
+def test_plan_refuses_a_shape_the_kernels_do_not_take(h, dp):
+    with pytest.raises(ValueError, match="no kernel shape"):
+        cuda_sampler.plan(200, h, dp, WAVE, kernel_smem(False))
