@@ -17,9 +17,10 @@
    plan; LBS blend at
    12,800 rows (N=200, B=64) on MANO (V=778, J=16) and at 3,200 rows
    (N=100, B=32) on SMPL (V=6,890, J=24); int8
-   stage 1 (8, 64, 64, 64) on sites calibrated from a He-initialised
-   resnet50 with random BN; int8 sampler B=8, N=200, L=12, H=512 on an O(1)
-   flow; after the kernels of 8, the Glow sampler at B=32, N=100, D=144,
+   stage 1 (8, 64, 64, 64), (32, 64, 64, 64) and (64, 64, 64, 64) on sites
+   calibrated from a He-initialised resnet50 with random BN; int8 sampler
+   B=8, N=200 (and B=32, N=100; B=64, N=200), L=12, H=512 on an O(1) flow,
+   each with its launch plan; after the kernels of 8, the Glow sampler at B=32, N=100, D=144,
    H=1024, 4 layers (ProHMR) and at B=8, N=200, D=45, H=512 (the MHEnt
    Glow) on O(1) flows, x and the log-det each against its tolerance (max-
    and mean-abs), with a torch.profiler breakdown of its launches; the
@@ -730,22 +731,68 @@ def stage1_int8_case(torch, res, images) -> dict:
 
 def phase_stage1_int8(torch, dev):
     """A He-initialised resnet50 with random BN; 8 random 256 px images make
-    the line, the ProHMR path's 224 px at its two batches stand beside it."""
+    the line, the bench step's and the eval batch's (32 and 64 images at
+    256 px) and the ProHMR path's 224 px at its two batches stand beside
+    it."""
     res = he_resnet50(torch, dev, 5)
     g = torch.Generator(device=dev).manual_seed(5)
     with torch.inference_mode():
         cases = [stage1_int8_case(torch, res, torch.randn((bb, px, px, 3), generator=g,
                                                           device=dev))
-                 for bb, px in ((BATCH, 256), *PROHMR_SHAPES)]
+                 for bb, px in ((BATCH, 256), (BENCH_BATCH, 256), (EVAL_BATCH, 256),
+                                *PROHMR_SHAPES)]
     return {"name": "stage1_int8", "source": "mhentropy_tpu_torch/csrc/stage1_int8.cu",
             "replaces": "mhentropy_tpu/models/stage1_int8.py:207", **cases[0],
             "library": "models/quant.py::walk_stage (torch._int_mm)",
-            "prohmr_shapes": [side_line(c) for c in cases[1:]]}
+            "other_shapes": [side_line(c) for c in cases[1:3]],
+            "prohmr_shapes": [side_line(c) for c in cases[3:]]}
+
+
+# The int8 draw's row counts on the main path, (B, N): the B = 8 request
+# (the line's shape), the bench's int8_serving step and the int8 eval batch.
+SAMPLER_INT8_SHAPES = ((BATCH, N_HYPO), (BENCH_BATCH, 100), (EVAL_BATCH, N_HYPO))
+
+
+def sampler_int8_case(torch, flow, tree, feat, z0) -> dict:
+    """The int8 sampler at one shape against xla_forward_q: x and the log-det
+    each within TOL of its range, timed as ab_ms does, the bound from these
+    inputs and the launch plan."""
+    from mhentropy_tpu_torch.flows import cuda_sampler_int8
+
+    b, n, d = z0.shape
+    cq = cuda_sampler_int8.cond_q(flow, tree, feat)
+    z0p = torch.nn.functional.pad(z0, (0, tree.masks.shape[-1] - d))
+    x, ld = cuda_sampler_int8.transform_q(tree, z0, cq)
+    torch.cuda.synchronize()
+    x_ref, ld_ref = cuda_sampler_int8.xla_forward_q(tree, z0p, cq)
+    x_ref = x_ref[..., :d]
+    check(x.shape == (b, n, d) and ld.shape == (b, n),
+          f"int8 sampler: shapes {tuple(x.shape)} {tuple(ld.shape)}")
+    err_x = (x - x_ref).abs().max().item()
+    err_ld = (ld - ld_ref).abs().max().item()
+    tol_x = TOL["realnvp_sampler_int8"] * max(1.0, x_ref.abs().max().item())
+    tol_ld = TOL["realnvp_sampler_int8"] * max(1.0, ld_ref.abs().max().item())
+    check(err_x <= tol_x, f"int8 sampler at {(b, n)}: x max-abs error {err_x} > {tol_x}")
+    check(err_ld <= tol_ld, f"int8 sampler at {(b, n)}: logdet max-abs error {err_ld} > {tol_ld}")
+    times = ab_ms(torch, lambda: cuda_sampler_int8.transform_q(tree, z0, cq),
+                  lambda: cuda_sampler_int8.xla_forward_q(tree, z0p, cq))
+    k = tree.kernel
+    n_bytes = (2 * z0.numel() * 4 + b * n * 4 + cq.numel() * 4
+               + sum(t.numel() * t.element_size() for t in k))
+    n_layers, dp = k.masks.shape
+    h = k.w1.shape[-1]
+    plan = cuda_sampler_int8.launch_plan(z0.device.index, b * n, h, dp)
+    return {"shape": [b, n], "rows": b * n, "max_abs_err": max(err_x, err_ld),
+            "max_abs_err_x": err_x, "max_abs_err_logdet": err_ld,
+            "mean_abs_err_x": (x - x_ref).abs().mean().item(), "tol": tol_x,
+            "plan": plan._asdict(), **times,
+            **roofline(n_bytes, 2 * sampler_macs(b * n, d, h, n_layers), "int8")}
 
 
 def phase_sampler_int8(torch, dev):
     """An O(1) flow (torch-default Linear init), calibrated on its own
-    trajectory at temperature 1, at the serving shape."""
+    trajectory at temperature 1 on 8 images, at every main-path row count;
+    B = 8, N = 200 makes the line."""
     from mhentropy_tpu_torch.flows import cuda_sampler_int8, realnvp
 
     torch.manual_seed(6)
@@ -753,36 +800,19 @@ def phase_sampler_int8(torch, dev):
     flow = realnvp.RealNVP(cfg).to(dev).eval()
     g = torch.Generator(device=dev).manual_seed(6)
     feat = torch.randn((BATCH, 512), generator=g, device=dev)
+    cases = []
     with torch.inference_mode():
         tree = cuda_sampler_int8.quantize_sampler(
             flow, feat, torch.randn((32 * BATCH, 45), generator=g, device=dev))
-        cq = cuda_sampler_int8.cond_q(flow, tree, feat)
-        z0 = torch.randn((BATCH, N_HYPO, 45), generator=g, device=dev) * 0.8
-        z0p = torch.nn.functional.pad(z0, (0, tree.masks.shape[-1] - 45))
-        x, ld = cuda_sampler_int8.transform_q(tree, z0, cq)
-        torch.cuda.synchronize()
-        x_ref, ld_ref = cuda_sampler_int8.xla_forward_q(tree, z0p, cq)
-        x_ref = x_ref[..., :45]
-        check(x.shape == (BATCH, N_HYPO, 45) and ld.shape == (BATCH, N_HYPO),
-              f"int8 sampler: shapes {tuple(x.shape)} {tuple(ld.shape)}")
-        err_x = (x - x_ref).abs().max().item()
-        err_ld = (ld - ld_ref).abs().max().item()
-        tol_x = TOL["realnvp_sampler_int8"] * max(1.0, x_ref.abs().max().item())
-        tol_ld = TOL["realnvp_sampler_int8"] * max(1.0, ld_ref.abs().max().item())
-        check(err_x <= tol_x, f"int8 sampler: x max-abs error {err_x} > {tol_x}")
-        check(err_ld <= tol_ld, f"int8 sampler: logdet max-abs error {err_ld} > {tol_ld}")
-        times = ab_ms(torch, lambda: cuda_sampler_int8.transform_q(tree, z0, cq),
-                      lambda: cuda_sampler_int8.xla_forward_q(tree, z0p, cq))
-    k = tree.kernel
-    n_bytes = (2 * z0.numel() * 4 + BATCH * N_HYPO * 4 + cq.numel() * 4
-               + sum(t.numel() * t.element_size() for t in k))
-    macs = sampler_macs(BATCH * N_HYPO, 45, 512, cfg.n_layers)
+        for b, n in SAMPLER_INT8_SHAPES:
+            if b != BATCH:
+                feat = torch.randn((b, 512), generator=g, device=dev)
+            z0 = torch.randn((b, n, 45), generator=g, device=dev) * 0.8
+            cases.append(sampler_int8_case(torch, flow, tree, feat, z0))
     return {"name": "realnvp_sampler_int8",
             "source": "mhentropy_tpu_torch/csrc/realnvp_sampler_int8.cu",
-            "replaces": "mhentropy_tpu/flows/pallas_sampler_int8.py:381",
-            "max_abs_err": max(err_x, err_ld), "max_abs_err_x": err_x,
-            "max_abs_err_logdet": err_ld, "mean_abs_err_x": (x - x_ref).abs().mean().item(),
-            "tol": tol_x, **times, "library": None, **roofline(n_bytes, 2 * macs, "int8")}
+            "replaces": "mhentropy_tpu/flows/pallas_sampler_int8.py:381", **cases[0],
+            "library": None, "other_shapes": [side_line(c) for c in cases[1:]]}
 
 
 def stage_macs(b: int, g) -> int:

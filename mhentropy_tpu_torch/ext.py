@@ -41,8 +41,10 @@ _SIGNATURES = {
     "mhent_realnvp_sample_clusters": [_I] * 4,
     "mhent_lbs_blend": [_P] * 5 + [_I] * 3 + [_P],
     "mhent_lbs_vertex_tile": [_I, _I],
-    "mhent_stage1_int8_block": [_P] * 15 + [_I] * 4 + [_P],
-    "mhent_realnvp_sample_q": [_P] * 13 + [_I] * 6 + [_P],
+    "mhent_stage1_int8_block": [_P] * 18 + [_I] * 4 + [_P],
+    "mhent_realnvp_sample_q": [_P] * 13 + [_I] * 8 + [_P],
+    "mhent_realnvp_sample_q_smem": [_I] * 4,
+    "mhent_realnvp_sample_q_clusters": [_I] * 4,
     "mhent_realnvp_sample_f32": [_P] * 11 + [_I] * 8 + [_P],
     "mhent_realnvp_sample_f32_smem": [_I] * 4,
     "mhent_realnvp_sample_f32_clusters": [_I] * 4,

@@ -81,23 +81,25 @@ class Plan(NamedTuple):
     smem: int  # shared memory a CTA (bytes)
 
 
-def cluster_size(h: int) -> int | None:
-    """The largest cluster whose CTAs each take a slice of 16 to 64 hidden
-    columns in n16 tiles, or None if H has none."""
+def cluster_size(h: int, align: int = 16) -> int | None:
+    """The largest cluster whose CTAs each take a slice of `align` to 64
+    hidden columns in multiples of `align` (16: n16 tiles; the int8 kernel's
+    32: its k-step), or None if H has none."""
     for c in CLUSTERS:
-        if h % (16 * c) == 0 and h // c <= MAX_SLICE:
+        if h % (align * c) == 0 and h // c <= MAX_SLICE:
             return c
     return None
 
 
-def check_shape(h: int, dp: int) -> int:
+def check_shape(h: int, dp: int, align: int = 16) -> int:
     """The cluster size for hidden width h and padded width dp; raises on a
-    shape the kernels do not take."""
-    cluster = cluster_size(h)
-    ext.require(cluster is not None and dp <= MAX_DP and dp % 16 == 0,
+    shape the kernels do not take (`align`: as `cluster_size`'s, and of
+    dp)."""
+    cluster = cluster_size(h, align)
+    ext.require(cluster is not None and dp <= MAX_DP and dp % align == 0,
                 f"fused sampler: no kernel shape for hidden width {h} and padded "
-                f"width {dp}: H must be a multiple of 16 with H / C <= {MAX_SLICE} for "
-                f"a cluster C of 1, 2, 4 or 8, and Dp <= {MAX_DP}")
+                f"width {dp}: H must be a multiple of {align} with H / C <= {MAX_SLICE} "
+                f"for a cluster C of 1, 2, 4 or 8, and Dp <= {MAX_DP}")
     return cluster
 
 
@@ -111,14 +113,15 @@ def max_tile_rows(dp: int, h: int, cluster: int, smem) -> int:
     return rows
 
 
-def plan(rows: int, h: int, dp: int, wave_clusters: int, smem) -> Plan:
+def plan(rows: int, h: int, dp: int, wave_clusters: int, smem, align: int = 16) -> Plan:
     """Tile rows and cluster size for `rows` flattened rows: as few waves of
     `wave_clusters` clusters (the card's occupancy) as the largest tile
     allows, and in them tiles just large enough to cover the rows, so that
     one wave fills the card at small row counts (200 rows on an H100: 13
     tiles of 16) and few rows are padding. `smem` is the kernel's layout,
-    as `max_tile_rows` takes it."""
-    cluster = check_shape(h, dp)
+    as `max_tile_rows` takes it; `align` as `check_shape`'s (the int8
+    kernel's 32)."""
+    cluster = check_shape(h, dp, align)
     wave = max(1, wave_clusters)
     r_max = max_tile_rows(dp, h, cluster, smem)
     rounds = math.ceil(rows / (r_max * wave))

@@ -6,8 +6,11 @@ Port of mhentropy_tpu/flows/pallas_sampler_int8.py: `FlowQTree` :57,
 `_quant_layer` :211 with `xla_forward_q` :254 (the plain version),
 `sample_fused_q` :381 (the kernel route for CUDA tensors),
 `quantize_sampler` :445 and `shape_ok` :460. The kernel is
-`csrc/realnvp_sampler_int8.cu`; its header says what bounds it on the H100
-and how its design answers that.
+`csrc/realnvp_sampler_int8.cu` on the cluster skeleton of
+`csrc/realnvp_cluster.cuh`; its header says what bounds it on the H100 and
+how its design answers that. `launch_plan` sizes each launch's tiles with
+`cuda_sampler.plan` on the int8 kernel's layout and the card's occupancy,
+once a shape.
 
 The scheme is the JAX package's static PTQ: per-output-column int8 weights
 for the six GEMMs of a coupling layer, per-site activation scales from an
@@ -21,17 +24,17 @@ noise and the calibration noise come from the caller.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 from torch.nn import functional as F
 
 from mhentropy_tpu_torch import ext
-from mhentropy_tpu_torch.flows import realnvp
+from mhentropy_tpu_torch.flows import cuda_sampler, realnvp
 from mhentropy_tpu_torch.flows.priors import std_normal_logp
 
-D_ALIGN = 32  # the kernel's K step (mma m16n8k32)
-LANE = 128  # the JAX package's widest flow (shape_ok)
+D_ALIGN = 32  # the kernel's K step (mma m16n8k32): Dp and each CTA's slice of H
 _NAMES = ("s_w0", "s_e0", "s_w1", "s_e1", "s_w2", "s_e2", "s_b2",
           "t_w0", "t_e0", "t_w1", "t_e1", "t_w2", "t_e2", "t_b2")
 
@@ -236,6 +239,23 @@ def transform_q(tree: FlowQTree, z0: torch.Tensor, cprojq: torch.Tensor):
     return _transform_kernel(tree, z0, cprojq)
 
 
+@functools.lru_cache(maxsize=256)
+def launch_plan(device_index: int, rows: int, h: int, dp: int) -> cuda_sampler.Plan:
+    """`cuda_sampler.plan` for the int8 kernel on the card, once a shape:
+    its own shared-memory layout, and the clusters of its largest tile
+    resident at once (CUDA's occupancy query)."""
+    cluster = cuda_sampler.check_shape(h, dp, D_ALIGN)
+    lib = ext.load()
+    smem = lib.mhent_realnvp_sample_q_smem
+    with torch.cuda.device(device_index):
+        n = lib.mhent_realnvp_sample_q_clusters(cuda_sampler.max_tile_rows(dp, h, cluster, smem),
+                                                dp, h, cluster)
+    if n < 0:
+        ext.check(-n, "int8 sampler cluster occupancy")
+    ext.require(n > 0, f"int8 sampler: no cluster of {cluster} CTAs fits on the card")
+    return cuda_sampler.plan(rows, h, dp, n, smem, D_ALIGN)
+
+
 def _transform_kernel(tree: FlowQTree, z0: torch.Tensor, cprojq: torch.Tensor):
     global launches
     ext.require(z0.is_cuda, f"int8 sampler: unsupported device {z0.device}")
@@ -251,11 +271,12 @@ def _transform_kernel(tree: FlowQTree, z0: torch.Tensor, cprojq: torch.Tensor):
                 and cprojq.is_contiguous(),
                 f"int8 sampler: cprojq must be contiguous float32 {(n_layers, b, 4, h)}, "
                 f"got {tuple(cprojq.shape)} {cprojq.dtype}")
-    ext.require(dp % D_ALIGN == 0 and d <= dp and h % 32 == 0,
-                f"int8 sampler: Dp={dp} (D={d}) and H={h} do not fit the kernel")
+    ext.require(d <= dp, f"int8 sampler: z0 has D={d}, the tree Dp={dp}")
     for name, t in k._asdict().items():
-        ext.require(t.device == z0.device and t.is_contiguous(),
-                    f"int8 sampler: kernel operand {name} must be contiguous on {z0.device}")
+        ext.require(t.device == z0.device and t.is_contiguous() and t.data_ptr() % 16 == 0,
+                    f"int8 sampler: kernel operand {name} must be contiguous 16-byte-aligned "
+                    f"on {z0.device}")
+    pl = launch_plan(z0.device.index, b * r, h, dp)
     x = torch.empty_like(z0)
     logdet = torch.empty((b, r), dtype=torch.float32, device=z0.device)
     lib = ext.load()
@@ -263,7 +284,7 @@ def _transform_kernel(tree: FlowQTree, z0: torch.Tensor, cprojq: torch.Tensor):
         z0.data_ptr(), cprojq.data_ptr(), k.masks.data_ptr(), k.qm.data_ptr(),
         k.w0.data_ptr(), k.w1.data_ptr(), k.w2.data_ptr(), k.e0.data_ptr(),
         k.e1.data_ptr(), k.e2.data_ptr(), k.b2.data_ptr(), x.data_ptr(), logdet.data_ptr(),
-        b, r, d, dp, h, n_layers, ext.stream_of(z0))
+        b, r, d, dp, h, n_layers, pl.tile_rows, pl.cluster, ext.stream_of(z0))
     ext.check(err, "mhent_realnvp_sample_q")
     launches += 1
     return x, logdet
@@ -306,6 +327,10 @@ def quantize_sampler(flow: realnvp.RealNVP, feat_calib: torch.Tensor,
 
 
 def shape_ok(cfg: realnvp.RealNVPConfig) -> bool:
-    """The flows the quantised sampler takes: D within one 128-wide tile,
-    and not a per-joint flow (dim 2/3)."""
-    return cfg.dim <= LANE and cfg.dim not in (2, 3)
+    """The flows the quantised sampler takes: not a per-joint flow (dim
+    2/3), and a shape the kernel takes (`cuda_sampler.check_shape` with
+    D_ALIGN: D <= 64, H split over a cluster in multiples of 32). The JAX
+    package's gate is D <= 128; the bf16 kernel's D <= 64 bounds the float
+    draw the same way."""
+    return (cfg.dim <= cuda_sampler.MAX_DP and cfg.dim not in (2, 3)
+            and cuda_sampler.cluster_size(cfg.h_dim, D_ALIGN) is not None)

@@ -3,7 +3,9 @@
 Replaces mhentropy_tpu/models/stage1_int8.py::stage1_forward_q (:207;
 Pallas `_kernel` :46). The kernel is `csrc/stage1_int8.cu`, one launch per
 bottleneck; its header says what bounds it on the H100 and how its design
-answers that.
+answers that. Blocks 0 and 1 write their f32 output and that output
+quantised by the next block's input factor; the next block reads the s8
+copy for its convolutions and the f32 one for its residual.
 
 `pack` turns the calibrated stage-1 sites of `models/quant.prepare`
 (`layer1_{j}/conv{1,2,3}` and `layer1_0/downsample_conv`: HWIO int8
@@ -158,6 +160,10 @@ def _stage1_kernel(x: torch.Tensor, packed: list[Int8Block]) -> torch.Tensor:
     b, h, w, _ = x.shape
     lib = ext.load()
     stream = ext.stream_of(x)
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    xq = None  # the block input quantised (blocks 1-2), written by the block before
     for j, blk in enumerate(packed):
         cin = F1 if j == 0 else FOUT
         ext.require(blk.w1.shape == (F1, cin) and blk.w2.shape == (F1, 9 * F1)
@@ -170,16 +176,20 @@ def _stage1_kernel(x: torch.Tensor, packed: list[Int8Block]) -> torch.Tensor:
                   *((blk.sd, blk.bd) if j == 0 else ())):
             ext.require(t.dtype == torch.float32 and t.is_contiguous() and t.device == x.device,
                         "int8 stage 1: packed scales must be contiguous float32 on x's device")
+        last = j == len(packed) - 1
         out = torch.empty((b, h, w, FOUT), device=x.device,
-                          dtype=torch.bfloat16 if j == 2 else torch.float32)
+                          dtype=torch.bfloat16 if last else torch.float32)
+        out_q = None if last else torch.empty((b, h, w, FOUT), device=x.device,
+                                              dtype=torch.int8)
+        inv_next = None if last else packed[j + 1].inv_in
         wd, sd, bd = (blk.wd, blk.sd, blk.bd) if j == 0 else (None, None, None)
         err = lib.mhent_stage1_int8_block(
-            x.data_ptr(), blk.inv_in.data_ptr(), blk.w1.data_ptr(), blk.s1.data_ptr(),
-            blk.b1.data_ptr(), blk.w2.data_ptr(), blk.s2.data_ptr(), blk.b2.data_ptr(),
-            blk.w3.data_ptr(), blk.s3.data_ptr(), blk.b3.data_ptr(),
-            None if wd is None else wd.data_ptr(), None if sd is None else sd.data_ptr(),
-            None if bd is None else bd.data_ptr(), out.data_ptr(), b, h, w, j, stream)
+            x.data_ptr(), ptr(xq), ptr(blk.inv_in) if j == 0 else None, blk.w1.data_ptr(),
+            blk.s1.data_ptr(), blk.b1.data_ptr(), blk.w2.data_ptr(), blk.s2.data_ptr(),
+            blk.b2.data_ptr(), blk.w3.data_ptr(), blk.s3.data_ptr(), blk.b3.data_ptr(),
+            ptr(wd), ptr(sd), ptr(bd), ptr(inv_next), out.data_ptr(), ptr(out_q), b, h, w, j,
+            stream)
         ext.check(err, "mhent_stage1_int8_block")
         launches += 1
-        x = out
+        x, xq = out, out_q
     return x

@@ -88,6 +88,12 @@ def test_summarize_reads_busy_time_ops_and_gaps():
      "((anonymous namespace)::Params)", "flow sampler kernel"),
     ("void (anonymous namespace)::realnvp_sample_kernel<(anonymous namespace)::Tf32x3>"
      "((anonymous namespace)::Params)", "flow sampler kernel"),
+    ("void (anonymous namespace)::realnvp_sample_kernel<(anonymous namespace)::S8>"
+     "((anonymous namespace)::Params)", "flow sampler kernel"),
+    ("void (anonymous namespace)::bottleneck_q_kernel<true, false>"
+     "((anonymous namespace)::Params)", "stage-1 kernel"),
+    ("void (anonymous namespace)::bottleneck_q_kernel<false, true>"
+     "((anonymous namespace)::Params)", "stage-1 kernel"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32", "matmul (cuBLAS)"),
     ("Memcpy DtoD (Device -> Device)", "copy / fill"),
     ("void at::native::(anonymous namespace)::CatArrayBatchedCopy<float>", "copy / fill"),

@@ -165,6 +165,27 @@ def test_sampler_plan_shared_memory_is_the_kernels(dev, f32):
     assert fn(24, 48, 512, 8) == -1 and fn(16, 48, 1024, 8) == -1
 
 
+# The int8 kernel's launch plans that tests/test_torch_sampler_int8.py's
+# model of its layout gives at 15 clusters a wave (L = 12, H = 512, Dp = 64).
+CARD_PLANS_INT8 = {1600: (112, 8, 15, 171520), 3200: (112, 8, 29, 171520),
+                   12800: (128, 8, 100, 191048)}
+
+
+def test_int8_sampler_plan_shared_memory_is_the_kernels(dev):
+    """The card's int8 launch plans at the main path's row counts are the
+    CPU-tested plan's on the model of the kernel's layout; the C entry
+    refuses a tile past the largest (128 rows) and a shape it does not
+    take."""
+    from mhentropy_tpu_torch import ext
+
+    fn = ext.load().mhent_realnvp_sample_q_smem
+    for rows, want in CARD_PLANS_INT8.items():
+        assert tuple(cuda_sampler_int8.launch_plan(dev.index or 0, rows, 512, 64)) == want
+    assert all(0 < fn(r, 64, 512, 8) <= 227 * 1024 for r in range(16, 129, 16))
+    assert fn(144, 64, 512, 8) == -1
+    assert fn(24, 64, 512, 8) == -1 and fn(16, 48, 512, 8) == -1 and fn(16, 64, 1024, 8) == -1
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     w, b = stem_cuda.fold(torch.randn(64, 3, 7, 7), torch.ones(64), torch.zeros(64),
                           torch.zeros(64), torch.ones(64))
@@ -184,6 +205,27 @@ def test_stage1_entry_refuses_what_it_does_not_take(dev):
     for cin, wd in ((128, p), (256, p), (64, None), (64, p)):
         err = lib.mhent_stage1_block(p, p, p, p, p, p, wd, p, p, 1, 8, 16, cin, stream)
         assert (err == 0) == (cin == 64 and wd is not None), (cin, wd, err)
+    torch.cuda.synchronize()
+
+
+def test_stage1_int8_entry_refuses_what_it_does_not_take(dev):
+    """Block 0 needs its downsample and input factor, blocks 1-2 the
+    quantised input, blocks 0-1 the quantised output and the next block's
+    factor; without one the entry returns cudaErrorInvalidValue (1) and
+    launches nothing."""
+    from mhentropy_tpu_torch import ext
+
+    lib = ext.load()
+    p = torch.zeros(1 << 20, dtype=torch.int8, device=dev).data_ptr()
+    stream = ext.stream_of(torch.zeros(1, device=dev))
+    for block, missing in ((0, "wd"), (0, "inv_in"), (0, "out_q"), (1, "xq"), (1, "inv_next"),
+                           (2, "xq"), (3, None)):
+        ptrs = {k: (None if k == missing else p) for k in ("xq", "inv_in", "wd", "inv_next",
+                                                            "out_q")}
+        err = lib.mhent_stage1_int8_block(
+            p, ptrs["xq"], ptrs["inv_in"], p, p, p, p, p, p, p, p, p, ptrs["wd"], p, p,
+            ptrs["inv_next"], p, ptrs["out_q"], 1, 8, 16, block, stream)
+        assert err == 1, (block, missing, err)
     torch.cuda.synchronize()
 
 
@@ -249,8 +291,10 @@ def _int8_sites(g, dev):
     return sites
 
 
+# The serving request (B = 8), the bench step (B = 32) and the eval batch
+# (B = 64) at 64 x 64, the ProHMR 56 x 56, and ragged tiles.
 @pytest.mark.parametrize("shape", [(2, 16, 16, 64), (1, 13, 37, 64), (8, 64, 64, 64),
-                                   (8, 56, 56, 64)])
+                                   (8, 56, 56, 64), (32, 64, 64, 64), (64, 64, 64, 64)])
 def test_stage1_int8_kernel_matches_plain(dev, shape):
     """The integer products are exact and every epilogue op is rounded the
     same way in both, so the kernel's bf16 output is the plain f32 result
@@ -267,18 +311,28 @@ def test_stage1_int8_kernel_matches_plain(dev, shape):
     assert _within(out, ref, 1e-2)
 
 
-@pytest.mark.parametrize("b,n,h,steps", [(3, 37, 128, 2), (8, 200, 512, 6)])
+def _int8_flow(b, h, steps, dev, seed=5):
+    """An O(1) torch-default flow calibrated on its own trajectory, its
+    pre-scaled cond cache for b images, and the tree."""
+    torch.manual_seed(seed)
+    flow = realnvp.RealNVP(realnvp.RealNVPConfig(dim=45, cond_dim=64, h_dim=h, num_steps=steps))
+    flow = flow.to(dev).eval()
+    feat = torch.randn(b, 64, device=dev)
+    tree = cuda_sampler_int8.quantize_sampler(flow, feat, torch.randn(32 * b, 45, device=dev))
+    return tree, cuda_sampler_int8.cond_q(flow, tree, feat)
+
+
+# The B = 8 request, the bench step (32 x 100) and the eval batch (64 x
+# 200), and ragged row counts (3 x 37, 7 x 93), at H = 128 (a cluster of 4,
+# 32 columns a CTA) and 512 (8, 64).
+@pytest.mark.parametrize("h,steps", [(128, 2), (512, 6)])
+@pytest.mark.parametrize("b,n", [(3, 37), (7, 93), (8, 200), (32, 100), (64, 200)])
 def test_int8_sampler_kernel_matches_plain(dev, b, n, h, steps):
     """O(1) torch-default weights. The integer products are exact; exp and
     tanh may differ in the last ulp, which can move a requantised value by
     one step, so the bound is a share of the output's range."""
-    torch.manual_seed(5)
-    flow = realnvp.RealNVP(realnvp.RealNVPConfig(dim=45, cond_dim=64, h_dim=h, num_steps=steps))
-    flow = flow.to(dev).eval()
     with torch.inference_mode():
-        feat = torch.randn(b, 64, device=dev)
-        tree = cuda_sampler_int8.quantize_sampler(flow, feat, torch.randn(32 * b, 45, device=dev))
-        cq = cuda_sampler_int8.cond_q(flow, tree, feat)
+        tree, cq = _int8_flow(b, h, steps, dev)
         z0 = torch.randn(b, n, 45, device=dev) * 0.8
         before = cuda_sampler_int8.launches
         x, ld = cuda_sampler_int8.transform_q(tree, z0, cq)
@@ -286,6 +340,37 @@ def test_int8_sampler_kernel_matches_plain(dev, b, n, h, steps):
         x_ref, ld_ref = cuda_sampler_int8.xla_forward_q(
             tree, torch.nn.functional.pad(z0, (0, tree.masks.shape[-1] - 45)), cq)
     assert _within(x, x_ref[..., :45], 1e-2) and _within(ld, ld_ref, 1e-2)
+
+
+@pytest.mark.parametrize("kernel", ["int8_sampler", "stage1_int8"])
+def test_int8_kernels_repeat_bit_for_bit(dev, kernel):
+    """Each kernel twice on the same inputs gives the same bits: the integer
+    sums are exact and the partial sums go in rank order, so a difference
+    could only be a cluster or shared-memory race."""
+    with torch.inference_mode():
+        if kernel == "int8_sampler":
+            tree, cq = _int8_flow(64, 512, 6, dev)
+            z0 = torch.randn(64, 200, 45, device=dev) * 0.8
+            runs = [cuda_sampler_int8.transform_q(tree, z0, cq) for _ in range(2)]
+        else:
+            g = torch.Generator().manual_seed(4)
+            packed = stage1_int8_cuda.pack(_int8_sites(g, dev))
+            x = torch.randn((32, 64, 64, 64), generator=g).to(dev, torch.bfloat16)
+            runs = [(stage1_int8_cuda.stage1_forward_q(x, packed),) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("h", [1024, 48])
+def test_int8_sampler_raises_on_an_h_the_kernel_does_not_take(dev, h):
+    """H = 1024 would give each of 8 CTAs 128 columns (64 at most); 48 is no
+    multiple of the s8 k-step. Neither launches nor falls back."""
+    with torch.inference_mode():
+        tree, cq = _int8_flow(2, h, 1, dev)
+        before = cuda_sampler_int8.launches
+        with pytest.raises(ValueError, match="no kernel shape"):
+            cuda_sampler_int8.transform_q(tree, torch.randn(2, 5, 45, device=dev), cq)
+    assert cuda_sampler_int8.launches == before
 
 
 @pytest.mark.parametrize("shape,k,stride", [((2, 9, 7, 16), 3, 2), ((1, 3, 3, 24), 1, 1)])

@@ -20,7 +20,7 @@ from mhentropy_tpu.flows import pallas_sampler_int8 as jq8
 from mhentropy_tpu.flows import realnvp as jrealnvp
 from mhentropy_tpu_torch.convert import flowq_from_jax, realnvp_state_dict
 from mhentropy_tpu_torch.flows import cuda_sampler_int8 as q8
-from mhentropy_tpu_torch.flows import realnvp
+from mhentropy_tpu_torch.flows import cuda_sampler, realnvp
 
 D = 45
 
@@ -128,3 +128,69 @@ def test_shape_gate_and_kernel_layout():
     torch.testing.assert_close(k.w1[1, 0], tree.s_w1[1].T)
     torch.testing.assert_close(k.w2[0, 1], tree.t_w2[0].T)
     torch.testing.assert_close(k.e2[1, 1], tree.t_e2[1, 0])
+
+
+# The int8 kernel's launch plan (`cuda_sampler.plan` with the s8 alignment,
+# as `launch_plan` runs it), on a model of its shared-memory layout.
+SMEM_LIMIT = 227 * 1024  # shared memory a CTA may use on the H100
+WAVE = 15  # clusters of 8 an H100 holds at once (the occupancy query on the card)
+# The main path's row counts: the B = 8 request, the bench's int8_serving
+# step (B = 32, N = 100) and the int8 eval batch (B = 64, N = 200); and
+# ragged ones.
+PLAN_ROWS = [1600, 3200, 12800, 200, 1, 111, 651]
+
+
+def kernel_smem_q(tile_rows, dp, h, cluster):
+    """A model of the S8 kernel's shared memory a CTA (`Layout<S8>`, which
+    the C entry `mhent_realnvp_sample_q_smem` gives `plan` on the card): the
+    weight ring (2 slots of max(H / C, Dp) n rows of 256 + 16 bytes), the
+    full h1 (unpadded, swizzled), the h2 slice and xq (rows padded by 16
+    bytes), the s32 partial s- and t-net outputs, each row's image, x and
+    the log-det of the rows the CTA owns, and h1's arrival mbarrier; -1
+    where that does not fit."""
+    ns = h // cluster
+    ring = 2 * max(ns, dp) * (256 + 16)
+    per_row = h + (ns + 16) + (dp + 16) + 2 * dp * 4 + 4
+    n = ring + tile_rows * per_row + tile_rows // cluster * (dp * 4 + 4) + 8
+    return n if n <= SMEM_LIMIT else -1
+
+
+@pytest.mark.parametrize("rows", PLAN_ROWS)
+def test_int8_plan_covers_every_row_once_within_the_card_limits(rows):
+    """Tiles of whole m16 row tiles cover the rows exactly once, a CTA asks
+    for at most 227 KB of shared memory, and where one wave of clusters can
+    hold the rows it does."""
+    pl = cuda_sampler.plan(rows, 512, 64, WAVE, kernel_smem_q, q8.D_ALIGN)
+    assert pl.tile_rows % 16 == 0 and 16 <= pl.tile_rows <= 128 and pl.cluster == 8
+    assert (pl.tiles - 1) * pl.tile_rows < rows <= pl.tiles * pl.tile_rows
+    assert 0 < pl.smem == kernel_smem_q(pl.tile_rows, 64, 512, 8) <= SMEM_LIMIT
+    if rows <= WAVE * 128:
+        assert pl.tiles <= WAVE
+
+
+def test_int8_plan_at_the_main_path_row_counts():
+    """The largest tile (128 rows, 191,048 bytes a CTA) fits; 1,600 rows take
+    one wave of 15 tiles, 3,200 two waves, 12,800 seven of the largest."""
+    assert kernel_smem_q(128, 64, 512, 8) == 191048
+    for rows, want in ((1600, (112, 8, 15)), (3200, (112, 8, 29)), (12800, (128, 8, 100))):
+        assert cuda_sampler.plan(rows, 512, 64, WAVE, kernel_smem_q, q8.D_ALIGN)[:3] == want
+
+
+@pytest.mark.parametrize("h,cluster", [(512, 8), (256, 8), (128, 4), (64, 2), (32, 1)])
+def test_int8_cluster_gives_each_cta_whole_k_steps(h, cluster):
+    assert cuda_sampler.check_shape(h, 64, q8.D_ALIGN) == cluster and (h // cluster) % 32 == 0
+
+
+@pytest.mark.parametrize("h,dp", [(1024, 64), (48, 64), (16, 64), (512, 96), (512, 48)])
+def test_int8_plan_refuses_a_shape_the_kernel_does_not_take(h, dp):
+    with pytest.raises(ValueError, match="no kernel shape"):
+        cuda_sampler.plan(1600, h, dp, WAVE, kernel_smem_q, q8.D_ALIGN)
+
+
+def test_shape_gate_is_the_kernels():
+    """The quantised sampler takes the flows its kernel takes: D <= 64 and a
+    hidden width that splits over a cluster in 32-column slices."""
+    assert q8.shape_ok(realnvp.RealNVPConfig(dim=64, h_dim=512))
+    assert not q8.shape_ok(realnvp.RealNVPConfig(dim=65, h_dim=512))
+    assert not q8.shape_ok(realnvp.RealNVPConfig(dim=45, h_dim=1024))
+    assert not q8.shape_ok(realnvp.RealNVPConfig(dim=45, h_dim=48))
