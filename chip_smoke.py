@@ -23,7 +23,9 @@
    each with its launch plan; after the kernels of 8, the Glow sampler at B=32, N=100, D=144,
    H=1024, 4 layers (ProHMR) and at B=8, N=200, D=45, H=512 (the MHEnt
    Glow) on O(1) flows, x and the log-det each against its tolerance (max-
-   and mean-abs), with a torch.profiler breakdown of its launches; the
+   and mean-abs), with a torch.profiler breakdown of its launches and
+   torch.matmul on one (rows, H) x (H, H) bf16 product beside each shape
+   as its per-stage yardstick (`library_stage_graph_ms`); the
    opt-in int8 kernels on a He-initialised resnet50 with random BN,
    calibrated (int8_stem, pallas_mid, q_from 1) on 8 and on 32 random
    256 px images: the int8 stem (the bf16 stem kernel's graph time beside
@@ -661,12 +663,21 @@ def phase_glow_sampler(torch, dev):
             # Device time by kernel (the GEMMs, the coupling steps) of 10 calls.
             trace = trace_steps(torch, lambda: cgs.transform(packed, z0, ctx),
                                 times["ms"]["median"], n=10, top=6)
+            # The per-stage yardstick: torch.matmul on one of the call's 16
+            # (rows, H) x (H, H) bf16 products, timed here only.
+            a16 = torch.randn((b * n, s["h"]), generator=g, device=dev).to(torch.bfloat16)
+            w16 = packed.big[0, 0]
+            stage_ms = spread([cuda_ms(torch, graphed(torch, lambda: torch.matmul(a16, w16)))
+                               for _ in range(RUNS)])["median"]
+            print(f"glow {label}: torch.matmul ({b * n}, {s['h']}) x ({s['h']}, {s['h']}) "
+                  f"bf16 {stage_ms:.4f} ms graph", flush=True)
         n_weights = sum(t.numel() * t.element_size() for t in packed[:13])
         n_bytes = 2 * z0.numel() * 4 + b * n * 4 + ctx.numel() * 4 + n_weights
         entry = {"shape": {**s, "layers": 4}, "max_abs_err": max(err_x, err_ld),
                  "max_abs_err_x": err_x, "max_abs_err_logdet": err_ld,
                  "mean_abs_err_x": mean_x, "mean_abs_err_logdet": mean_ld, "tol": tol_x,
                  "tol_logdet": tol_ld, "tol_mean": GLOW_MEAN_TOL, **times, "trace": trace,
+                 "library_stage_graph_ms": stage_ms,
                  **roofline(n_bytes, 2 * glow_macs(b * n, d, s["h"], 4), "bf16")}
         if label == "prohmr":
             out = {"name": "glow_sampler", "source": "mhentropy_tpu_torch/csrc/glow_sampler.cu",
@@ -1957,7 +1968,8 @@ def main() -> int:
             for key in ("other_shape", "smpl_shape"):
                 if key in r:
                     print(f"  at {r[key]['shape']}: {json.dumps(r[key])}", flush=True)
-            for key in ("library_graph_ms", "stem_kernel_graph_ms", "stage1_kernel_graph_ms"):
+            for key in ("library_graph_ms", "library_stage_graph_ms", "stem_kernel_graph_ms",
+                        "stage1_kernel_graph_ms"):
                 if key in r:
                     print(f"  {key}: {r[key]:.4f}", flush=True)
             for side in r.get("other_shapes", []):
@@ -2046,6 +2058,7 @@ def main() -> int:
                                      "tol_mean", "bf16_exact_share", "err_share", "grad_rel_err",
                                      "other_shape", "smpl_shape", "prohmr_shapes", "trace",
                                      "other_shapes", "bf16_stem_graph_ms", "library_graph_ms",
+                                     "library_stage_graph_ms",
                                      "library_max_abs_diff", "ratio_bf16_over_s8_graph",
                                      "library", "stem_kernel_graph_ms", "stage1_kernel_graph_ms",
                                      "phase", "conv_rows", "plan", "bound_ops_type")

@@ -6,8 +6,8 @@ the H100 and how its design answers that. `lbs_blend` takes batch-last
 planes, as the JAX function does: W (V, J), R (3, 3, J, rows),
 t (3, J, rows), v_posed (3, V, rows) -> verts (3, V, rows), all f32. CPU
 tensors take `lbs_blend_plain`; CUDA tensors launch the kernel, and
-anything it does not take raises. The kernel tiles the vertices (1,024 a
-block), so it takes any V and row count, MANO's 778 and SMPL's 6,890
+anything it does not take raises. The kernel tiles the vertices (up to
+256 a block), so it takes any V and row count, MANO's 778 and SMPL's 6,890
 vertices alike, and J up to 150 (the C entry point's vertex tile says
 what fits). No row-count gate: the TPU's 8M-element gate was measured on
 the TPU.

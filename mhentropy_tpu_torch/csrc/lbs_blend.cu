@@ -16,26 +16,36 @@
 // nine (V, rows) per-vertex-rotation planes and three translation planes
 // in device memory first, about five times the bytes.
 //
-// Design: block (x, y) owns kTr = 32 rows (b) and one tile of kVt = 1024
-// vertices, as the JAX kernel tiles vertices (lbs_pallas.py:85-92,
-// v_tile = min(V, 1024)). It stages its tile's W rows (Vt x J floats; 50 KB
-// for MANO's 778 x 16, 98 KB for a SMPL tile of 1024 x 24) and its rows'
-// R and t (12 x J x 32 floats) in shared memory once. MANO stays one tile
-// per row block, so its grid and shared memory are what they were before
-// the tiling; SMPL (V = 6,890) takes 7 tiles, each re-staging its rows'
-// R and t (37 KB) from L2. Each thread owns one row (threadIdx.x, so the
-// 32 lanes of a warp read and write 32 consecutive rows: every v_posed load
-// and verts store is one 128-byte line) and kVpt vertices at a time; it
-// forms the 12 per-vertex coefficients for its vertices in registers from
-// the J joints (each R/t value read from shared memory once and applied to
-// kVpt vertices, each W value a warp-wide broadcast) and never writes them
-// out. Plain f32 FMAs throughout, no TF32: the JAX kernel runs
-// Precision.HIGHEST. Any V and row count (the ragged last row tile and
-// vertex tile are masked). J up to 150: the entry point shrinks the vertex
-// tile until W's rows and the rows' R and t fit the 227 KB a block may use
-// (from J = 42 on, below 1024 vertices), and returns cudaErrorInvalidValue
-// when not one vertex fits (J > 150); the wrapper asks
-// mhent_lbs_vertex_tile first and raises with the shapes.
+// Design: the same sum, factored per joint so that a thread's registers
+// hold 3 accumulators a vertex, not A's and T's 12:
+//
+//   verts[r](v, b) = sum_j W[v, j] (t[r, j, b] + sum_c R[r, c, j, b] v_posed[c, v, b])
+//
+// 12 FMAs a (vertex, row, joint), as the two-step form. Block (x, y) owns
+// 32 rows and a tile of up to 512 vertices (the JAX kernel tiles vertices
+// too). It stages its rows' R and t in shared memory as [j][row][12] (a
+// row's 12 values of a joint are three 16-byte loads) and the tile's W rows
+// as [v][j], the pitch J rounded up to even and to 2 mod 4 (one 8-byte load
+// gives a vertex two joints' weights), eight loads a thread in flight. A
+// warp is 16 rows x 2 vertex halves: lanes i and i + 16 share row i, so each
+// R/t load has 16 distinct addresses (2 wavefronts, not 4), and the halves'
+// W rows, kVg vertices apart, fall in different banks. A thread carries
+// kVg = 8 vertices through each pass over the joints: per joint 3 16-byte
+// loads (R/t) and 4 8-byte loads (W) for 96 FMAs, 10 shared-memory
+// wavefronts a warp against 24 FMA cycles, so the FMAs, not the shared
+// loads, set the pace. Each pass's v_posed loads are issued before its
+// joint loop; the SM's other warps' FMAs cover them (a one-pass-ahead
+// prefetch, 24 registers more, measured 2 % slower at SMPL, and four lanes
+// a row 3 % slower). 88 KB of shared memory at SMPL's tile (52 KB W, 36 KB
+// R and t): two blocks (16 warps) an SM. Plain f32 FMAs throughout, no
+// TF32: the JAX kernel runs Precision.HIGHEST (a 3xTF32 mma.sync version of
+// the W R product ran slower: it splits every R/t value once a vertex
+// tile). Any V and row count (the ragged last row block and vertex tile are
+// masked). J up to 150: the entry point shrinks the vertex tile until W's
+// rows and the rows' R and t fit the 227 KB a block may use (at SMPL's V
+// from J = 67 on), and returns cudaErrorInvalidValue when not one vertex
+// fits (J > 150); the wrapper asks mhent_lbs_vertex_tile first and raises
+// with the shapes.
 
 #include <cuda_runtime.h>
 
@@ -43,100 +53,163 @@
 
 namespace {
 
-constexpr int kTr = 32;      // rows per block (one warp's lanes)
-constexpr int kTy = 8;       // warps per block, along vertices
-constexpr int kVpt = 4;      // vertices per thread per pass
-constexpr int kVt = 1024;    // vertices per tile (blockIdx.y)
+constexpr int kTr = 32;      // rows per block
+constexpr int kWarps = 8;    // warps per block: two row halves of 16 x four along vertices
+constexpr int kVg = 8;       // vertices a thread carries through a pass
+constexpr int kVt = 512;     // vertices per tile at most (blockIdx.y)
+constexpr int kStage = 8;    // staging loads a thread keeps in flight
 constexpr size_t kMaxSmem = 227 * 1024;
 
 struct Params {
-  const float* w;        // (V, J)
-  const float* rot;      // (3, 3, J, R)
-  const float* trans;    // (3, J, R)
+  const float* __restrict__ w;      // (V, J)
+  const float* __restrict__ rot;    // (3, 3, J, R)
+  const float* __restrict__ trans;  // (3, J, R)
   const float* vposed;   // (3, V, R)
   float* out;            // (3, V, R)
   int V, J, R, Vt;  // Vt: vertices per tile
 };
 
-size_t smem_bytes(int Vt, int J) {
-  return sizeof(float) * ((size_t)Vt * J + (size_t)12 * J * kTr);
+// W's row pitch in shared memory: J rounded up to even (8-byte loads of two
+// joints), then to 2 mod 4, so that the two half-warps' rows, kVg apart,
+// fall in different banks.
+__host__ __device__ int w_pitch(int J) {
+  const int j2 = (J + 1) & ~1;
+  return j2 % 4 == 2 ? j2 : j2 + 2;
 }
 
-__global__ void __launch_bounds__(kTr * kTy) lbs_blend_kernel(Params p) {
-  extern __shared__ float smem[];
-  const int J = p.J, R = p.R;
-  const int vbase = blockIdx.y * p.Vt;     // first vertex of this tile
-  const int V = min(p.Vt, p.V - vbase);    // vertices in this tile
-  float* s_w = smem;                       // (V, J): W[vbase:vbase + V]
-  float* s_rt = s_w + (size_t)p.Vt * J;    // (12, J, kTr): 9 rotation + 3 translation planes
-  const int r0 = blockIdx.x * kTr;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTr + tx;
-  const int nthreads = kTr * kTy;
+// Floats before the R/t region: the W tile, rounded up to 16 bytes.
+__host__ __device__ size_t w_floats(int Vt, int J) {
+  return ((size_t)Vt * w_pitch(J) + 3) & ~(size_t)3;
+}
 
-  for (int e = tid; e < V * J; e += nthreads) s_w[e] = p.w[(size_t)vbase * J + e];
-  for (int e = tid; e < 12 * J * kTr; e += nthreads) {
-    const int col = e % kTr, pj = e / kTr;  // pj = plane * J + j
-    const int plane = pj / J, j = pj % J;
-    const int r = r0 + col;
-    float v = 0.0f;
-    if (r < R)
-      v = plane < 9 ? p.rot[((size_t)plane * J + j) * R + r]
-                    : p.trans[((size_t)(plane - 9) * J + j) * R + r];
-    s_rt[e] = v;
+size_t smem_bytes(int Vt, int J) {
+  return sizeof(float) * (w_floats(Vt, J) + (size_t)12 * J * kTr);
+}
+
+__global__ void __launch_bounds__(32 * kWarps, 2) lbs_blend_kernel(Params p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int J = p.J, P = w_pitch(J), R = p.R;
+  const int vbase = blockIdx.y * p.Vt;     // first vertex of this tile
+  const int nv = min(p.Vt, p.V - vbase);   // vertices in this tile
+  float* s_w = smem;                       // (nv, P): W[vbase + v], 0 past J
+  float* s_rt = smem + w_floats(p.Vt, J);  // (J, kTr, 12): R row-major, then t
+  const int r0 = blockIdx.x * kTr;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int nthreads = 32 * kWarps;
+
+  // Staging: kStage loads a thread in flight before their stores.
+  const int n_w = nv * P, n_rt = 12 * J * kTr;
+  for (int e0 = tid; e0 < n_w; e0 += nthreads * kStage) {
+    float v[kStage];
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int e = e0 + u * nthreads, v_ = e / P, j = e % P;
+      v[u] = e < n_w && j < J ? __ldg(p.w + (size_t)(vbase + v_) * J + j) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kStage; ++u)
+      if (e0 + u * nthreads < n_w) s_w[e0 + u * nthreads] = v[u];
+  }
+  for (int e0 = tid; e0 < n_rt; e0 += nthreads * kStage) {
+    float v[kStage];
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int e = e0 + u * nthreads;
+      const int row = e % kTr, qj = e / kTr;  // qj = q * J + j
+      const int q = qj / J, j = qj % J;
+      const int r = r0 + row;
+      v[u] = 0.0f;
+      if (e < n_rt && r < R)
+        v[u] = q < 9 ? __ldg(p.rot + ((size_t)q * J + j) * R + r)
+                     : __ldg(p.trans + ((size_t)(q - 9) * J + j) * R + r);
+    }
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int e = e0 + u * nthreads;
+      if (e < n_rt) {
+        const int row = e % kTr, qj = e / kTr;
+        s_rt[((size_t)(qj % J) * kTr + row) * 12 + qj / J] = v[u];
+      }
+    }
   }
   __syncthreads();
 
-  const int r = r0 + tx;
-  if (r >= R) return;
-  const size_t plane_stride = (size_t)p.V * R;
-  for (int v0 = ty * kVpt; v0 < V; v0 += kTy * kVpt) {
-    float acc[kVpt][12];
+  // Lane (h, i) of warp w: row half w / 4, row i of it, vertex half h of
+  // each pass of 2 kVg vertices; the warp's passes are w % 4, + 4, ...
+  const int half = lane / 16, row = (warp / 4) * 16 + lane % 16, r = r0 + row;
+  const bool row_ok = r < R;
+  const size_t plane = (size_t)p.V * R;
+  const float4* rt_row = reinterpret_cast<const float4*>(s_rt) + row * 3;
+  constexpr int kPassV = 2 * kVg, kSlots = kWarps / 2;
+  const int n_pass = (nv + kPassV - 1) / kPassV;
+
+  for (int pass = warp % kSlots; pass < n_pass; pass += kSlots) {
+    const int v0 = pass * kPassV + half * kVg;  // this lane's first vertex
+    float vp[kVg][3], acc[kVg][3];  // v_posed of this lane's vertices, in flight now
 #pragma unroll
-    for (int k = 0; k < kVpt; ++k)
+    for (int k = 0; k < kVg; ++k) {
+      const int v = v0 + k;
+      const bool ok = row_ok && v < nv;
+      const size_t idx = (size_t)(vbase + v) * R + r;
 #pragma unroll
-      for (int q = 0; q < 12; ++q) acc[k][q] = 0.0f;
-    for (int j = 0; j < J; ++j) {
-      float rt[12];
-#pragma unroll
-      for (int q = 0; q < 12; ++q) rt[q] = s_rt[(q * J + j) * kTr + tx];
-#pragma unroll
-      for (int k = 0; k < kVpt; ++k) {
-        const int v = v0 + k;
-        const float wv = v < V ? s_w[v * J + j] : 0.0f;
-#pragma unroll
-        for (int q = 0; q < 12; ++q) acc[k][q] = fmaf(wv, rt[q], acc[k][q]);
+      for (int c = 0; c < 3; ++c) {
+        vp[k][c] = ok ? p.vposed[c * plane + idx] : 0.0f;
+        acc[k][c] = 0.0f;
       }
     }
+
+    for (int jb = 0; jb < J; jb += 2) {
+      float2 w2[kVg];
 #pragma unroll
-    for (int k = 0; k < kVpt; ++k) {
-      const int v = v0 + k;
-      if (v >= V) break;
-      const size_t idx = (size_t)(vbase + v) * R + r;
-      const float p0 = p.vposed[idx], p1 = p.vposed[plane_stride + idx],
-                  p2 = p.vposed[2 * plane_stride + idx];
+      for (int k = 0; k < kVg; ++k)
+        w2[k] = v0 + k < nv ? *reinterpret_cast<const float2*>(s_w + (v0 + k) * P + jb)
+                            : make_float2(0.0f, 0.0f);
 #pragma unroll
-      for (int row = 0; row < 3; ++row) {
-        float o = acc[k][9 + row];
-        o = fmaf(acc[k][row * 3 + 0], p0, o);
-        o = fmaf(acc[k][row * 3 + 1], p1, o);
-        o = fmaf(acc[k][row * 3 + 2], p2, o);
-        p.out[row * plane_stride + idx] = o;
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = jb + jj;
+        if (j >= J) break;
+        // a = R00 R01 R02 R10, b = R11 R12 R20 R21, c = R22 t0 t1 t2
+        const float4 a = rt_row[j * kTr * 3], b = rt_row[j * kTr * 3 + 1],
+                     c = rt_row[j * kTr * 3 + 2];
+#pragma unroll
+        for (int k = 0; k < kVg; ++k) {
+          const float wv = jj == 0 ? w2[k].x : w2[k].y;
+          const float x = vp[k][0], y = vp[k][1], z = vp[k][2];
+          const float u0 = fmaf(a.x, x, fmaf(a.y, y, fmaf(a.z, z, c.y)));
+          const float u1 = fmaf(a.w, x, fmaf(b.x, y, fmaf(b.y, z, c.z)));
+          const float u2 = fmaf(b.z, x, fmaf(b.w, y, fmaf(c.x, z, c.w)));
+          acc[k][0] = fmaf(wv, u0, acc[k][0]);
+          acc[k][1] = fmaf(wv, u1, acc[k][1]);
+          acc[k][2] = fmaf(wv, u2, acc[k][2]);
+        }
       }
+    }
+    if (!row_ok) continue;
+#pragma unroll
+    for (int k = 0; k < kVg; ++k) {
+      const int v = v0 + k;
+      if (v >= nv) break;
+      const size_t idx = (size_t)(vbase + v) * R + r;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) p.out[c * plane + idx] = acc[k][c];
     }
   }
 }
 
 }  // namespace
 
-// The vertex tile: min(V, kVt, the most whose staging fits); below 1 when
-// not even one vertex fits beside the rows' R and t. The wrapper asks it
-// before a launch, so the shared-memory limit lives here only.
+// The vertex tile: the tile count of at most kVt vertices each, evened out
+// and rounded up to a pass (2 kVg), capped by the most whose staging fits; below 1
+// when not even one vertex fits beside the rows' R and t. The wrapper asks
+// it before a launch, so the shared-memory limit lives here only.
 extern "C" int mhent_lbs_vertex_tile(int V, int J) {
   if (V < 1 || J < 1) return 0;
-  const long fit = ((long)(kMaxSmem / sizeof(float)) - 12L * J * kTr) / J;
-  long vt = V < kVt ? V : kVt;
-  return (int)(vt < fit ? vt : fit);
+  const int tiles = (V + kVt - 1) / kVt;
+  long vt = ((V + tiles - 1) / tiles + 2 * kVg - 1) / (2 * kVg) * (2 * kVg);
+  if (vt > V) vt = V;
+  while (vt > 0 && smem_bytes((int)vt, J) > kMaxSmem) --vt;
+  return (int)vt;
 }
 
 extern "C" int mhent_lbs_blend(const void* w, const void* rot, const void* trans,
@@ -159,8 +232,7 @@ extern "C" int mhent_lbs_blend(const void* w, const void* rot, const void* trans
   cudaError_t err = cudaFuncSetAttribute(
       lbs_blend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 block(kTr, kTy);
   const dim3 grid((R + kTr - 1) / kTr, (V + vt - 1) / vt);
-  lbs_blend_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  lbs_blend_kernel<<<grid, 32 * kWarps, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

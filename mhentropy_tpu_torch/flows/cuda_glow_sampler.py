@@ -10,7 +10,10 @@ how its design answers that. Here:
   identity-split initial matmul scattered to full-D rows, the final Linear
   de-interleaved into shift and scale matrices at the transformed lanes,
   the LU inverse precomputed in f32 per layer, the actnorm as
-  exp(-log_scale), D padded to a multiple of 16.
+  exp(-log_scale), D padded to a multiple of 16. Beside those (in, out)
+  weights, which `transform_plain` reads, it keeps the kernel's K-major
+  copies (out, in) that its TMA loads feed to wgmma: `big_t`, `w_in_t`
+  and `w_ss_t` ([W_shift | W_scale] transposed).
 * `pack_context` is `pack_glow_context` :149: the per-image context
   projections, plain matmuls outside the kernel as in JAX, as
   (L, 3, B, H) [initial, block-0 gate, block-1 gate] per reversed layer.
@@ -42,6 +45,7 @@ from mhentropy_tpu_torch.flows.priors import std_normal_logp
 launches = 0
 D_ALIGN = 16
 MAX_DP = 256
+H_ALIGN = 64  # the kernel's 64-deep stages and 64-column epilogue groups
 
 
 class Packed(NamedTuple):
@@ -60,6 +64,9 @@ class Packed(NamedTuple):
     an_shift: torch.Tensor  # (L, Dp)
     an_scale: torch.Tensor  # (L, Dp) exp(-log_scale), 1 on the padding
     mask_tr: torch.Tensor  # (L, Dp) 1 at the transformed lanes
+    big_t: torch.Tensor  # (L, 4, H, H) big's K-major copy: (out, in)
+    w_in_t: torch.Tensor  # (L, H, Dp) w_in's: (out, in)
+    w_ss_t: torch.Tensor  # (L, 2 Dp, H) [w_shift | w_scale]'s: (out, in)
     ld_const: torch.Tensor  # () sum of the LU log-diagonals and actnorm log-scales
     dim: int
 
@@ -83,7 +90,7 @@ def pack(flow: glow.ConditionalGlow, dtype=torch.bfloat16) -> Packed:
     d, h = cfg.features, cfg.hidden
     dp = _round_up(d, D_ALIGN)
     dev = flow.step(0)[0].log_scale.device
-    fields = {k: [] for k in Packed._fields[:13]}
+    fields = {k: [] for k in Packed._fields[:13]}  # the (in, out) ones; K-major copies below
     ld_const = torch.zeros((), dtype=torch.float32, device=dev)
     for i in reversed(range(cfg.num_layers)):
         an, lin, cpl = flow.step(i)
@@ -119,7 +126,10 @@ def pack(flow: glow.ConditionalGlow, dtype=torch.bfloat16) -> Packed:
     out = {k: torch.stack(v) for k, v in fields.items()}
     out["big"] = out["big"].view(n_layers, 4, h, h)
     out["b_big"] = out["b_big"].view(n_layers, 4, h)
-    for k in ("big", "w_in", "w_shift", "w_scale", "lu_inv_t"):
+    out["big_t"] = out["big"].transpose(-1, -2)
+    out["w_in_t"] = out["w_in"].transpose(-1, -2)
+    out["w_ss_t"] = torch.cat([out["w_shift"], out["w_scale"]], dim=-1).transpose(-1, -2)
+    for k in ("big", "w_in", "w_shift", "w_scale", "lu_inv_t", "big_t", "w_in_t", "w_ss_t"):
         out[k] = out[k].to(dtype)
     return Packed(**{k: v.contiguous() for k, v in out.items()}, ld_const=ld_const, dim=d)
 
@@ -189,12 +199,13 @@ def _transform_kernel(packed: Packed, z0: torch.Tensor, ctx: torch.Tensor):
     ext.require(d == packed.dim and dp % D_ALIGN == 0 and d <= dp <= MAX_DP,
                 f"glow sampler: z0 has D={d}, the flow {packed.dim} padded to {dp} "
                 f"(a multiple of {D_ALIGN}, at most {MAX_DP})")
-    ext.require(h % 64 == 0, f"glow sampler: hidden width {h} is not a multiple of 64")
+    ext.require(h % H_ALIGN == 0,
+                f"glow sampler: hidden width {h} is not a multiple of {H_ALIGN}")
     ext.require(ctx.shape == (n_layers, 3, b, h) and ctx.dtype == torch.float32
                 and ctx.is_contiguous(),
                 f"glow sampler: ctx must be contiguous float32 {(n_layers, 3, b, h)}, got "
                 f"{tuple(ctx.shape)} {ctx.dtype}")
-    for name in ("big", "w_in", "w_shift", "w_scale", "lu_inv_t"):
+    for name in ("big_t", "w_in_t", "w_ss_t", "lu_inv_t"):
         t = getattr(packed, name)
         ext.require(t.dtype == torch.bfloat16 and t.is_contiguous(),
                     f"glow sampler: packed {name} must be contiguous bfloat16, not {t.dtype}")
@@ -203,23 +214,27 @@ def _transform_kernel(packed: Packed, z0: torch.Tensor, ctx: torch.Tensor):
         t = getattr(packed, name)
         ext.require(t.dtype == torch.float32 and t.is_contiguous(),
                     f"glow sampler: packed {name} must be contiguous float32")
-    for t in (ctx, *packed[:13]):
+    args = (packed.big_t, packed.b_big, packed.w_in_t, packed.b_in, packed.w_ss_t,
+            packed.b_shift, packed.b_scale, packed.lu_inv_t, packed.lu_bias, packed.an_shift,
+            packed.an_scale, packed.mask_tr)
+    for t in (ctx, *args):
         ext.require(t.device == z0.device, "glow sampler: tensors on different devices")
     rows = b * n
     x = torch.empty_like(z0)
     ld = torch.empty((b, n), dtype=torch.float32, device=z0.device)
-    # Scratch: the f32 state and its bf16 copy, the f32 residual stream and
-    # the two bf16 operand copies of the hidden products.
+    # Scratch: the f32 state and its bf16 copy, the f32 residual stream, the
+    # two bf16 operand copies of the hidden products and the blocks' gates.
     xs = torch.empty((rows, dp), dtype=torch.float32, device=z0.device)
     x16 = torch.empty((rows, dp), dtype=torch.bfloat16, device=z0.device)
     temps = torch.empty((rows, h), dtype=torch.float32, device=z0.device)
     a16 = torch.empty((rows, h), dtype=torch.bfloat16, device=z0.device)
     t16 = torch.empty((rows, h), dtype=torch.bfloat16, device=z0.device)
+    gates = torch.empty((n_layers, 2, b, h), dtype=torch.float32, device=z0.device)
     lib = ext.load()
     err = lib.mhent_glow_sample(
-        z0.data_ptr(), ctx.data_ptr(), *(t.data_ptr() for t in packed[:13]), x.data_ptr(),
+        z0.data_ptr(), ctx.data_ptr(), *(t.data_ptr() for t in args), x.data_ptr(),
         ld.data_ptr(), xs.data_ptr(), x16.data_ptr(), temps.data_ptr(), a16.data_ptr(),
-        t16.data_ptr(), b, n, d, dp, h, n_layers, ext.stream_of(z0))
+        t16.data_ptr(), gates.data_ptr(), b, n, d, dp, h, n_layers, ext.stream_of(z0))
     ext.check(err, "mhent_glow_sample")
     launches += 1
     return x, ld

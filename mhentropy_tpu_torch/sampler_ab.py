@@ -1,13 +1,15 @@
-"""Times the RealNVP sampler kernels and int8 stage 1 of one checkout of the
-port at the main path's shapes, so that two trees can be compared on one
-card in turns.
+"""Times the RealNVP sampler kernels, int8 stage 1, the Glow sampler and the
+LBS blend of one checkout of the port at the main path's shapes, so that two
+trees can be compared on one card in turns.
 
-    python mhentropy_tpu_torch/sampler_ab.py [--root DIR] [--label NAME] [--out FILE] [--tiles]
+    python mhentropy_tpu_torch/sampler_ab.py [--root DIR] [--label NAME] [--out FILE]
+        [--tiles] [--kinds realnvp,stage1,glow,lbs]
 
 `--root` is the checkout whose `mhentropy_tpu_torch` is imported (default:
 the one holding this file), so the same script times an older tree's
 kernels through that tree's own wrappers (`cuda_sampler.pack`, `transform`,
-`cuda_sampler_int8.transform_q`, `stage1_int8_cuda.stage1_forward_q`): run
+`cuda_sampler_int8.transform_q`, `stage1_int8_cuda.stage1_forward_q`,
+`cuda_glow_sampler.pack` / `pack_context` / `transform`, `lbs_cuda.lbs_blend`): run
 it on the parent tree and on this one in turns (parent, this, this, parent)
 within one call. Each shape prints one JSON line: the kernel's median ms of
 RUNS windows as CUDA-graph replays and eagerly, with [min, max], its
@@ -18,7 +20,14 @@ the f32 draw at 64 x 10 and 7 x 93, the int8 draw at 8 x 200, 32 x 100 and
 64 x 200 (an O(1) flow calibrated on its own trajectory); int8 stage 1 on
 random int8 sites at (B, 64, 64, 64) for B = 8, 32, 64 and (B, 56, 56, 64)
 for B = 8, 32, and the bf16 stage-1 kernel on a He-initialised stage 1 with
-random BN at the same shapes (its yardstick). Runs only on a CUDA card. It
+random BN at the same shapes (its yardstick); the Glow sampler at
+GLOW_SHAPES (ProHMR's 3,200 rows at D = 144, H = 1,024 and the MHEnt Glow's
+1,600 rows at D = 45, H = 512, 4 layers, an O(1) flow), with `torch.matmul`
+on one (rows, H) x (H, H) bf16 product beside each as its per-stage
+yardstick; the LBS blend at LBS_SHAPES (MANO's V = 778, J = 16 at 12,800
+rows and SMPL's V = 6,890, J = 24 at 3,200) on random skinning weights and
+transforms. `--kinds` picks the families (default: all). Runs only on a
+CUDA card. It
 times with the tree's own `profile_step` helpers (`cuda_ms`, `graphed`,
 `card_line`), so both trees need that module. `--tiles` (this tree only)
 also times the int8 draw at every tile size its kernel takes, through the C
@@ -39,6 +48,13 @@ BF16_SHAPES = ((1, 200), (8, 200), (32, 100), (64, 200))
 F32_SHAPES = ((64, 10), (7, 93))
 INT8_SHAPES = ((8, 200), (32, 100), (64, 200))
 STAGE1_INT8_SHAPES = ((8, 64), (32, 64), (64, 64), (8, 56), (32, 56))  # (B, post-stem side)
+# chip_smoke.py's GLOW_SHAPES: ProHMR's (bench_prohmr's B = 32, N = 100) and
+# the MHEnt Glow regressor's.
+GLOW_SHAPES = {"prohmr": {"d": 144, "h": 1024, "c": 2048, "b": 32, "n": 100},
+               "mhent_glow": {"d": 45, "h": 512, "c": 512, "b": 8, "n": 200}}
+LBS_SHAPES = {"mano": {"v": 778, "j": 16, "rows": 12800},  # eval: N = 200, B = 64
+              "smpl": {"v": 6890, "j": 24, "rows": 3200}}  # ProHMR: N = 100, B = 32
+KINDS = ("realnvp", "stage1", "glow", "lbs")
 RUNS = 3
 WINDOW_S = 0.5
 
@@ -88,13 +104,156 @@ def int8_tiles(torch, ext, tree, cq, z0, timed):
               (b, n), b * n, call, None)
 
 
+def realnvp_cases(torch, timed, dev, tiles: bool) -> None:
+    """The bf16, f32 and int8 RealNVP draws at their shapes."""
+    from mhentropy_tpu_torch import ext
+    from mhentropy_tpu_torch.flows import cuda_sampler, cuda_sampler_int8, realnvp
+
+    torch.manual_seed(3)
+    flow = realnvp.RealNVP(realnvp.RealNVPConfig(dim=45, cond_dim=512, h_dim=512,
+                                                 num_steps=6)).to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(3)
+    for dtype, shapes in ((torch.bfloat16, BF16_SHAPES), (torch.float32, F32_SHAPES)):
+        packed = cuda_sampler.pack(flow, dtype=dtype)
+        for b, n in shapes:
+            with torch.inference_mode():
+                feat = torch.randn((b, 512), generator=g, device=dev)
+                z0 = torch.randn((b, n, 45), generator=g, device=dev) * 0.8
+                cproj = realnvp.cond_cache(flow, feat).contiguous()
+                x, ld = cuda_sampler.transform(packed, z0, cproj)
+                x_ref, ld_ref = cuda_sampler.transform_plain(packed, z0, cproj)
+                err = max((x - x_ref).abs().max().item(), (ld - ld_ref).abs().max().item())
+                timed(str(dtype).removeprefix("torch."), (b, n), b * n,
+                      lambda: cuda_sampler.transform(packed, z0, cproj), err)
+
+    with torch.inference_mode():
+        feat = torch.randn((8, 512), generator=g, device=dev)
+        tree = cuda_sampler_int8.quantize_sampler(
+            flow, feat, torch.randn((32 * 8, 45), generator=g, device=dev) * 0.8)
+        for b, n in INT8_SHAPES:
+            feat = torch.randn((b, 512), generator=g, device=dev)
+            cq = cuda_sampler_int8.cond_q(flow, tree, feat)
+            z0 = torch.randn((b, n, 45), generator=g, device=dev) * 0.8
+            x, ld = cuda_sampler_int8.transform_q(tree, z0, cq)
+            z0p = torch.nn.functional.pad(z0, (0, tree.masks.shape[-1] - 45))
+            x_ref, ld_ref = cuda_sampler_int8.xla_forward_q(tree, z0p, cq)
+            err = max((x - x_ref[..., :45]).abs().max().item(),
+                      (ld - ld_ref).abs().max().item())
+            timed("int8", (b, n), b * n,
+                  lambda: cuda_sampler_int8.transform_q(tree, z0, cq), err)
+            if tiles:
+                int8_tiles(torch, ext, tree, cq, z0, timed)
+
+
+def stage1_cases(torch, timed, dev) -> None:
+    """int8 stage 1 on random sites and the bf16 stage-1 kernel on a
+    He-initialised stage 1 with random BN (its yardstick), at their shapes."""
+    from mhentropy_tpu_torch.models import resnet, stage1_cuda, stage1_int8_cuda
+
+    gs = torch.Generator().manual_seed(4)
+    layer1 = torch.nn.Sequential(resnet.Bottleneck(64, 64), resnet.Bottleneck(256, 64),
+                                 resnet.Bottleneck(256, 64))
+    with torch.no_grad():
+        for m in layer1.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gs)
+                               * (2.0 / m.weight[0].numel()) ** 0.5)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.copy_(1.0 + 0.2 * torch.randn(m.num_features, generator=gs))
+                m.bias.copy_(0.1 * torch.randn(m.num_features, generator=gs))
+                m.running_mean.copy_(0.1 * torch.randn(m.num_features, generator=gs))
+                m.running_var.copy_(1.0 + 0.5 * torch.rand(m.num_features, generator=gs))
+    folded = [stage1_cuda.FoldedBlock(*(None if t is None else t.to(dev) for t in blk))
+              for blk in stage1_cuda.fold(layer1)]
+    with torch.inference_mode():
+        packed = stage1_int8_cuda.pack(int8_sites(torch, gs, dev))
+        for b, side in STAGE1_INT8_SHAPES:
+            x = torch.relu(torch.randn((b, side, side, 64), generator=gs)).to(dev, torch.bfloat16)
+            out = stage1_int8_cuda.stage1_forward_q(x, packed)
+            err = (out.float() - stage1_int8_cuda.stage1_plain(x, packed)).abs().max().item()
+            timed("stage1_int8", (b, side, side, 64), b * side * side,
+                  lambda: stage1_int8_cuda.stage1_forward_q(x, packed), err)
+
+        for b, side in STAGE1_INT8_SHAPES:
+            x = torch.relu(torch.randn((b, side, side, 64), generator=gs)).to(dev, torch.bfloat16)
+            timed("stage1_bf16", (b, side, side, 64), b * side * side,
+                  lambda: stage1_cuda.stage1_forward(x, folded), None)
+
+
+def o1_glow(torch, glow, cfg, seed: int, dev):
+    """A ConditionalGlow with O(1) outputs (chip_smoke.py's o1_glow)."""
+    torch.manual_seed(seed)
+    flow = glow.ConditionalGlow(cfg)
+    g = torch.Generator().manual_seed(seed)
+    d = cfg.features
+    with torch.no_grad():
+        for i in range(cfg.num_layers):
+            an, lin, _ = flow.step(i)
+            an.log_scale.copy_(0.1 * torch.randn(d, generator=g))
+            an.shift.copy_(0.1 * torch.randn(d, generator=g))
+            for p in (lin.lower_entries, lin.upper_entries):
+                p.copy_(0.3 / d ** 0.5 * torch.randn(p.shape, generator=g))
+    return flow.to(dev).eval()
+
+
+def glow_cases(torch, timed, dev):
+    """Each GLOW_SHAPES shape through the tree's own pack, pack_context and
+    transform; torch.matmul on one hidden product beside it."""
+    from mhentropy_tpu_torch.flows import cuda_glow_sampler as cgs
+    from mhentropy_tpu_torch.flows import glow
+
+    for label, s in GLOW_SHAPES.items():
+        cfg = glow.GlowConfig(features=s["d"], hidden=s["h"], num_layers=4, num_blocks=2,
+                              context_features=s["c"])
+        flow = o1_glow(torch, glow, cfg, 14, dev)
+        b, n = s["b"], s["n"]
+        g = torch.Generator(device=dev).manual_seed(14)
+        with torch.inference_mode():
+            packed = cgs.pack(flow)
+            ctx = cgs.pack_context(flow, torch.randn((b, s["c"]), generator=g, device=dev))
+            z0 = torch.randn((b, n, s["d"]), generator=g, device=dev)
+            x, ld = cgs.transform(packed, z0, ctx)
+            x_ref, ld_ref = cgs.transform_plain(packed, z0, ctx)
+            err = max((x - x_ref).abs().max().item(), (ld - ld_ref).abs().max().item())
+            timed(f"glow_{label}", (b, n), b * n, lambda: cgs.transform(packed, z0, ctx), err)
+            a = torch.randn((b * n, s["h"]), generator=g, device=dev).to(torch.bfloat16)
+            w = packed.big[0, 0]
+            timed(f"glow_{label}_matmul", (b * n, s["h"], s["h"]), b * n,
+                  lambda: torch.matmul(a, w), None)
+        del flow, packed
+
+
+def lbs_cases(torch, timed, dev):
+    """Each LBS_SHAPES shape through the tree's lbs_cuda.lbs_blend, on
+    normalised random skinning weights and random transforms."""
+    from mhentropy_tpu_torch.core import lbs_cuda
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    for label, s in LBS_SHAPES.items():
+        v, j, rows = s["v"], s["j"], s["rows"]
+        w = torch.rand((v, j), generator=g, device=dev)
+        args = (w / w.sum(1, keepdim=True),
+                torch.randn((3, 3, j, rows), generator=g, device=dev),
+                torch.randn((3, j, rows), generator=g, device=dev) * 0.05,
+                torch.randn((3, v, rows), generator=g, device=dev) * 0.5)
+        with torch.inference_mode():
+            out = lbs_cuda.lbs_blend(*args)
+            err = (out - lbs_cuda.lbs_blend_plain(*args)).abs().max().item()
+            timed(f"lbs_{label}", (v, j, rows), rows, lambda: lbs_cuda.lbs_blend(*args), err)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--label", default="this")
     ap.add_argument("--out", default=None)
     ap.add_argument("--tiles", action="store_true")
+    ap.add_argument("--kinds", default=",".join(KINDS),
+                    help=f"comma-separated families to time, of {', '.join(KINDS)}")
     args = ap.parse_args(argv)
+    kinds = args.kinds.split(",")
+    if not set(kinds) <= set(KINDS):
+        ap.error(f"--kinds takes {', '.join(KINDS)}, not {args.kinds}")
     here = os.path.dirname(os.path.abspath(__file__))  # run as a file: not a package root
     sys.path[:] = [os.path.abspath(args.root)] + [
         p for p in sys.path if os.path.abspath(p or ".") != here]
@@ -104,8 +263,6 @@ def main(argv=None) -> int:
         print("sampler_ab: no CUDA device; it times the kernels on the card", file=sys.stderr)
         return 1
     from mhentropy_tpu_torch import ext, profile_step
-    from mhentropy_tpu_torch.flows import cuda_sampler, cuda_sampler_int8, realnvp
-    from mhentropy_tpu_torch.models import resnet, stage1_cuda, stage1_int8_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -129,68 +286,14 @@ def main(argv=None) -> int:
         print(json.dumps(line), flush=True)
         lines.append(line)
 
-    torch.manual_seed(3)
-    flow = realnvp.RealNVP(realnvp.RealNVPConfig(dim=45, cond_dim=512, h_dim=512,
-                                                 num_steps=6)).to(dev).eval()
-    g = torch.Generator(device=dev).manual_seed(3)
-    for dtype, shapes in ((torch.bfloat16, BF16_SHAPES), (torch.float32, F32_SHAPES)):
-        packed = cuda_sampler.pack(flow, dtype=dtype)
-        for b, n in shapes:
-            with torch.inference_mode():
-                feat = torch.randn((b, 512), generator=g, device=dev)
-                z0 = torch.randn((b, n, 45), generator=g, device=dev) * 0.8
-                cproj = realnvp.cond_cache(flow, feat).contiguous()
-                x, ld = cuda_sampler.transform(packed, z0, cproj)
-                x_ref, ld_ref = cuda_sampler.transform_plain(packed, z0, cproj)
-                err = max((x - x_ref).abs().max().item(), (ld - ld_ref).abs().max().item())
-                timed(str(dtype).removeprefix("torch."), (b, n), b * n,
-                      lambda: cuda_sampler.transform(packed, z0, cproj), err)
-
-    gs = torch.Generator().manual_seed(4)
-    layer1 = torch.nn.Sequential(resnet.Bottleneck(64, 64), resnet.Bottleneck(256, 64),
-                                 resnet.Bottleneck(256, 64))
-    with torch.no_grad():
-        for m in layer1.modules():
-            if isinstance(m, torch.nn.Conv2d):
-                m.weight.copy_(torch.randn(m.weight.shape, generator=gs)
-                               * (2.0 / m.weight[0].numel()) ** 0.5)
-            elif isinstance(m, torch.nn.BatchNorm2d):
-                m.weight.copy_(1.0 + 0.2 * torch.randn(m.num_features, generator=gs))
-                m.bias.copy_(0.1 * torch.randn(m.num_features, generator=gs))
-                m.running_mean.copy_(0.1 * torch.randn(m.num_features, generator=gs))
-                m.running_var.copy_(1.0 + 0.5 * torch.rand(m.num_features, generator=gs))
-    folded = [stage1_cuda.FoldedBlock(*(None if t is None else t.to(dev) for t in blk))
-              for blk in stage1_cuda.fold(layer1)]
-    with torch.inference_mode():
-        feat = torch.randn((8, 512), generator=g, device=dev)
-        tree = cuda_sampler_int8.quantize_sampler(
-            flow, feat, torch.randn((32 * 8, 45), generator=g, device=dev) * 0.8)
-        for b, n in INT8_SHAPES:
-            feat = torch.randn((b, 512), generator=g, device=dev)
-            cq = cuda_sampler_int8.cond_q(flow, tree, feat)
-            z0 = torch.randn((b, n, 45), generator=g, device=dev) * 0.8
-            x, ld = cuda_sampler_int8.transform_q(tree, z0, cq)
-            z0p = torch.nn.functional.pad(z0, (0, tree.masks.shape[-1] - 45))
-            x_ref, ld_ref = cuda_sampler_int8.xla_forward_q(tree, z0p, cq)
-            err = max((x - x_ref[..., :45]).abs().max().item(),
-                      (ld - ld_ref).abs().max().item())
-            timed("int8", (b, n), b * n,
-                  lambda: cuda_sampler_int8.transform_q(tree, z0, cq), err)
-            if args.tiles:
-                int8_tiles(torch, ext, tree, cq, z0, timed)
-
-        packed = stage1_int8_cuda.pack(int8_sites(torch, gs, dev))
-        for b, side in STAGE1_INT8_SHAPES:
-            x = torch.relu(torch.randn((b, side, side, 64), generator=gs)).to(dev, torch.bfloat16)
-            out = stage1_int8_cuda.stage1_forward_q(x, packed)
-            err = (out.float() - stage1_int8_cuda.stage1_plain(x, packed)).abs().max().item()
-            timed("stage1_int8", (b, side, side, 64), b * side * side,
-                  lambda: stage1_int8_cuda.stage1_forward_q(x, packed), err)
-
-        for b, side in STAGE1_INT8_SHAPES:
-            x = torch.relu(torch.randn((b, side, side, 64), generator=gs)).to(dev, torch.bfloat16)
-            timed("stage1_bf16", (b, side, side, 64), b * side * side,
-                  lambda: stage1_cuda.stage1_forward(x, folded), None)
+    if "realnvp" in kinds:
+        realnvp_cases(torch, timed, dev, args.tiles)
+    if "stage1" in kinds:
+        stage1_cases(torch, timed, dev)
+    if "glow" in kinds:
+        glow_cases(torch, timed, dev)
+    if "lbs" in kinds:
+        lbs_cases(torch, timed, dev)
 
     if args.out:
         with open(args.out, "a") as f:

@@ -3,7 +3,8 @@ at a tiny size: the JSON line carries bench.py's fields, a section the
 budget cannot afford is listed as skipped while the headline stays, the
 FLOP count is the plain path's, and profile_step's summary (busy time, top
 operations with categories, idle gaps) reads a trace as the JAX tool's
-`summarize` does."""
+`summarize` does; sampler_ab.py's Glow and LBS shapes are chip_smoke.py's,
+and on the CPU it parses its arguments and refuses to time."""
 
 import json
 
@@ -121,3 +122,45 @@ def test_device_events_keep_only_device_operations():
         ev("aten::conv2d", cpu, 1.0, 50.0),
         ev("void cudnn::conv_fprop", cuda, 2.5, 40.0)])
     assert profile_step.device_events(prof) == [("void cudnn::conv_fprop", 2500, 40000)]
+
+
+def test_sampler_ab_times_the_smokes_glow_and_lbs_shapes():
+    """sampler_ab.py's Glow and LBS shapes are the ones chip_smoke.py holds
+    the kernels to: both GLOW_SHAPES, MANO at the eval batch's rows and SMPL
+    at the ProHMR bench's."""
+    import chip_smoke
+    from mhentropy_tpu_torch import sampler_ab
+    from mhentropy_tpu_torch.core import smpl
+
+    assert sampler_ab.GLOW_SHAPES == chip_smoke.GLOW_SHAPES
+    assert sampler_ab.LBS_SHAPES["mano"] == {"v": 778, "j": 16,
+                                             "rows": chip_smoke.N_HYPO * chip_smoke.EVAL_BATCH}
+    assert sampler_ab.LBS_SHAPES["smpl"] == {
+        "v": smpl.N_VERTS, "j": 24, "rows": chip_smoke.PROHMR_BENCH[0] * chip_smoke.PROHMR_BENCH[1]}
+    assert set(sampler_ab.KINDS) == {"realnvp", "stage1", "glow", "lbs"}
+
+
+@pytest.mark.parametrize("argv", [["--kinds", "glow,lbs"], ["--kinds", "lbs", "--tiles"], []])
+def test_sampler_ab_needs_a_card(argv, monkeypatch, capsys):
+    """On the CPU the script parses its arguments and refuses to time: exit
+    1, no line printed."""
+    import sys
+
+    from mhentropy_tpu_torch import sampler_ab
+
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    assert sampler_ab.main(argv) == 1
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
+
+
+def test_sampler_ab_refuses_an_unknown_kind(monkeypatch):
+    import sys
+
+    from mhentropy_tpu_torch import sampler_ab
+
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    with pytest.raises(SystemExit):
+        sampler_ab.main(["--kinds", "glow,resnet"])

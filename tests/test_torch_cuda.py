@@ -254,11 +254,11 @@ def test_model_path_launches_each_kernel_and_matches_plain_path(dev):
     assert (kern["xyz"] - plain["xyz"]).abs().max() <= 1e-2
 
 
-@pytest.mark.parametrize("rows", [100, 1001, 12800])
+@pytest.mark.parametrize("rows", [100, 1001, 3199, 12800])
 def test_lbs_blend_kernel_matches_plain(dev, rows):
-    """MANO sizes (V = 778, J = 16); 1001 rows leave the last 32-row tile
-    ragged, 12,800 is the eval shape (N = 200, B = 64). f32 throughout: the
-    two differ by summation order only."""
+    """MANO sizes (V = 778, J = 16); 1001 and 3,199 rows leave the last
+    32-row tile ragged, 12,800 is the eval shape (N = 200, B = 64). f32
+    throughout: the two differ by summation order only."""
     g = torch.Generator().manual_seed(3)
     w = torch.rand(778, 16, generator=g)
     w = (w / w.sum(1, keepdim=True)).to(dev)
@@ -524,10 +524,11 @@ def test_reverse_kld_train_launches_the_training_kernels(dev, mode):
     assert all(torch.isfinite(p.grad).all() for p in net.parameters() if p.grad is not None)
 
 
-@pytest.mark.parametrize("rows", [1001, 3200])
+@pytest.mark.parametrize("rows", [1001, 3199, 3200])
 def test_lbs_blend_kernel_takes_smpl(dev, rows):
-    """SMPL's V = 6,890 and J = 24: seven vertex tiles of 1,024, the last
-    ragged; 3,200 rows is the ProHMR shape (B = 32, N = 100)."""
+    """SMPL's V = 6,890 and J = 24: fourteen vertex tiles, the last ragged;
+    3,200 rows is the ProHMR shape (B = 32, N = 100), 3,199 leaves the last
+    row tile ragged."""
     g = torch.Generator().manual_seed(4)
     w = torch.rand(6890, 24, generator=g)
     w = (w / w.sum(1, keepdim=True)).to(dev)
@@ -553,6 +554,21 @@ def test_lbs_blend_raises_with_the_shapes_past_its_joint_limit(dev):
         lbs_cuda.lbs_blend(*args(151))
 
 
+@pytest.mark.parametrize("v,j,rows", [(1000, 150, 37), (778, 75, 100), (5, 149, 3)])
+def test_lbs_blend_kernel_matches_plain_at_large_joint_counts(dev, v, j, rows):
+    """Vertex tiles shrunk by the joints' staging: 3 vertices a tile at
+    J = 150 (the limit), below 392 from J = 75 at MANO's V, an odd J; random
+    values, f32 on both sides."""
+    g = torch.Generator().manual_seed(9)
+    w = torch.rand(v, j, generator=g)
+    w = (w / w.sum(1, keepdim=True)).to(dev)
+    args = (w, torch.randn(3, 3, j, rows, generator=g).to(dev),
+            torch.randn(3, j, rows, generator=g).to(dev) * 0.05,
+            torch.randn(3, v, rows, generator=g).to(dev) * 0.5)
+    torch.testing.assert_close(lbs_cuda.lbs_blend(*args), lbs_cuda.lbs_blend_plain(*args),
+                               rtol=1e-5, atol=1e-6)
+
+
 def _o1_glow(cfg, seed, dev):
     torch.manual_seed(seed)
     flow = glow.ConditionalGlow(cfg)  # torch-default Linears: O(1) outputs
@@ -568,10 +584,16 @@ def _o1_glow(cfg, seed, dev):
 
 
 @pytest.mark.parametrize("d,h,c,b,n", [(144, 1024, 2048, 4, 100), (45, 512, 512, 8, 200),
-                                       (12, 64, 8, 3, 37)])
+                                       (12, 64, 8, 3, 37), (144, 1024, 2048, 7, 93),
+                                       (45, 512, 512, 2, 20), (250, 128, 16, 2, 33),
+                                       (12, 192, 8, 3, 37), (45, 512, 512, 64, 100)])
 def test_glow_sampler_kernel_matches_plain(dev, d, h, c, b, n):
-    """The ProHMR widths, the MHEnt Glow shape, and a ragged small one (3 x 37
-    rows, D = 12 padded to 16)."""
+    """The ProHMR widths, the MHEnt Glow shape, a ragged small one (3 x 37
+    rows, D = 12 padded to 16), ProHMR's widths at ragged rows (7 x 93), 40
+    rows (below one 64-row tile) at H = 512 with Dp = 48, the widest Dp
+    (256: three coupling stages, eight chunks a warpgroup), an H that is no
+    multiple of the GEMM's 128 columns, and 6,400 rows (400 tiles: the
+    persistent CTAs walk more than one)."""
     flow = _o1_glow(glow.GlowConfig(d, h, 4, 2, c), 5, dev)
     with torch.inference_mode():
         packed = cuda_glow_sampler.pack(flow)

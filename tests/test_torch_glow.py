@@ -179,3 +179,24 @@ def test_training_parts_raise_naming_the_roadmap():
         glow.sample_and_log_prob(flow.train(), torch.zeros(2, 4), 3)
     with pytest.raises(ValueError, match="num_blocks"):
         cuda_glow_sampler.pack(glow.ConditionalGlow(flow.cfg._replace(num_blocks=1)))
+
+
+def test_pack_kmajor_copies_hold_jaxs_weights():
+    """The kernel's K-major copies (out, in) hold pack_glow_weights' big,
+    w_in and [w_shift | w_scale], transposed (D padded to 16 here)."""
+    cfg, params, flow = _setup(45, 64, 4, 32, seed=6)
+    jp, _, _ = jpgs.pack_glow_weights(params, cfg, dtype=jnp.float32)
+    p = cuda_glow_sampler.pack(flow, dtype=torch.float32)
+    dp = p.mask_tr.shape[1]
+    assert p.big_t.shape == (4, 4, 64, 64) and p.w_in_t.shape == (4, 64, dp)
+    assert p.w_ss_t.shape == (4, 2 * dp, 64)
+    np.testing.assert_allclose(p.big_t.numpy().reshape(16, 64, 64),
+                               np.asarray(jp["big"]).transpose(0, 2, 1), rtol=1e-6, atol=0)
+    np.testing.assert_allclose(p.w_in_t.numpy(), np.asarray(jp["w_in"])[:, :dp].transpose(0, 2, 1),
+                               rtol=1e-5, atol=1e-6)
+    ss = np.concatenate([np.asarray(jp["w_shift"])[..., :dp], np.asarray(jp["w_scale"])[..., :dp]],
+                        axis=-1)
+    np.testing.assert_allclose(p.w_ss_t.numpy(), ss.transpose(0, 2, 1), rtol=1e-6, atol=0)
+    bf = cuda_glow_sampler.pack(flow)
+    for name in ("big_t", "w_in_t", "w_ss_t"):
+        assert getattr(bf, name).dtype == torch.bfloat16 and getattr(bf, name).is_contiguous()
