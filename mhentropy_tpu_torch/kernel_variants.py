@@ -1,0 +1,226 @@
+"""Times variants of the GEMM probe and stage-1 probe kernels on the card,
+each the committed source with textual substitutions, built by `nvcc` into a
+library of its own: where each kernel's time goes (loads only, products
+only, no output stores, no layout transpose) and the ring depths the GEMM
+probe chose.
+
+    python -m mhentropy_tpu_torch.kernel_variants [--kinds gemm,stage1] [--out FILE]
+
+Each variant prints one JSON line: ms a call by CUDA events (the median of
+three windows of `profile_step.cuda_ms`, eager), the max-abs difference of
+its output from the plain version (a variant that drops work gives a wrong
+output by design), and the card's name and power limit. The GEMM variants
+run at the probe's (32768, 640, 512), s8 and bf16; the stage-1 variants run
+the probe's three launches at B = 32, 64 x 64, both layouts. Runs only on a
+CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+
+import torch
+
+from mhentropy_tpu_torch import ext
+
+_GEMM_RINGS = """  static constexpr int A_STAGES = 6;
+  static constexpr int B_STAGES = 3;
+  static constexpr int RING = 2;"""
+_GEMM_STORE = ("        tma_store(&tm_out, out_smem + (wg * D::RING + slot) * SLAB, "
+               "n0 + q * kSlabCols,\n                  m0 + 64 * wg);")
+_GEMM_NO_LOADS = [("""      mbar_wait(a_full + 8 * sa, pa);
+      mbar_wait(b_full + 8 * sb, pb);""", ""),
+                  ("  if (warp >= kConsumerWarps) {  // producers",
+                   "  if (warp >= kConsumerWarps) {  return;  // producers")]
+
+
+def _rings(a: int, b: int, r: int) -> list:
+    return [(_GEMM_RINGS, f"""  static constexpr int A_STAGES = {a};
+  static constexpr int B_STAGES = {b};
+  static constexpr int RING = {r};""")]
+
+
+# kind -> (source, {variant: [(old, new, occurrence), ...]}); `occurrence`
+# (default 0) picks which match of `old` is replaced.
+VARIANTS = {
+    "gemm": ("int8_gemm_probe.cu", {
+        "base": [],
+        # The epilogue dropped: its products go unused and are compiled out,
+        # leaving the loads and the mbarrier handshakes.
+        "loads_only": [("    for (int q = 0; q < kSlabs; ++q) {",
+                        "    for (int q = 0; q < 0; ++q) {")],
+        "no_stores": [(_GEMM_STORE, "")],
+        "products_epilogue": _GEMM_NO_LOADS,
+        "products_only": _GEMM_NO_LOADS + [(_GEMM_STORE, "")],
+        "x6_w2_r2": _rings(6, 2, 2),
+        "x8_w2_r2": _rings(8, 2, 2),
+        "x5_w3_r3": _rings(5, 3, 3),
+        "x7_w3_r1": _rings(7, 3, 1),
+    }),
+    "stage1": ("stage1_probe.cu", {
+        "base": [],
+        "b_no_transpose": [("          transpose_halo(s_raw, s_pix);\n", "")],
+        "b_no_raw_loads": [("      cp_async16(s_raw + raw_at(hy, ch, k), src, ok);\n",
+                            "      (void)src;\n")],
+        "b_no_residual": [("            const uint4 res = __ldg(reinterpret_cast<const uint4*>"
+                           "(p.x + o));",
+                           "            const uint4 res = make_uint4(0, 0, 0, 0);")],
+        "b_no_stores": [("            *reinterpret_cast<uint4*>(p.out + o) = outv;",
+                         "            if (p.cin < 0) *reinterpret_cast<uint4*>(p.out + o) = outv;"),
+                        ("              if (y < H && xx < W)\n"
+                         "                *reinterpret_cast<uint32_t*>(p.out",
+                         "              if (y < H && xx < W && p.cin < 0)\n"
+                         "                *reinterpret_cast<uint32_t*>(p.out")],
+        "a_no_stores": [("            *reinterpret_cast<uint4*>(p.out + o) = outv;",
+                         "            if (p.cin < 0) *reinterpret_cast<uint4*>(p.out + o) = outv;",
+                         1)],
+    }),
+}
+
+
+def _substitute(text: str, old: str, new: str, occurrence: int = 0) -> str:
+    at = -1
+    for _ in range(occurrence + 1):
+        at = text.find(old, at + 1)
+        if at < 0:
+            raise ValueError(f"substitution not found in the source: {old[:60]!r}")
+    return text[:at] + new + text[at + len(old):]
+
+
+def variant_sources(kind: str) -> dict:
+    """{variant: source text} of `kind`'s kernel, every substitution
+    applied to the committed source (a missing one raises)."""
+    name, variants = VARIANTS[kind]
+    base = (ext.CSRC / name).read_text()
+    out = {}
+    for variant, subs in variants.items():
+        text = base
+        for sub in subs:
+            text = _substitute(text, *sub)
+        out[variant] = text
+    return out
+
+
+def build(kind: str) -> dict:
+    """{variant: ctypes library}, each built by its own nvcc, all at once."""
+    out_dir = ext.BUILD_DIR / "variants" / kind
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for variant, text in variant_sources(kind).items():
+        src = out_dir / f"{variant}.cu"
+        src.write_text(text)
+        cmd = [ext._nvcc(), *ext.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-shared", "-I", str(ext.CSRC), "-o", str(out_dir / f"{variant}.so"), str(src)]
+        procs[variant] = (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for variant, (cmd, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {kind}/{variant}:\n{' '.join(cmd)}\n{log}")
+        libs[variant] = ctypes.CDLL(str(out_dir / f"{variant}.so"))
+    return libs
+
+
+def _ms(fn) -> float:
+    from mhentropy_tpu_torch import profile_step
+
+    return statistics.median(profile_step.cuda_ms(fn, 0.25) for _ in range(3))
+
+
+def gemm_cases(libs: dict, dev, emit) -> None:
+    from mhentropy_tpu_torch import int8_gemm_probe as probe
+
+    m, k, n = probe.SHAPE
+    x8, w8, xb, wb = probe.operands(m, k, n, dev)
+    refs = {"s8": probe.plain_s8(x8, w8).double(), "bf16": probe.plain_bf16(xb, wb).double()}
+    stream = ext.stream_of(x8)
+    for variant, lib in libs.items():
+        for side, fn, x, w, dtype in (("s8", lib.mhent_gemm_probe_s8, x8, w8, torch.int32),
+                                      ("bf16", lib.mhent_gemm_probe_bf16, xb, wb,
+                                       torch.bfloat16)):
+            fn.argtypes = ext._SIGNATURES[f"mhent_gemm_probe_{side}"]
+            out = torch.empty((m, n), dtype=dtype, device=dev)
+
+            def call(fn=fn, x=x, w=w, out=out):
+                ext.check(fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, stream),
+                          f"gemm probe variant {variant}")
+
+            call()
+            err = (out.double() - refs[side]).abs().max().item()
+            emit({"kernel": "int8_gemm_probe", "variant": variant, "side": side,
+                  "shape": [m, k, n], "ms": _ms(call), "max_abs_diff": err})
+
+
+def stage1_cases(libs: dict, dev, emit) -> None:
+    from mhentropy_tpu_torch import stage1_probe as probe
+
+    b, h, w = probe.B, probe.H, probe.W
+    wa = probe.weights_a(dev)
+    wb = probe.to_b(wa)
+    xa = probe.input_a(b, dev)
+    xb = xa.transpose(1, 2).contiguous()
+    sides = {"a": (xa, wa, probe.plain_a(xa, wa), (b, h * w, probe.COUT)),
+             "b": (xb, wb, probe.plain_b(xb, wb), (b, probe.COUT, h * w))}
+    stream = ext.stream_of(xa)
+    for variant, lib in libs.items():
+        fn = lib.mhent_stage1_probe_block
+        fn.argtypes = ext._SIGNATURES["mhent_stage1_probe_block"]
+        for side, (x, ws, ref, out_shape) in sides.items():
+            outs = [torch.empty(out_shape, dtype=torch.bfloat16, device=dev) for _ in range(3)]
+
+            def call(x=x, ws=ws, outs=outs, cm=int(side == "b")):
+                prev = x
+                for blk in range(3):
+                    w1 = ws["w1a"][0] if blk == 0 else ws["w1"][blk - 1]
+                    wd = ws["wd"][0].data_ptr() if blk == 0 else None
+                    ext.check(fn(prev.data_ptr(), w1.data_ptr(), ws["wp"][blk].data_ptr(),
+                                 ws["w3"][blk].data_ptr(), wd, outs[blk].data_ptr(), b, h, w,
+                                 probe.C0 if blk == 0 else probe.COUT, cm, stream),
+                              f"stage-1 probe variant {variant}")
+                    prev = outs[blk]
+
+            call()
+            err = (outs[2].float() - ref.float()).abs().max().item()
+            emit({"kernel": "stage1_probe", "variant": variant, "side": side,
+                  "shape": list(x.shape), "ms": _ms(call), "max_abs_diff": err})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kinds", default="gemm,stage1", help="comma-separated: gemm, stage1")
+    ap.add_argument("--out", default=None, help="append the JSON lines to this file")
+    args = ap.parse_args(argv)
+    kinds = args.kinds.split(",")
+    if not set(kinds) <= set(VARIANTS):
+        ap.error(f"--kinds takes {', '.join(VARIANTS)}, not {args.kinds}")
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device; it times the kernels on the card",
+              file=sys.stderr)
+        return 1
+    from mhentropy_tpu_torch import profile_step
+
+    dev = torch.device("cuda", 0)
+    card = profile_step.card_line()
+    lines = []
+
+    def emit(line):
+        line = {**line, "card": card}
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+
+    for kind in kinds:
+        (gemm_cases if kind == "gemm" else stage1_cases)(build(kind), dev, emit)
+    if args.out:
+        with open(args.out, "a") as f:
+            f.writelines(json.dumps(line) + "\n" for line in lines)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,15 +1,17 @@
-"""Times the RealNVP sampler kernels, int8 stage 1, the Glow sampler and the
-LBS blend of one checkout of the port at the main path's shapes, so that two
-trees can be compared on one card in turns.
+"""Times the RealNVP sampler kernels, int8 stage 1, the Glow sampler, the
+LBS blend and the GEMM and stage-1 probes of one checkout of the port at the
+main path's (and the probes') shapes, so that two trees can be compared on
+one card in turns.
 
     python mhentropy_tpu_torch/sampler_ab.py [--root DIR] [--label NAME] [--out FILE]
-        [--tiles] [--kinds realnvp,stage1,glow,lbs]
+        [--tiles] [--kinds realnvp,stage1,glow,lbs,gemm_probe,stage1_probe]
 
 `--root` is the checkout whose `mhentropy_tpu_torch` is imported (default:
 the one holding this file), so the same script times an older tree's
 kernels through that tree's own wrappers (`cuda_sampler.pack`, `transform`,
 `cuda_sampler_int8.transform_q`, `stage1_int8_cuda.stage1_forward_q`,
-`cuda_glow_sampler.pack` / `pack_context` / `transform`, `lbs_cuda.lbs_blend`): run
+`cuda_glow_sampler.pack` / `pack_context` / `transform`, `lbs_cuda.lbs_blend`,
+`int8_gemm_probe`, `stage1_probe`): run
 it on the parent tree and on this one in turns (parent, this, this, parent)
 within one call. Each shape prints one JSON line: the kernel's median ms of
 RUNS windows as CUDA-graph replays and eagerly, with [min, max], its
@@ -26,10 +28,13 @@ GLOW_SHAPES (ProHMR's 3,200 rows at D = 144, H = 1,024 and the MHEnt Glow's
 on one (rows, H) x (H, H) bf16 product beside each as its per-stage
 yardstick; the LBS blend at LBS_SHAPES (MANO's V = 778, J = 16 at 12,800
 rows and SMPL's V = 6,890, J = 24 at 3,200) on random skinning weights and
-transforms. `--kinds` picks the families (default: all). Runs only on a
-CUDA card. It
-times with the tree's own `profile_step` helpers (`cuda_ms`, `graphed`,
-`card_line`), so both trees need that module. `--tiles` (this tree only)
+transforms; the GEMM probe's s8 and bf16 sides at its (32768, 640, 512),
+with `torch._int_mm` and `torch.matmul` (bf16) beside them; the stage-1
+probe's variants A and B at B = 32, 64 x 64, with cuDNN's stage 1 and the
+bf16 stage-1 kernel beside them. `--kinds` picks the families (default:
+all). Runs only on a CUDA card. It times with the tree's own
+`profile_step` helpers (`cuda_ms`, `graphed`, `card_line`), so both trees
+need that module. `--tiles` (this tree only)
 also times the int8 draw at every tile size its kernel takes, through the C
 entry, with the clusters of that tile the card holds at once: the
 measurement behind `cuda_sampler_int8.launch_plan`.
@@ -54,7 +59,7 @@ GLOW_SHAPES = {"prohmr": {"d": 144, "h": 1024, "c": 2048, "b": 32, "n": 100},
                "mhent_glow": {"d": 45, "h": 512, "c": 512, "b": 8, "n": 200}}
 LBS_SHAPES = {"mano": {"v": 778, "j": 16, "rows": 12800},  # eval: N = 200, B = 64
               "smpl": {"v": 6890, "j": 24, "rows": 3200}}  # ProHMR: N = 100, B = 32
-KINDS = ("realnvp", "stage1", "glow", "lbs")
+KINDS = ("realnvp", "stage1", "glow", "lbs", "gemm_probe", "stage1_probe")
 RUNS = 3
 WINDOW_S = 0.5
 
@@ -242,6 +247,46 @@ def lbs_cases(torch, timed, dev):
             timed(f"lbs_{label}", (v, j, rows), rows, lambda: lbs_cuda.lbs_blend(*args), err)
 
 
+def gemm_probe_cases(torch, timed, dev):
+    """Both sides of the tree's GEMM probe at its shape, with torch._int_mm
+    and torch.matmul in bf16 on the same operands beside them."""
+    from mhentropy_tpu_torch import int8_gemm_probe as probe
+
+    m, k, n = probe.SHAPE
+    x8, w8, xb, wb = probe.operands(m, k, n, dev)
+    err = (probe.gemm_s8(x8, w8).long() - probe.plain_s8(x8, w8).long()).abs().max().item()
+    timed("gemm_probe_s8", (m, k, n), m, lambda: probe.gemm_s8(x8, w8), err)
+    err = (probe.gemm_bf16(xb, wb).float() - probe.plain_bf16(xb, wb).float()).abs().max().item()
+    timed("gemm_probe_bf16", (m, k, n), m, lambda: probe.gemm_bf16(xb, wb), err)
+    w8_kn, wb_kn = w8.T.contiguous(), wb.T.contiguous()
+    timed("gemm_library_s8", (m, k, n), m, lambda: torch._int_mm(x8, w8_kn), None)
+    timed("gemm_library_bf16", (m, k, n), m, lambda: torch.matmul(xb, wb_kn), None)
+
+
+def stage1_probe_cases(torch, timed, dev):
+    """Both variants of the tree's stage-1 probe at B = 32, 64 x 64, with
+    cuDNN's stage 1 and the shipped stage-1 kernel beside them."""
+    from mhentropy_tpu_torch import stage1_probe as probe
+    from mhentropy_tpu_torch.models import stage1_cuda
+
+    b = probe.B
+    wa = probe.weights_a(dev)
+    wb = probe.to_b(wa)
+    xa = probe.input_a(b, dev)
+    xb = xa.transpose(1, 2).contiguous()
+    for label, fwd, plain, x, ws in (("a", probe.forward_a, probe.plain_a, xa, wa),
+                                     ("b", probe.forward_b, probe.plain_b, xb, wb)):
+        err = (fwd(x, ws).float() - plain(x, ws).float()).abs().max().item()
+        timed(f"stage1_probe_{label}", tuple(x.shape), b * probe.H * probe.W,
+              lambda: fwd(x, ws), err)
+    x, folded = probe.yardsticks(b, dev)
+    with torch.inference_mode():
+        timed("stage1_cudnn", tuple(x.shape), b * probe.H * probe.W,
+              lambda: stage1_cuda.stage1_plain(x, folded), None)
+        timed("stage1_bf16", tuple(x.shape), b * probe.H * probe.W,
+              lambda: stage1_cuda.stage1_forward(x, folded), None)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -294,6 +339,10 @@ def main(argv=None) -> int:
         glow_cases(torch, timed, dev)
     if "lbs" in kinds:
         lbs_cases(torch, timed, dev)
+    if "gemm_probe" in kinds:
+        gemm_probe_cases(torch, timed, dev)
+    if "stage1_probe" in kinds:
+        stage1_probe_cases(torch, timed, dev)
 
     if args.out:
         with open(args.out, "a") as f:

@@ -11,7 +11,9 @@ of `Experiment` the synthetic branch of `make_datasets` :654-667,
 `train_epoch` :876, `_quant_spec` :921, `eval_loop` :950, `eval` :1016 and
 `save_model` :1043. Not ported yet: autoresume and orbax checkpoints
 (ROADMAP queue 1, item 4; checkpoints are the reference's .pth), the
-real-dataset loaders (item 5).
+real-dataset loaders (item 5), and the non-integrated RLE mode that
+`network.enc_type` other than "MHEnt" selects (:510-517; item "RLE,
+rendering and viz"): `Experiment` refuses it.
 
 The steps are plain functions of their batch and noise: torch cannot replay
 jax.random, so the reverse-KL draw's noise (temperature 1) and the eval
@@ -36,6 +38,7 @@ from mhentropy_tpu_torch.models import quant as quant_mod
 from mhentropy_tpu_torch.models.encoder import EncoderConfig
 from mhentropy_tpu_torch.models.mhent import MHEntConfig
 from mhentropy_tpu_torch.train import metrics as metrics_lib
+from mhentropy_tpu_torch.utils.logging import AverageMeter
 
 
 def _fused_bn_mode(cfg):
@@ -310,6 +313,13 @@ class Experiment:
 
     def __init__(self, cfg, device=None, mano_dir: str = "./mano/"):
         self.cfg = cfg
+        # The JAX Experiment builds the integrated MHEnt only for this value
+        # (engine.py:510); any other is its non-integrated RLE mode.
+        if cfg.network.enc_type != "MHEnt":
+            raise NotImplementedError(
+                f"network.enc_type {cfg.network.enc_type!r}: the port builds the integrated "
+                f"MHEnt only (enc_type: MHEnt); RLE and the non-integrated mode are not ported "
+                f"yet (ROADMAP queue 1, \"RLE, rendering and viz\")")
         self.device = resolve_device(device)
         self.model_cfg = build_model_config(cfg)
         self.model = load_mano_model(mano_dir, device=self.device)
@@ -490,9 +500,10 @@ class Experiment:
                 self.model_cfg))
 
     def eval_loop(self, data, epoch: int = 0, n: int | None = None) -> dict:
-        """One pass over `data`: valid-weighted metric means, printed as the
-        JAX loop's summary line. With tpu.quantize_encoder the int8 qtree is
-        calibrated on the first batch (the sampler at this eval's temp)."""
+        """One pass over `data`: the metrics' means as the JAX loop's
+        AverageMeters take them, printed as its summary line. With
+        tpu.quantize_encoder the int8 qtree is calibrated on the first batch
+        (the sampler at this eval's temp)."""
         self.net.eval()
         if self.masters:
             mhent.refresh_kernel_weights(self.net)
@@ -521,14 +532,19 @@ class Experiment:
             kld = torch.randn((n_kld * bs, dim), generator=self.gen, device=self.device)
             hypo = torch.randn((n * bs, dim), generator=self.gen, device=self.device) * temp
             batch_mets.append(step(image, target, kld, hypo, qtree))
-        sums, weights = {}, {}
-        for mets in batch_mets:  # one device-to-host copy per metric, after the loop
-            mets = {k: float(v) for k, v in mets.items()}
-            n_valid = mets.pop("n_valid", float(bs))
-            for name, v in mets.items():
-                sums[name] = sums.get(name, 0.0) + v * n_valid
-                weights[name] = weights.get(name, 0.0) + n_valid
-        summary = {k: sums[k] / weights[k] for k in sums}
+        # One device-to-host copy per metric, after the loop; the means are
+        # the JAX loop's AverageMeters: valid-weighted, a batch whose value
+        # is exactly 0 left out of that metric.
+        host = {name: torch.stack([torch.as_tensor(m[name], dtype=torch.float32)
+                                   for m in batch_mets]).tolist()
+                for name in (batch_mets[0] if batch_mets else {})}
+        n_valid = host.pop("n_valid", [float(bs)] * len(batch_mets))
+        meters = {}
+        for name, values in host.items():
+            meter = meters[name] = AverageMeter()
+            for v, nv in zip(values, n_valid):
+                meter.update(v, n=nv)
+        summary = {k: m.avg for k, m in meters.items()}
         line = f"Epoch:{epoch}|"
         if "eucLoss_3d_rgb_sample" in summary:
             line += f" eval_3d_rgb:{summary['eucLoss_3d_rgb_sample'] * 1000:.4f}|"

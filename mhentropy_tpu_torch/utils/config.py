@@ -36,8 +36,8 @@ DEFAULTS = {
     "save_interval": 5,
     "eval_interval": 1,
     "dataset": {"dataset_name": "rhd", "image_size": [256, 256], "jointN": 21},
-    "network": {"num_latent": 64, "nums_latent": None, "backbone": "resnet18",
-                "feat_dim": None, "acts": "exp", "deterministic": False,
+    "network": {"enc_type": "BasicEnc", "num_latent": 64, "nums_latent": None,
+                "backbone": "resnet18", "feat_dim": None, "acts": "exp", "deterministic": False,
                 "decoder_type": "mano",
                 "regressor": "realnvp", "h_dims": [64, 64], "num_steps": 3,
                 "w_reg_th": 50, "b_2d": 0.03, "b_3d": 0.03, "entropy": True, "T": 1.0,

@@ -137,10 +137,12 @@ def test_sampler_ab_times_the_smokes_glow_and_lbs_shapes():
                                              "rows": chip_smoke.N_HYPO * chip_smoke.EVAL_BATCH}
     assert sampler_ab.LBS_SHAPES["smpl"] == {
         "v": smpl.N_VERTS, "j": 24, "rows": chip_smoke.PROHMR_BENCH[0] * chip_smoke.PROHMR_BENCH[1]}
-    assert set(sampler_ab.KINDS) == {"realnvp", "stage1", "glow", "lbs"}
+    assert set(sampler_ab.KINDS) == {"realnvp", "stage1", "glow", "lbs", "gemm_probe",
+                                     "stage1_probe"}
 
 
-@pytest.mark.parametrize("argv", [["--kinds", "glow,lbs"], ["--kinds", "lbs", "--tiles"], []])
+@pytest.mark.parametrize("argv", [["--kinds", "glow,lbs"], ["--kinds", "lbs", "--tiles"], [],
+                                  ["--kinds", "gemm_probe,stage1_probe"]])
 def test_sampler_ab_needs_a_card(argv, monkeypatch, capsys):
     """On the CPU the script parses its arguments and refuses to time: exit
     1, no line printed."""
@@ -164,3 +166,24 @@ def test_sampler_ab_refuses_an_unknown_kind(monkeypatch):
     monkeypatch.setattr(sys, "path", list(sys.path))
     with pytest.raises(SystemExit):
         sampler_ab.main(["--kinds", "glow,resnet"])
+
+
+@pytest.mark.parametrize("kind", ["gemm", "stage1"])
+def test_kernel_variants_apply_to_the_committed_sources(kind):
+    """Every variant's substitutions match the kernel source as committed,
+    and each variant but the base changes it."""
+    from mhentropy_tpu_torch import kernel_variants
+
+    srcs = kernel_variants.variant_sources(kind)
+    base = srcs.pop("base")
+    assert srcs and all(text != base for text in srcs.values())
+
+
+def test_kernel_variants_needs_a_card(monkeypatch, capsys):
+    from mhentropy_tpu_torch import kernel_variants
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert kernel_variants.main(["--kinds", "gemm"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        kernel_variants.main(["--kinds", "gemm,resnet"])

@@ -721,7 +721,7 @@ def test_int8_stage_and_stem_raise_on_what_the_kernels_do_not_take(dev):
                                       stem_int8_cuda.pack(site))
 
 
-@pytest.mark.parametrize("m,k,n", [(256, 128, 128), int8_gemm_probe.SHAPE])
+@pytest.mark.parametrize("m,k,n", [(256, 128, 128), (384, 640, 384), int8_gemm_probe.SHAPE])
 def test_gemm_probe_kernels_match_plain(dev, m, k, n):
     x8, w8, xb, wb = int8_gemm_probe.operands(m, k, n, dev)
     before = (int8_gemm_probe.launches_s8, int8_gemm_probe.launches_bf16)
@@ -798,7 +798,8 @@ def test_stem_probe_refuses_what_it_does_not_take(dev):
 
 
 @pytest.mark.parametrize("variant", ["a", "b"])
-@pytest.mark.parametrize("b,h,w", [(32, 64, 64), (2, 16, 16), (2, 32, 48)])
+@pytest.mark.parametrize("b,h,w", [(32, 64, 64), (2, 16, 16), (2, 32, 48), (2, 16, 24),
+                                   (2, 24, 16), (1, 12, 40)])
 def test_stage1_probe_matches_plain(dev, variant, b, h, w):
     wa = stage1_probe.weights_a(dev)
     x = stage1_probe.input_a(b, dev, hw=h * w)
@@ -817,9 +818,14 @@ def test_stage1_probe_matches_plain(dev, variant, b, h, w):
 
 def test_stage1_probe_refuses_what_it_does_not_take(dev):
     wa = stage1_probe.weights_a(dev)
-    for h, w in ((16, 24), (3, 16), (16, 80)):  # W % 16; H * W % 128; W > 64
-        with pytest.raises(ValueError, match="W must be"):
-            stage1_probe.forward_a(stage1_probe.input_a(1, dev, hw=h * w), wa, h, w)
+    wb = stage1_probe.to_b(wa)
+    for h, w in ((16, 20), (8, 12)):  # B's 16-byte halo chunks need W % 8 == 0; A takes any W
+        x = stage1_probe.input_a(1, dev, hw=h * w)
+        with pytest.raises(ValueError, match="W a multiple of 8"):
+            stage1_probe.forward_b(x.transpose(1, 2).contiguous(), wb, h, w)
+        ref = stage1_probe.plain_a(x, wa, w)
+        out = stage1_probe.forward_a(x, wa, h, w)
+        assert (out.float() - ref.float()).abs().max().item() <= stage1_probe.tolerance(ref)
     with pytest.raises(ValueError, match="x must be"):
         stage1_probe.forward_a(stage1_probe.input_a(1, dev).float(), wa)
     with pytest.raises(ValueError, match="w1 must be"):

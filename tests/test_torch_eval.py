@@ -291,7 +291,8 @@ def test_run_cli_evaluates_tiny_config_on_cpu(tmp_path, capsys):
     path = tmp_path / "tiny.yaml"
     path.write_text(
         "dataset: {dataset_name: ho3d, image_size: [32, 32]}\n"
-        "network: {num_latent: 16, backbone: resnet18, h_dims: [32, 32], num_steps: 1}\n"
+        "network: {enc_type: MHEnt, num_latent: 16, backbone: resnet18, h_dims: [32, 32],\n"
+        "          num_steps: 1}\n"
         "training: {mode: baseline_VAE, batch_size: 4, epochs: 0, test_samples: 3, seed: 1,\n"
         "           n_train_hypotheses: 2}\n"
         "tpu: {compute_dtype: float32, quantize_encoder: true}\n")
@@ -308,7 +309,8 @@ def test_run_cli_evaluates_tiny_config_on_cpu(tmp_path, capsys):
 
 def test_experiment_refuses_what_is_not_ported(tmp_path, monkeypatch):
     cfg_text = ("dataset: {image_size: [32, 32]}\n"
-                "network: {num_latent: 16, h_dims: [32, 32], num_steps: 1}\n"
+                "network: {enc_type: MHEnt, num_latent: 16, h_dims: [32, 32],\n"
+                "          num_steps: 1}\n"
                 "training: {mode: eval, batch_size: 2, seed: 1, pth: some/orbax/dir}\n"
                 "tpu: {compute_dtype: float32}\n")
     path = tmp_path / "c.yaml"

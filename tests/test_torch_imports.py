@@ -36,6 +36,7 @@ def test_port_imports_no_jax():
         "import mhentropy_tpu_torch.eval_prohmr, mhentropy_tpu_torch.bench_prohmr\n"
         "import mhentropy_tpu_torch.models.stem_int8_cuda, mhentropy_tpu_torch.bench_quant\n"
         "import mhentropy_tpu_torch.models.stage2_int8_cuda, mhentropy_tpu_torch.int8_gemm_probe\n"
+        "import mhentropy_tpu_torch.utils.logging\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'mhentropy_tpu', 'tools'))\n"
         "print(bad)\n"
@@ -48,7 +49,7 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("module", ["profile_step", "stem_probe", "stem_cost_attrib",
-                                    "stage1_probe", "bench"])
+                                    "stage1_probe", "bench", "kernel_variants"])
 def test_probe_and_bench_modules_stand_alone(module):
     """Each of the probes, the bench and profile_step alone, in a fresh
     interpreter, pulls in neither JAX, the JAX package nor tools/."""
@@ -87,6 +88,8 @@ def _read_keys(cfg):
 
 def test_config_defaults_equal():
     assert _read_keys(config.make_cfg()) == _read_keys(jconfig.get_cfg_defaults())
+    assert config.make_cfg().network.enc_type == jconfig.get_cfg_defaults().network.enc_type \
+        == "BasicEnc"
     assert config.make_cfg({"model_dir": "/x/", "tpu": {"fused_train_bn": "full"}}).model_dir \
         == "/x/"
 

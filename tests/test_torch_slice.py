@@ -92,8 +92,8 @@ def test_sample_hypotheses_matches_jax(n_quant):
 def _tiny_cfg():
     return make_cfg({
         "dataset": {"dataset_name": "rhd", "image_size": [32, 32]},
-        "network": {"num_latent": 32, "backbone": "resnet18", "h_dims": [32, 32],
-                    "num_steps": 1, "regressor": "realnvp"},
+        "network": {"enc_type": "MHEnt", "num_latent": 32, "backbone": "resnet18",
+                    "h_dims": [32, 32], "num_steps": 1, "regressor": "realnvp"},
         "training": {"test_samples": 4},
         "tpu": {"compute_dtype": "float32"},
     })

@@ -424,7 +424,8 @@ def test_run_cli_trains_and_its_checkpoint_loads_in_both_packages(tmp_path, caps
         f"model_dir: {model_dir}/\n"
         "info_interval: 2\n"
         "dataset: {dataset_name: ho3d, image_size: [32, 32]}\n"
-        "network: {num_latent: 16, backbone: resnet18, h_dims: [32, 32], num_steps: 1}\n"
+        "network: {enc_type: MHEnt, num_latent: 16, backbone: resnet18, h_dims: [32, 32],\n"
+        "          num_steps: 1}\n"
         "training: {mode: baseline_VAE, batch_size: 4, epochs: 1, test_samples: 3, seed: 1,\n"
         "           n_train_hypotheses: 2, lr: 0.001, milestones: [5]}\n"
         "tpu: {compute_dtype: float32, fused_train_bn: full}\n")
