@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (glow_sampler.cu, int8_gemm_probe.cu): mbarriers, TMA
+// (glow_sampler.cu, int8_gemm_probe.cu, stem_probe.cu): mbarriers, TMA
 // loads and stores through tensor maps, wgmma descriptors and fences, and
 // the host's cuTensorMapEncodeTiled, looked up through the runtime so that
 // the library needs no -lcuda.
@@ -57,6 +57,17 @@ static __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap*
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar)
+      : "memory");
+}
+
+// A box of a 3D tensor map at (c0, c1, c2) into shared memory, completing on
+// mbarrier `bar`.
+static __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0,
+                                                   int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
       : "memory");
 }
 
@@ -171,6 +182,25 @@ static inline bool make_map_2d(CUtensorMap* map, CUtensorMapDataType type, int e
   const cuuint32_t unit[2] = {1, 1};
   return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3D map of a (d2, d1, d0) tensor of `elem_bytes`-byte values with row
+// stride `s1` and plane stride `s2` elements, boxes of (box0, box1, box2)
+// stored densely (no swizzle), zeros past the edges: a box wider than d0
+// gives each row its zero margin.
+static inline bool make_map_3d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                               const void* base, int d0, int d1, int d2, long long s1,
+                               long long s2, int box0, int box1, int box2) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)(s1 * elem_bytes), (cuuint64_t)(s2 * elem_bytes)};
+  const cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, (cuuint32_t)box2};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -55,7 +55,7 @@ _SIGNATURES = {
     "mhent_stage2_int8_block": [_P] * 21 + [_I] * 9 + [_P],
     "mhent_gemm_probe_s8": [_P] * 3 + [_I] * 3 + [_P],
     "mhent_gemm_probe_bf16": [_P] * 3 + [_I] * 3 + [_P],
-    "mhent_stem_probe": [_P] * 6 + [_I] * 5 + [_P],
+    "mhent_stem_probe": [_P] * 6 + [_I] * 6 + [_P],
     "mhent_stage1_probe_block": [_P] * 6 + [_I] * 5 + [_P],
 }
 

@@ -1,18 +1,19 @@
-"""Times variants of the GEMM probe and stage-1 probe kernels on the card,
-each the committed source with textual substitutions, built by `nvcc` into a
-library of its own: where each kernel's time goes (loads only, products
-only, no output stores, no layout transpose) and the ring depths the GEMM
-probe chose.
+"""Times variants of the GEMM probe, stage-1 probe and stem probe kernels on
+the card, each the committed source with textual substitutions, built by
+`nvcc` into a library of its own: where each kernel's time goes (loads only,
+products only, no output stores, no layout transpose) and the ring depths
+and warp counts the probes chose.
 
-    python -m mhentropy_tpu_torch.kernel_variants [--kinds gemm,stage1] [--out FILE]
+    python -m mhentropy_tpu_torch.kernel_variants [--kinds gemm,stage1,stem] [--out FILE]
 
 Each variant prints one JSON line: ms a call by CUDA events (the median of
 three windows of `profile_step.cuda_ms`, eager), the max-abs difference of
 its output from the plain version (a variant that drops work gives a wrong
 output by design), and the card's name and power limit. The GEMM variants
 run at the probe's (32768, 640, 512), s8 and bf16; the stage-1 variants run
-the probe's three launches at B = 32, 64 x 64, both layouts. Runs only on a
-CUDA card.
+the probe's three launches at B = 32, 64 x 64, both layouts; the stem
+variants run each cut at B = 32, 128 conv rows on bf16 planes and the
+envelope (the gemm cut on f32 planes). Runs only on a CUDA card.
 """
 
 from __future__ import annotations
@@ -37,6 +38,15 @@ _GEMM_NO_LOADS = [("""      mbar_wait(a_full + 8 * sa, pa);
       mbar_wait(b_full + 8 * sb, pb);""", ""),
                   ("  if (warp >= kConsumerWarps) {  // producers",
                    "  if (warp >= kConsumerWarps) {  return;  // producers")]
+
+
+_STEM_RING = "  static constexpr int kSlots = 6;"
+_STEM_GROUPS = "constexpr int kBuilderGroups = 2;"
+
+
+def _stem(slots: int, groups: int) -> list:
+    return [(_STEM_RING, f"  static constexpr int kSlots = sizeof(TIn) == 2 ? {slots} : 6;"),
+            (_STEM_GROUPS, f"constexpr int kBuilderGroups = {groups};")]
 
 
 def _rings(a: int, b: int, r: int) -> list:
@@ -79,6 +89,23 @@ VARIANTS = {
         "a_no_stores": [("            *reinterpret_cast<uint4*>(p.out + o) = outv;",
                          "            if (p.cin < 0) *reinterpret_cast<uint4*>(p.out + o) = outv;",
                          1)],
+    }),
+    "stem": ("stem_probe.cu", {
+        "base": [],
+        "ring12": _stem(12, 2),
+        "builders1": _stem(6, 1),
+        # The consumer waits for each Bm^T and releases it without a product.
+        "no_products": [("      wgmma_n128(acc, da, sw128_desc(bm), ks > 0);",
+                         "      (void)da;\n      (void)bm;")],
+        # gemm's band summed in the accumulators (scale-d 1 across its rows).
+        "band_in_accumulator": [
+            ("      wgmma_n128(acc, da, sw128_desc(bm), ks > 0);",
+             "      wgmma_n128(acc, da, sw128_desc(bm), (PHASE == kGemm && l > 0) || ks > 0);"),
+            ("      for (int e = 0; e < 64; ++e) sum[e] += acc[e];",
+             "      for (int e = 0; e < 64; ++e) sum[e] = acc[e];")],
+        # The band's sums kept, their reductions into the output not issued.
+        "no_reductions": [('  asm volatile("red.global.add.v4.f32',
+                           '  if (a == 1.25e-38f) asm volatile("red.global.add.v4.f32')],
     }),
 }
 
@@ -191,9 +218,40 @@ def stage1_cases(libs: dict, dev, emit) -> None:
                   "shape": list(x.shape), "ms": _ms(call), "max_abs_diff": err})
 
 
+def stem_cases(libs: dict, dev, emit) -> None:
+    from mhentropy_tpu_torch import stem_probe as probe
+
+    b, rows = probe.B, probe.CONV_ROWS
+    g, bb, s = probe.epilogue_operands(dev)
+    band = probe.plan_band(b, rows, torch.cuda.get_device_properties(dev).multi_processor_count)
+    cases = [(phase, torch.bfloat16) for phase in probe.PHASES] + [("gemm", torch.float32)]
+    operands = {dt: probe.inputs(b, dev, dtype=dt) for dt in (torch.bfloat16, torch.float32)}
+    out = torch.empty((b, probe.FILTERS, probe.LANES), device=dev)
+    for variant, lib in libs.items():
+        fn = lib.mhent_stem_probe
+        fn.argtypes = ext._SIGNATURES["mhent_stem_probe"]
+        for phase, dtype in cases:
+            planes, a = operands[dtype]
+            stream = ext.stream_of(planes)
+
+            def call(fn=fn, planes=planes, a=a, phase=phase, dtype=dtype):
+                out.zero_()
+                ext.check(fn(planes.data_ptr(), a.data_ptr(), g.data_ptr(), bb.data_ptr(),
+                             s.data_ptr(), out.data_ptr(), b, planes.shape[2], rows,
+                             probe.PHASES.index(phase), int(dtype == torch.bfloat16), band,
+                             stream), f"stem probe variant {variant}")
+
+            call()
+            err = (out - probe.phase_plain(phase, planes, a, g, bb, s, rows)).abs().max().item()
+            emit({"kernel": "stem_probe", "variant": variant, "phase": phase,
+                  "planes": str(dtype).removeprefix("torch."), "shape": list(planes.shape),
+                  "conv_rows": rows, "band": band, "ms": _ms(call), "max_abs_diff": err})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kinds", default="gemm,stage1", help="comma-separated: gemm, stage1")
+    ap.add_argument("--kinds", default="gemm,stage1,stem",
+                    help="comma-separated: gemm, stage1, stem")
     ap.add_argument("--out", default=None, help="append the JSON lines to this file")
     args = ap.parse_args(argv)
     kinds = args.kinds.split(",")
@@ -215,7 +273,8 @@ def main(argv=None) -> int:
         lines.append(line)
 
     for kind in kinds:
-        (gemm_cases if kind == "gemm" else stage1_cases)(build(kind), dev, emit)
+        {"gemm": gemm_cases, "stage1": stage1_cases, "stem": stem_cases}[kind](
+            build(kind), dev, emit)
     if args.out:
         with open(args.out, "a") as f:
             f.writelines(json.dumps(line) + "\n" for line in lines)

@@ -1,17 +1,17 @@
 """Times the RealNVP sampler kernels, int8 stage 1, the Glow sampler, the
-LBS blend and the GEMM and stage-1 probes of one checkout of the port at the
-main path's (and the probes') shapes, so that two trees can be compared on
-one card in turns.
+LBS blend and the GEMM, stage-1 and stem probes of one checkout of the port
+at the main path's (and the probes') shapes, so that two trees can be
+compared on one card in turns.
 
     python mhentropy_tpu_torch/sampler_ab.py [--root DIR] [--label NAME] [--out FILE]
-        [--tiles] [--kinds realnvp,stage1,glow,lbs,gemm_probe,stage1_probe]
+        [--tiles] [--kinds realnvp,stage1,glow,lbs,gemm_probe,stage1_probe,stem_probe]
 
 `--root` is the checkout whose `mhentropy_tpu_torch` is imported (default:
 the one holding this file), so the same script times an older tree's
 kernels through that tree's own wrappers (`cuda_sampler.pack`, `transform`,
 `cuda_sampler_int8.transform_q`, `stage1_int8_cuda.stage1_forward_q`,
 `cuda_glow_sampler.pack` / `pack_context` / `transform`, `lbs_cuda.lbs_blend`,
-`int8_gemm_probe`, `stage1_probe`): run
+`int8_gemm_probe`, `stage1_probe`, `stem_probe`, `stem_cost_attrib`): run
 it on the parent tree and on this one in turns (parent, this, this, parent)
 within one call. Each shape prints one JSON line: the kernel's median ms of
 RUNS windows as CUDA-graph replays and eagerly, with [min, max], its
@@ -31,8 +31,10 @@ rows and SMPL's V = 6,890, J = 24 at 3,200) on random skinning weights and
 transforms; the GEMM probe's s8 and bf16 sides at its (32768, 640, 512),
 with `torch._int_mm` and `torch.matmul` (bf16) beside them; the stage-1
 probe's variants A and B at B = 32, 64 x 64, with cuDNN's stage 1 and the
-bf16 stage-1 kernel beside them. `--kinds` picks the families (default:
-all). Runs only on a CUDA card. It times with the tree's own
+bf16 stage-1 kernel beside them; the stem probe's envelope (f32 planes)
+and its four cuts (bf16 planes) at B = 32, 128 conv rows, with cuDNN's stem
+and the stem kernel at (32, 256, 256, 3) beside them. `--kinds` picks the
+families (default: all). Runs only on a CUDA card. It times with the tree's own
 `profile_step` helpers (`cuda_ms`, `graphed`, `card_line`), so both trees
 need that module. `--tiles` (this tree only)
 also times the int8 draw at every tile size its kernel takes, through the C
@@ -59,7 +61,7 @@ GLOW_SHAPES = {"prohmr": {"d": 144, "h": 1024, "c": 2048, "b": 32, "n": 100},
                "mhent_glow": {"d": 45, "h": 512, "c": 512, "b": 8, "n": 200}}
 LBS_SHAPES = {"mano": {"v": 778, "j": 16, "rows": 12800},  # eval: N = 200, B = 64
               "smpl": {"v": 6890, "j": 24, "rows": 3200}}  # ProHMR: N = 100, B = 32
-KINDS = ("realnvp", "stage1", "glow", "lbs", "gemm_probe", "stage1_probe")
+KINDS = ("realnvp", "stage1", "glow", "lbs", "gemm_probe", "stage1_probe", "stem_probe")
 RUNS = 3
 WINDOW_S = 0.5
 
@@ -287,6 +289,36 @@ def stage1_probe_cases(torch, timed, dev):
               lambda: stage1_cuda.stage1_forward(x, folded), None)
 
 
+def stem_probe_cases(torch, timed, dev):
+    """The tree's stem-probe envelope and its four cuts at B = 32, 128 conv
+    rows, with cuDNN's stem and the stem kernel at (32, 256, 256, 3)."""
+    from mhentropy_tpu_torch import stem_cost_attrib, stem_probe as probe
+    from mhentropy_tpu_torch.models import stem_cuda
+
+    b, rows = probe.B, probe.CONV_ROWS
+    planes32, a = probe.inputs(b, dev)
+    err = (probe.stem_probe(planes32, a) - probe.phase_plain("gemm", planes32, a)).abs().max()
+    timed("stem_probe_envelope", tuple(planes32.shape), rows, lambda: probe.stem_probe(planes32, a),
+          err.item())
+    planes, a = probe.inputs(b, dev, dtype=torch.bfloat16)
+    g, bb, s = probe.epilogue_operands(dev)
+    for phase in probe.PHASES:
+        def call(phase=phase):
+            return stem_cost_attrib.attrib_forward(planes, a, g, bb, s, phase, rows)
+
+        err = (call() - probe.phase_plain(phase, planes, a, g, bb, s, rows)).abs().max().item()
+        timed(f"stem_probe_{phase}", tuple(planes.shape), rows, call, err)
+    image, w, scale, shift = probe.cudnn_stem_operands(b, dev)
+    wf, bias = stem_cuda.fold(w.cpu(), scale.cpu(), shift.cpu(), torch.zeros(probe.FILTERS),
+                              torch.ones(probe.FILTERS))
+    wf, bias = wf.to(dev), bias.to(dev)
+    with torch.inference_mode():
+        timed("stem_cudnn", tuple(image.shape), b, lambda: probe.cudnn_stem(image, w, scale, shift),
+              None)
+        timed("stem_kernel", tuple(image.shape), b, lambda: stem_cuda.stem_forward(image, wf, bias),
+              None)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -343,6 +375,8 @@ def main(argv=None) -> int:
         gemm_probe_cases(torch, timed, dev)
     if "stage1_probe" in kinds:
         stage1_probe_cases(torch, timed, dev)
+    if "stem_probe" in kinds:
+        stem_probe_cases(torch, timed, dev)
 
     if args.out:
         with open(args.out, "a") as f:

@@ -21,7 +21,9 @@ tools/stem_cost_attrib.py:58 writes them), so they contribute nothing
 whatever `a` holds there. `PHASES` are the cuts of tools/stem_cost_attrib.py
 (rolls, im2col, gemm, full; see `phase_plain`), which
 `mhentropy_tpu_torch.stem_cost_attrib` times; this envelope is the gemm cut
-on f32 planes.
+on f32 planes. The kernel gives each block a band of consecutive conv rows
+of one image (`plan_band`) and streams the band's planes through shared
+memory once.
 
     python -m mhentropy_tpu_torch.stem_probe [check|time] [--device cpu]
 
@@ -53,7 +55,8 @@ TAPS21 = 21
 KDIM = 152  # 147 taps padded to the TPU's sublane multiple
 CONV_ROWS = 128
 PHASES = ("rolls", "im2col", "gemm", "full")
-ROWS_PER_BLOCK = 16  # the kernel's conv rows a block; conv_rows is a multiple, >= 32
+ROW_MULTIPLE = 16  # conv_rows and the kernel's bands are multiples; conv_rows >= 32
+BAND_OVERHEAD = 4  # a block's start, in conv rows: its first plane rows and the straddling row
 
 # (kx, c) -> (plane = column parity * 3 + c, lane shift): col = 2j + kx - 3
 # (models/stem_pallas.py:45, kept here so the port imports nothing of JAX).
@@ -145,6 +148,18 @@ def phase_plain(phase: str, planes, a, g=None, bb=None, s=None,
     return F.pad(total, (0, LANES - FILTERS))
 
 
+def plan_band(b: int, conv_rows: int, sms: int) -> int:
+    """Conv rows a block: the multiple of ROW_MULTIPLE that minimises waves
+    x (band + BAND_OVERHEAD) for b x ceil(conv_rows / band) blocks, one an
+    SM on `sms` SMs (ties: the larger band). 32 at B = 32 and 128 conv rows
+    on 132 SMs (128 blocks), 16 at 64 conv rows."""
+    def cost(band):
+        waves = -(-b * -(-conv_rows // band) // sms)
+        return waves * (band + BAND_OVERHEAD), -band
+
+    return min(range(ROW_MULTIPLE, conv_rows + 1, ROW_MULTIPLE), key=cost)
+
+
 def probe_forward(planes, a, g=None, bb=None, s=None, phase: str = "gemm",
                   conv_rows: int = CONV_ROWS) -> torch.Tensor:
     """The cut `phase` of the stem body on (B, 6, rows, 128) f32 or bf16
@@ -176,10 +191,12 @@ def _launch(planes, a, g, bb, s, phase: str, conv_rows: int) -> torch.Tensor:
                 f"stem probe: planes must be contiguous f32 or bf16 (B, 6, rows, 128), got "
                 f"{planes.dtype} {tuple(planes.shape)}")
     rows = planes.shape[2]
-    ext.require(conv_rows % ROWS_PER_BLOCK == 0 and conv_rows >= 2 * ROWS_PER_BLOCK
+    ext.require(conv_rows % ROW_MULTIPLE == 0 and conv_rows >= 2 * ROW_MULTIPLE
                 and 2 * conv_rows + 6 <= rows,
-                f"stem probe: conv_rows must be a multiple of {ROWS_PER_BLOCK}, at least "
-                f"{2 * ROWS_PER_BLOCK} and at most (rows - 6) / 2, got {conv_rows} for {rows} rows")
+                f"stem probe: conv_rows must be a multiple of {ROW_MULTIPLE}, at least "
+                f"{2 * ROW_MULTIPLE} and at most (rows - 6) / 2, got {conv_rows} for {rows} rows")
+    band = plan_band(planes.shape[0], conv_rows,
+                     torch.cuda.get_device_properties(dev).multi_processor_count)
     ext.require(a.shape == (1, FILTERS, KDIM) and a.dtype == torch.bfloat16 and a.is_contiguous()
                 and a.device == dev, "stem probe: a must be contiguous bf16 (1, 64, 152) there")
     if phase == "full":
@@ -192,7 +209,7 @@ def _launch(planes, a, g, bb, s, phase: str, conv_rows: int) -> torch.Tensor:
     err = ext.load().mhent_stem_probe(planes.data_ptr(), a.data_ptr(), ptr(g), ptr(bb), ptr(s),
                                       out.data_ptr(), planes.shape[0], rows, conv_rows,
                                       PHASES.index(phase), int(planes.dtype == torch.bfloat16),
-                                      ext.stream_of(planes))
+                                      band, ext.stream_of(planes))
     ext.check(err, "mhent_stem_probe")
     return out
 

@@ -138,11 +138,12 @@ def test_sampler_ab_times_the_smokes_glow_and_lbs_shapes():
     assert sampler_ab.LBS_SHAPES["smpl"] == {
         "v": smpl.N_VERTS, "j": 24, "rows": chip_smoke.PROHMR_BENCH[0] * chip_smoke.PROHMR_BENCH[1]}
     assert set(sampler_ab.KINDS) == {"realnvp", "stage1", "glow", "lbs", "gemm_probe",
-                                     "stage1_probe"}
+                                     "stage1_probe", "stem_probe"}
 
 
 @pytest.mark.parametrize("argv", [["--kinds", "glow,lbs"], ["--kinds", "lbs", "--tiles"], [],
-                                  ["--kinds", "gemm_probe,stage1_probe"]])
+                                  ["--kinds", "gemm_probe,stage1_probe"],
+                                  ["--kinds", "stem_probe"]])
 def test_sampler_ab_needs_a_card(argv, monkeypatch, capsys):
     """On the CPU the script parses its arguments and refuses to time: exit
     1, no line printed."""
@@ -168,7 +169,7 @@ def test_sampler_ab_refuses_an_unknown_kind(monkeypatch):
         sampler_ab.main(["--kinds", "glow,resnet"])
 
 
-@pytest.mark.parametrize("kind", ["gemm", "stage1"])
+@pytest.mark.parametrize("kind", ["gemm", "stage1", "stem"])
 def test_kernel_variants_apply_to_the_committed_sources(kind):
     """Every variant's substitutions match the kernel source as committed,
     and each variant but the base changes it."""

@@ -797,6 +797,37 @@ def test_stem_probe_refuses_what_it_does_not_take(dev):
         stem_probe.probe_forward(planes, a, phase="full")
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("phase", stem_probe.PHASES)
+@pytest.mark.parametrize("b,rows", [(3, 48), (3, 64), (48, 48)])
+def test_stem_probe_cut_matches_plain_at_band_edges(dev, dtype, phase, b, rows):
+    """Band edges on f32 and bf16 planes: B = 3 at 48 and 64 conv rows runs
+    bands of 16, B = 48 at 48 conv rows bands of 32, the second one ragged
+    (16 rows), on the H100's 132 SMs (`stem_probe.plan_band`)."""
+    planes, a = stem_probe.inputs(b, dev, seed=5, dtype=dtype)
+    g, bb, s = stem_probe.epilogue_operands(dev)
+    out = stem_probe.probe_forward(planes, a, g, bb, s, phase, rows)
+    ref = stem_probe.phase_plain(phase, planes, a, g, bb, s, rows)
+    assert out.shape == ref.shape == (b, 64, 128)
+    assert (out - ref).abs().max().item() <= stem_cost_attrib.tolerance(phase, ref)
+
+
+def test_stem_probe_full_cut_pools_across_a_band_boundary(dev):
+    """B = 2 at 64 conv rows runs bands of 16: pooled row 16 takes conv rows
+    31 (the second band's last) to 33. Planes zero but for the rows under
+    that boundary (plane rows 63-69, read by conv rows 28-34), so that the
+    output is that pooled row's and its neighbours' alone."""
+    planes, a = stem_probe.inputs(2, dev, seed=6, dtype=torch.bfloat16)
+    planes[:, :, :63] = 0
+    planes[:, :, 70:] = 0
+    g, bb, s = stem_probe.epilogue_operands(dev)
+    out = stem_probe.probe_forward(planes, a, g, bb, s, "full", 64)
+    ref = stem_probe.phase_plain("full", planes, a, g, bb, s, 64)
+    empty = stem_probe.phase_plain("full", torch.zeros_like(planes), a, g, bb, s, 64)
+    assert (ref - empty).abs().max().item() > 0
+    assert (out - ref).abs().max().item() <= stem_cost_attrib.tolerance("full", ref)
+
+
 @pytest.mark.parametrize("variant", ["a", "b"])
 @pytest.mark.parametrize("b,h,w", [(32, 64, 64), (2, 16, 16), (2, 32, 48), (2, 16, 24),
                                    (2, 24, 16), (1, 12, 40)])

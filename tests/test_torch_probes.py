@@ -130,6 +130,31 @@ def test_stem_probe_refusals():
         stem_probe.probe_forward(tp, ta, phase="epilogue")
 
 
+@pytest.mark.parametrize("b,rows,sms", [(32, 128, 132), (32, 64, 132), (3, 48, 132),
+                                         (48, 48, 132), (2, 64, 132), (1, 128, 132),
+                                         (64, 128, 132), (8, 96, 16)])
+def test_stem_band_plan_is_the_cheapest_wave_count(b, rows, sms):
+    """The kernel's band: a multiple of 16 within the conv rows whose waves x
+    (band + BAND_OVERHEAD) is least (ties: the larger band); one wave of 128
+    blocks at the probe's B = 32 and 128 conv rows on the H100's 132 SMs,
+    half the rows a block at half the conv rows; the card tests' band edges:
+    bands of 16 at B = 2 and 3, of 32 (the second ragged) at B = 48, 48 rows."""
+    band = stem_probe.plan_band(b, rows, sms)
+    assert band % stem_probe.ROW_MULTIPLE == 0 and 0 < band <= rows
+
+    def cost(x):
+        return -(-b * -(-rows // x) // sms) * (x + stem_probe.BAND_OVERHEAD)
+
+    others = range(stem_probe.ROW_MULTIPLE, rows + 1, stem_probe.ROW_MULTIPLE)
+    assert all(cost(band) < cost(x) or (cost(band) == cost(x) and band >= x) for x in others)
+    if (b, rows, sms) == (32, 128, 132):
+        assert band == 32
+    if (b, rows, sms) in ((32, 64, 132), (3, 48, 132), (2, 64, 132)):
+        assert band == 16
+    if (b, rows, sms) == (48, 48, 132):
+        assert band == 32
+
+
 def _stage1_operands(seed=3):
     rng = np.random.RandomState(seed)
     x = (rng.randn(1, 4096, 64) * 0.1).astype(np.float32)
