@@ -63,7 +63,8 @@
    base noise and sampler tree within INT8_TOL. bench_quant's steps at
    B=32, N=100 (q_from 1): bf16, int8, int8 + mid, int8 + int8 stem and
    both in alternating windows of BENCH_QUANT_STEPS steps, hypotheses/s,
-   with a torch.profiler trace of the int8 and int8 + mid steps.
+   with a torch.profiler trace of the int8, int8 + mid and int8 + int8
+   stem steps.
 6. Eval: the port's run.py path (Experiment.train_baseline with epochs 0)
    on configs/ho3d.yaml: the synthetic eval split of 128 at 256 px, B=64,
    N=200, float and with tpu.quantize_encoder; every metric finite; the
@@ -872,7 +873,7 @@ def stem_int8_case(torch, res, images, packed, site) -> dict:
     macs = bb * (px // 2) ** 2 * 64 * 147
     n_bytes = (images.numel() * 4 + out.numel() * 2
                + sum(packed[k].numel() * packed[k].element_size()
-                     for k in ("wk", "inv_a", "scale", "bias")))
+                     for k in ("wq", "inv_a", "scale", "bias")))
     return {"shape": list(images.shape), "max_abs_err": err, "tol": tol,
             "bf16_exact_share": exact, "window_s": NEW_WINDOW_S, **times,
             "bf16_stem_graph_ms": bf16_stem,
@@ -1173,7 +1174,8 @@ def phase_bench_quant(torch, dev):
     """bench_quant's steps at N=100, B=32 (q_from = 1, its default): the
     bf16, int8, int8 + mid, int8 + int8 stem and int8 + both sides in
     alternating windows of BENCH_QUANT_STEPS steps; a torch.profiler trace
-    of two steps of the int8 and int8 + mid sides."""
+    of two steps of the int8, int8 + mid and int8 + int8 stem sides (the
+    last gives the W8A8 stem's device time inside the step)."""
     from mhentropy_tpu_torch import bench_quant
 
     bb, n = BENCH_QUANT
@@ -1185,7 +1187,7 @@ def phase_bench_quant(torch, dev):
                                                   pallas_mid=True)
     steps = bench_quant.make_steps(model, net, images, n, sides)
     out = bench_quant.run(steps, BENCH_QUANT_STEPS, True, bb, n)
-    for side in ("int8", "int8_mid"):
+    for side in ("int8", "int8_mid", "int8_stem"):
         out[side]["trace"] = trace_steps(torch, steps[side], out[side]["ms_per_step"], n=2)
     return out
 

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (glow_sampler.cu, int8_gemm_probe.cu, stem_probe.cu): mbarriers, TMA
-// loads and stores through tensor maps, wgmma descriptors and fences, and
-// the host's cuTensorMapEncodeTiled, looked up through the runtime so that
-// the library needs no -lcuda.
+// (glow_sampler.cu, int8_gemm_probe.cu, stem_probe.cu, stem_int8.cu):
+// mbarriers, bulk copies, TMA loads and stores through tensor maps, wgmma
+// descriptors and fences, and the host's cuTensorMapEncodeTiled, looked up
+// through the runtime so that the library needs no -lcuda.
 
 #pragma once
 
@@ -47,6 +47,16 @@ static __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) 
         : "memory");
     if (polls > (1 << 22)) __trap();
   }
+}
+
+// `bytes` (a multiple of 16) of contiguous device memory at src into shared
+// memory at dst, both 16-byte aligned, completing on mbarrier `bar`.
+static __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                                 uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // A box of a 2D tensor map at (col, row) into shared memory, completing on

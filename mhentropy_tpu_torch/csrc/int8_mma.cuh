@@ -1,5 +1,5 @@
-// s8 x s8 -> s32 tensor-core helpers shared by the int8 kernels
-// (stem_int8.cu, stage2_int8.cu, int8_gemm_probe.cu): mma.sync m16n8k32
+// s8 x s8 -> s32 tensor-core helpers of the int8 stage kernel
+// (stage2_int8.cu): mma.sync m16n8k32
 // with its fragments loaded by hand. WMMA's int8 tiles step K by 16 bytes, below its
 // documented 32-byte pointer alignment; these loads need 4-byte alignment
 // only.

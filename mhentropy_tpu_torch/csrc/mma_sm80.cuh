@@ -1,5 +1,6 @@
 // mma.sync building blocks shared by the bf16 stage-1 kernels (stage1.cu,
-// stage1_probe.cu; the swizzle and bf16 packing also stem_probe.cu):
+// stage1_probe.cu; the swizzle and bf16 packing also stem_probe.cu, the
+// swizzle stem_int8.cu):
 // shared-memory addresses, the XOR swizzle of their
 // 128- and 512-byte-row tiles, zero-filling cp.async, ldmatrix and the
 // m16n8k16 bf16 product.

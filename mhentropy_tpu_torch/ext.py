@@ -51,7 +51,7 @@ _SIGNATURES = {
     "mhent_bn_stats_sums": [_P] * 4 + [_I] * 4 + [_P],
     "mhent_bn_grad_sums": [_P] * 5 + [_I] * 4 + [_P],
     "mhent_glow_sample": [_P] * 22 + [_I] * 6 + [_P],
-    "mhent_stem_int8_forward": [_P] * 6 + [_I] * 4 + [_P],
+    "mhent_stem_int8_forward": [_P] * 6 + [_I] * 6 + [_P],
     "mhent_stage2_int8_block": [_P] * 21 + [_I] * 9 + [_P],
     "mhent_gemm_probe_s8": [_P] * 3 + [_I] * 3 + [_P],
     "mhent_gemm_probe_bf16": [_P] * 3 + [_I] * 3 + [_P],

@@ -1,10 +1,11 @@
-"""Times variants of the GEMM probe, stage-1 probe and stem probe kernels on
-the card, each the committed source with textual substitutions, built by
-`nvcc` into a library of its own: where each kernel's time goes (loads only,
-products only, no output stores, no layout transpose) and the ring depths
-and warp counts the probes chose.
+"""Times variants of the GEMM probe, stage-1 probe and stem probe kernels and
+of the W8A8 stem on the card, each the committed source with textual
+substitutions, built by `nvcc` into a library of its own: where each
+kernel's time goes (loads only, products only, no output stores, no layout
+transpose) and the ring depths and warp counts the kernels chose.
 
-    python -m mhentropy_tpu_torch.kernel_variants [--kinds gemm,stage1,stem] [--out FILE]
+    python -m mhentropy_tpu_torch.kernel_variants [--kinds gemm,stage1,stem,stem_int8]
+        [--out FILE]
 
 Each variant prints one JSON line: ms a call by CUDA events (the median of
 three windows of `profile_step.cuda_ms`, eager), the max-abs difference of
@@ -13,13 +14,16 @@ output by design), and the card's name and power limit. The GEMM variants
 run at the probe's (32768, 640, 512), s8 and bf16; the stage-1 variants run
 the probe's three launches at B = 32, 64 x 64, both layouts; the stem
 variants run each cut at B = 32, 128 conv rows on bf16 planes and the
-envelope (the gemm cut on f32 planes). Runs only on a CUDA card.
+envelope (the gemm cut on f32 planes); the W8A8 stem variants run at B = 8
+and 32, 256 x 256, bf16 out, on both of its paths, as CUDA-graph replays.
+Runs only on a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import json
 import statistics
 import subprocess
@@ -107,7 +111,75 @@ VARIANTS = {
         "no_reductions": [('  asm volatile("red.global.add.v4.f32',
                            '  if (a == 1.25e-38f) asm volatile("red.global.add.v4.f32')],
     }),
+    "stem_int8": ("stem_int8.cu", {
+        "base": [],
+        # The consumer waits for each im2col stage and releases it without a product.
+        "no_products": [("      wgmma_s8_n128(acc, sw128_desc(a), sw128_desc(bm), ky > 0);",
+                         "      (void)a;\n      (void)bm;")],
+        # The products run, the pool, the affine and the output stores do not.
+        "no_epilogue": [("    // The pool on the exact sums:", "    return;\n    //")],
+        # The input rows still land (and are waited for), but are not quantised.
+        "no_quantise": [("          quantise_pair(q, c0);\n", "")],
+        # Each pair quantised twice: what one more quantise pass costs.
+        "quantise_twice": [("          quantise_pair(q, c0);\n",
+                            "          quantise_pair(q, c0);\n          quantise_pair(q, c0);\n")],
+        # No im2col stage is built: the products read stale stages.
+        "no_build": [("        if (bt < n_valid) {", "        if (bt < n_valid && W < 0) {")],
+        # The builders only wait for the rows and hand the stages over.
+        "no_quantise_no_build": [("          quantise_pair(q, c0);\n", ""),
+                                 ("        if (bt < n_valid) {",
+                                  "        if (bt < n_valid && W < 0) {")],
+        # Without the builders' proxy fence before each stage's handover.
+        "no_build_fence": [("        fence_proxy_async();\n        mbar_arrive(bm_full + 8 * st);",
+                            "        mbar_arrive(bm_full + 8 * st);")],
+        "pairs8": [("constexpr int kPairSlots = 4;", "constexpr int kPairSlots = 8;")],
+        "ahead2": [("constexpr int kStages = 4;", "constexpr int kStages = 2;")],
+    }),
 }
+
+
+# The W8A8 stem with clock64 stamps at its phase boundaries, in block (1, 0)
+# (a band after the first): builder thread 0 at 512 + 8 it + {0: row start,
+# 1: its input rows quantised, 2: its stage free, 3: the stage built and
+# handed over, 4: its last input-row pair landed}; consumer thread 0 at 8 it
+# + {0: the stage full, 1: its products done, 2: its epilogue done}; 1000:
+# the consumer's weights loaded, 1001: the kernel's start.
+_STAMP = ("if (blockIdx.x == 1 && blockIdx.y == 0 && threadIdx.x % 128 == 0) "
+          "g_stamps[{}] = clock64();")
+STEM_INT8_SPLIT = [
+    ("namespace {\n\nconstexpr int kF = 64;",
+     "__device__ long long g_stamps[1024];\nnamespace {\n\nconstexpr int kF = 64;"),
+    ("  __syncthreads();\n", "  __syncthreads();\n  if (threadIdx.x == 0) { " + _STAMP.format(1001)
+     + " }\n"),
+    ("        const int i = start + l, q0 = l == 0 ? 0 : l + 3;\n",
+     "        const int i = start + l, q0 = l == 0 ? 0 : l + 3;\n        "
+     + _STAMP.format("512 + 8 * it") + "\n"),
+    ("          if (BULK) mbar_wait(pair_full + 8 * (q % kPairSlots), (q / kPairSlots) & 1);\n",
+     "          if (BULK) mbar_wait(pair_full + 8 * (q % kPairSlots), (q / kPairSlots) & 1);\n"
+     "          " + _STAMP.format("512 + 8 * it + 4") + "\n"),
+    ("        named_sync(1, 128);  // the window's rows",
+     "        " + _STAMP.format("512 + 8 * it + 1")
+     + "\n        named_sync(1, 128);  // the window's rows"),
+    ("          mbar_wait(bm_empty + 8 * st, ((it / kStages) & 1) ^ 1);\n",
+     "          mbar_wait(bm_empty + 8 * st, ((it / kStages) & 1) ^ 1);\n        "
+     + _STAMP.format("512 + 8 * it + 2") + "\n"),
+    ("        mbar_arrive(bm_full + 8 * st);\n",
+     "        mbar_arrive(bm_full + 8 * st);\n        " + _STAMP.format("512 + 8 * it + 3") + "\n"),
+    ("  named_sync(2, 128);\n  // wq's rows", "  named_sync(2, 128);\n  " + _STAMP.format(1000)
+     + "\n  // wq's rows"),
+    ("  auto wait_full = [&](int it) { mbar_wait(bm_full + 8 * (it % kStages), "
+     "(it / kStages) & 1); };",
+     "  auto wait_full = [&](int it) {\n    mbar_wait(bm_full + 8 * (it % kStages), "
+     "(it / kStages) & 1);\n    " + _STAMP.format("8 * it") + "\n  };"),
+    ("    mbar_arrive(bm_empty + 8 * (it % kStages));\n",
+     "    mbar_arrive(bm_empty + 8 * (it % kStages));\n    " + _STAMP.format("8 * it + 1") + "\n"),
+    ("row_at(i / 2), n_pool);\n    }\n  };\n",
+     "row_at(i / 2), n_pool);\n    }\n    " + _STAMP.format("8 * it + 2") + "\n  };\n"),
+    ("extern \"C\" int mhent_stem_int8_forward(",
+     "extern \"C\" int mhent_stem_int8_stamps(void* host) {\n"
+     "  return (int)cudaMemcpyFromSymbol(host, g_stamps, sizeof(g_stamps));\n}\n\n"
+     "extern \"C\" int mhent_stem_int8_forward("),
+]
 
 
 def _substitute(text: str, old: str, new: str, occurrence: int = 0) -> str:
@@ -133,12 +205,13 @@ def variant_sources(kind: str) -> dict:
     return out
 
 
-def build(kind: str) -> dict:
-    """{variant: ctypes library}, each built by its own nvcc, all at once."""
+def build(kind: str, sources: dict | None = None) -> dict:
+    """{variant: ctypes library}, each built by its own nvcc, all at once
+    (`sources`: {variant: text}, default `kind`'s variants)."""
     out_dir = ext.BUILD_DIR / "variants" / kind
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for variant, text in variant_sources(kind).items():
+    for variant, text in (sources or variant_sources(kind)).items():
         src = out_dir / f"{variant}.cu"
         src.write_text(text)
         cmd = [ext._nvcc(), *ext.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -248,15 +321,111 @@ def stem_cases(libs: dict, dev, emit) -> None:
                   "conv_rows": rows, "band": band, "ms": _ms(call), "max_abs_diff": err})
 
 
+def stem_int8_cases(libs: dict, dev, emit) -> None:
+    from mhentropy_tpu_torch import profile_step
+    from mhentropy_tpu_torch.models import stem_int8_cuda as stem
+    from mhentropy_tpu_torch.models.stem_cuda import out_hw
+
+    g = torch.Generator().manual_seed(6)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b in (8, 32):
+        image = (torch.randn((b, 256, 256, 3), generator=g) * 1.5).to(dev)
+        conv = (torch.randn((64, 3, 7, 7), generator=g) * (2 / 147) ** 0.5).to(dev)
+        bn = torch.nn.BatchNorm2d(64).eval().to(dev)
+        site = stem.prepare_stem_site(conv, bn, image.abs().amax(dim=(0, 1, 2)))
+        packed = stem.pack(site)
+        ref = stem.stem_plain(image, site)
+        out = torch.empty((b, *out_hw(256, 256), 64), dtype=torch.bfloat16, device=dev)
+        band = stem.plan_band(b, 128, 1, sms)
+        for variant, lib in libs.items():
+            fn = lib.mhent_stem_int8_forward
+            fn.argtypes = ext._SIGNATURES["mhent_stem_int8_forward"]
+            for bulk in (1, 0):
+                def call(fn=fn, bulk=bulk):
+                    ext.check(fn(image.data_ptr(), packed["wq"].data_ptr(),
+                                 packed["inv_a"].data_ptr(), packed["scale"].data_ptr(),
+                                 packed["bias"].data_ptr(), out.data_ptr(), b, 256, 256, 1, band,
+                                 bulk, ext.stream_of(image)), f"int8 stem variant {variant}")
+
+                call()
+                err = (out.float() - ref).abs().max().item()
+                emit({"kernel": "stem_int8", "variant": variant, "bulk": bulk,
+                      "shape": list(image.shape), "band": band,
+                      "graph_ms": _ms(profile_step.graphed(call)), "max_abs_diff": err})
+
+
+SPLIT_VARIANTS = ("base", "no_epilogue", "no_products", "no_quantise")
+
+
+def stem_int8_split(dev, emit) -> None:
+    """The stamped W8A8 stem (STEM_INT8_SPLIT; the base source and the
+    SPLIT_VARIANTS cuts) at B = 8 and 32, bulk path:
+    block (1, 0)'s cycles a conv row in each phase, median over its rows
+    (the first row, which quantises four pairs, apart), and its start."""
+    from mhentropy_tpu_torch.models import stem_int8_cuda as stem
+    from mhentropy_tpu_torch.models.stem_cuda import out_hw
+
+    sources = variant_sources("stem_int8")
+    sources = {name: sources[name] for name in SPLIT_VARIANTS}
+    for name, text in sources.items():
+        for sub in STEM_INT8_SPLIT:
+            text = _substitute(text, *sub)
+        sources[name] = text
+    libs = build("stem_int8_split", sources)
+    g = torch.Generator().manual_seed(6)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for (variant, lib), b in itertools.product(libs.items(), (8, 32)):
+        fn = lib.mhent_stem_int8_forward
+        fn.argtypes = ext._SIGNATURES["mhent_stem_int8_forward"]
+        lib.mhent_stem_int8_stamps.argtypes = [ctypes.c_void_p]
+        image = (torch.randn((b, 256, 256, 3), generator=g) * 1.5).to(dev)
+        conv = (torch.randn((64, 3, 7, 7), generator=g) * (2 / 147) ** 0.5).to(dev)
+        packed = stem.pack(stem.prepare_stem_site(conv, torch.nn.BatchNorm2d(64).eval().to(dev),
+                                                  image.abs().amax(dim=(0, 1, 2))))
+        out = torch.empty((b, *out_hw(256, 256), 64), dtype=torch.bfloat16, device=dev)
+        band = stem.plan_band(b, 128, 1, sms)
+        for _ in range(3):  # warm: the last launch's stamps are read
+            ext.check(fn(image.data_ptr(), packed["wq"].data_ptr(), packed["inv_a"].data_ptr(),
+                         packed["scale"].data_ptr(), packed["bias"].data_ptr(), out.data_ptr(),
+                         b, 256, 256, 1, band, 1, ext.stream_of(image)), "stamped int8 stem")
+        torch.cuda.synchronize()
+        st = torch.zeros(1024, dtype=torch.int64)
+        ext.check(lib.mhent_stem_int8_stamps(st.data_ptr()), "mhent_stem_int8_stamps")
+        rows = band + 1  # block 1 also computes the straddling row
+        t = st.tolist()
+        bld = [[t[512 + 8 * r + k] for k in range(5)] for r in range(rows)]
+        con = [[t[8 * r + k] for k in range(3)] for r in range(rows)]
+
+        def med(xs):
+            return statistics.median(xs[1:]) if len(xs) > 1 else xs[0]
+
+        emit({"kernel": "stem_int8", "split": "clock64 cycles a conv row, block (1, 0)",
+              "variant": variant, "shape": list(image.shape), "band": band, "rows": rows,
+              "builder": {"pair_wait": med([r[4] - r[0] for r in bld]),
+                          "quantise": med([r[1] - r[4] for r in bld]),
+                          "wait_stage": med([r[2] - r[1] for r in bld]),
+                          "build": med([r[3] - r[2] for r in bld]),
+                          "row": med([bld[r + 1][0] - bld[r][0] for r in range(rows - 1)]),
+                          "first_row": bld[0][3] - t[1001]},
+              "consumer": {"wait_full": med([con[r + 1][0] - con[r - 1][2]
+                                             for r in range(1, rows - 1)]),
+                           "wait_products": med([con[r][1] - con[r + 1][0]
+                                                 for r in range(1, rows - 1)]),
+                           "epilogue": med([r[2] - r[1] for r in con]),
+                           "row": med([con[r + 1][1] - con[r][1] for r in range(rows - 1)]),
+                           "first_products": con[0][1] - t[1001], "weights": t[1000] - t[1001]},
+              "block_cycles": con[-1][2] - t[1001]})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kinds", default="gemm,stage1,stem",
-                    help="comma-separated: gemm, stage1, stem")
+    ap.add_argument("--kinds", default="gemm,stage1,stem,stem_int8",
+                    help="comma-separated: gemm, stage1, stem, stem_int8, stem_int8_split")
     ap.add_argument("--out", default=None, help="append the JSON lines to this file")
     args = ap.parse_args(argv)
     kinds = args.kinds.split(",")
-    if not set(kinds) <= set(VARIANTS):
-        ap.error(f"--kinds takes {', '.join(VARIANTS)}, not {args.kinds}")
+    if not set(kinds) <= set(VARIANTS) | {"stem_int8_split"}:
+        ap.error(f"--kinds takes {', '.join(VARIANTS)}, stem_int8_split, not {args.kinds}")
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device; it times the kernels on the card",
               file=sys.stderr)
@@ -273,7 +442,11 @@ def main(argv=None) -> int:
         lines.append(line)
 
     for kind in kinds:
-        {"gemm": gemm_cases, "stage1": stage1_cases, "stem": stem_cases}[kind](
+        if kind == "stem_int8_split":
+            stem_int8_split(dev, emit)
+            continue
+        {"gemm": gemm_cases, "stage1": stage1_cases, "stem": stem_cases,
+         "stem_int8": stem_int8_cases}[kind](
             build(kind), dev, emit)
     if args.out:
         with open(args.out, "a") as f:

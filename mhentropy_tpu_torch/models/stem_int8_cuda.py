@@ -14,14 +14,19 @@ f32 image:
 the weights before their per-output-channel quantisation (the contraction
 mixes channels of different scales), and eval BN into the epilogue affine;
 the pool follows the affine because BN's gamma may be negative. `pack`
-lays a site out for the kernel. `stem_forward_q` runs it: CPU tensors take
-`stem_plain`; CUDA tensors launch the kernel, and anything it does not take
-raises. `supported` is the JAX package's geometry gate (:255) without its
-backend clause: it decides whether `models/quant.py` runs the stem in int8
-at all, so it is kept exactly.
+lays a site out for the kernel: `wq`, the weights as the K-major s8 operand
+of its products. `stem_forward_q` runs it: CPU tensors take `stem_plain`;
+CUDA tensors launch the kernel, and anything it does not take raises. The
+kernel gives each block a band of conv rows (`plan_band`) and takes the
+bulk-copy path where the image's rows allow it. `supported` is the JAX
+package's geometry gate (:255) without its backend clause: it decides
+whether `models/quant.py` runs the stem in int8 at all, so it is kept
+exactly.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch.nn import functional as F
@@ -30,7 +35,10 @@ from mhentropy_tpu_torch import ext
 from mhentropy_tpu_torch.models.stem_cuda import F_OUT, TAPS, out_hw
 
 EPS = 1e-5
-ROW_TAPS = 24  # a kernel row's 21 (kx, c) taps padded to six 4-byte words
+ROW_TAPS = 32  # a kernel row's 21 (kx, c) taps padded to one 32-byte k-step
+K_BYTES = 7 * ROW_TAPS  # the kernel's K: seven kernel rows' runs
+CONV_COLS = 128  # conv columns a tile of the kernel: W <= 256 is one tile
+BAND_OVERHEAD = 4  # a block's start, in conv rows: its first input rows and the straddling row
 
 # Kernel launches since the count was last reset; nothing else touches it.
 launches = 0
@@ -55,11 +63,16 @@ def prepare_stem_site(conv_w: torch.Tensor, bn, act_maxabs: torch.Tensor) -> dic
 
 @torch.no_grad()
 def pack(site: dict) -> dict:
-    """The site with the kernel's weight layout added: wk (7, 64, 24) int8,
-    [ky][f][kx * 3 + c], the last three taps of each row zero."""
-    wk = site["w8"].permute(0, 3, 1, 2).reshape(7, F_OUT, 21)
-    wk = F.pad(wk, (0, ROW_TAPS - 21)).contiguous()
-    return {"w8": site["w8"], "wk": wk, "inv_a": site["inv_a"].float().contiguous(),
+    """The site with the kernel's weight operand added: wq (64, 224) int8,
+    K-major, [f][ky * 32 + kx * 3 + c] times the sign of scale[f]; taps 21-31
+    of each kernel row's run are zero (the kernel's im2col holds other bytes
+    there). The kernel takes |scale|: a filter's negated sums times |scale|
+    are its sums times scale, exactly, and its affine is then non-decreasing
+    in the sum, so the kernel pools the sums before it."""
+    sign = torch.where(site["scale"] < 0, -1, 1).to(torch.int8)
+    wq = site["w8"].permute(3, 0, 1, 2).reshape(F_OUT, 7, 21)  # HWIO -> [f][ky][kx * 3 + c]
+    wq = F.pad(wq, (0, ROW_TAPS - 21)).reshape(F_OUT, K_BYTES) * sign[:, None]
+    return {"w8": site["w8"], "wq": wq.contiguous(), "inv_a": site["inv_a"].float().contiguous(),
             "scale": site["scale"].float().contiguous(),
             "bias": site["bias"].float().contiguous()}
 
@@ -67,6 +80,26 @@ def pack(site: dict) -> dict:
 def supported(x: torch.Tensor, num_filters: int = F_OUT, train: bool = False) -> bool:
     return (not train and x.dim() == 4 and x.shape[1] % 4 == 0 and x.shape[1] >= 8
             and x.shape[2] == 256 and x.shape[3] == 3 and num_filters == F_OUT)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_band(b: int, conv_rows: int, tiles: int, sms: int) -> int:
+    """Conv rows a block (even): the band that minimises waves x tiles x
+    (band + BAND_OVERHEAD) for b x ceil(conv_rows / band) blocks, one an SM
+    on `sms` SMs (ties: the larger band). 32 at B = 32 and 8 at B = 8 for
+    128 conv rows on 132 SMs (128 blocks). Cached: the launch path asks it
+    every call."""
+    def cost(band):
+        waves = -(-b * -(-conv_rows // band) // sms)
+        return waves * tiles * (band + BAND_OVERHEAD), -band
+
+    return min(range(2, conv_rows + 2, 2), key=cost)
+
+
+def col_tiles(wp: int) -> int:
+    """The kernel's column tiles for wp pooled columns: 64 in the first, 63
+    in each later one."""
+    return 1 if wp <= 64 else 1 + -(-(wp - 64) // 63)
 
 
 def stem_forward_q(image: torch.Tensor, packed: dict,
@@ -93,7 +126,11 @@ def stem_plain(image: torch.Tensor, site: dict) -> torch.Tensor:
     return F.max_pool2d(y.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
 
 
-def _stem_kernel(image: torch.Tensor, packed: dict, out_dtype) -> torch.Tensor:
+def _stem_kernel(image: torch.Tensor, packed: dict, out_dtype,
+                 bulk: bool | None = None) -> torch.Tensor:
+    """The kernel launch. `bulk` picks its path: bulk copies of the input rows
+    (W <= 256, W a multiple of 4, a 16-byte aligned image; the default where
+    those hold) or loads by the quantising threads (any shape)."""
     global launches
     ext.require(image.is_cuda, f"int8 stem: unsupported device {image.device}")
     ext.require(image.dim() == 4 and image.shape[3] == 3,
@@ -102,21 +139,29 @@ def _stem_kernel(image: torch.Tensor, packed: dict, out_dtype) -> torch.Tensor:
                 f"int8 stem: image must be contiguous float32 NHWC, got {image.dtype}")
     ext.require(out_dtype in (torch.bfloat16, torch.float32),
                 f"int8 stem: out_dtype {out_dtype} is neither bfloat16 nor float32")
-    wk, inv_a, scale, bias = packed["wk"], packed["inv_a"], packed["scale"], packed["bias"]
-    ext.require(wk.shape == (7, F_OUT, ROW_TAPS) and wk.dtype == torch.int8
-                and wk.is_contiguous(), "int8 stem: packed weights must be contiguous int8 "
-                f"{(7, F_OUT, ROW_TAPS)} (stem_int8_cuda.pack)")
+    wq, inv_a, scale, bias = packed["wq"], packed["inv_a"], packed["scale"], packed["bias"]
+    ext.require(wq.shape == (F_OUT, K_BYTES) and wq.dtype == torch.int8
+                and wq.is_contiguous(), "int8 stem: packed weights must be contiguous int8 "
+                f"{(F_OUT, K_BYTES)} (stem_int8_cuda.pack)")
     for t, n in ((inv_a, 3), (scale, F_OUT), (bias, F_OUT)):
         ext.require(t.shape == (n,) and t.dtype == torch.float32 and t.is_contiguous(),
                     f"int8 stem: scales must be contiguous float32, got {tuple(t.shape)}")
-    ext.require(all(t.device == image.device for t in (wk, inv_a, scale, bias)),
+    ext.require(all(t.device == image.device for t in (wq, inv_a, scale, bias)),
                 "int8 stem: tensors on different devices")
     b, h, w, _ = image.shape
+    ext.require(b <= 65535, f"int8 stem: at most 65,535 images a call, got {b}")
+    can_bulk = w % 4 == 0 and w <= 2 * CONV_COLS and image.data_ptr() % 16 == 0
+    bulk = can_bulk if bulk is None else bulk
+    ext.require(can_bulk or not bulk, f"int8 stem: the bulk path takes W <= {2 * CONV_COLS}, "
+                f"a multiple of 4, on a 16-byte aligned image, got {tuple(image.shape)}")
     hp, wp = out_hw(h, w)
+    band = plan_band(b, (h - 1) // 2 + 1, col_tiles(wp),
+                     torch.cuda.get_device_properties(image.device).multi_processor_count)
     out = torch.empty((b, hp, wp, F_OUT), dtype=out_dtype, device=image.device)
     err = ext.load().mhent_stem_int8_forward(
-        image.data_ptr(), wk.data_ptr(), inv_a.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), b, h, w, int(out_dtype == torch.bfloat16), ext.stream_of(image))
+        image.data_ptr(), wq.data_ptr(), inv_a.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), b, h, w, int(out_dtype == torch.bfloat16), band, int(bulk),
+        ext.stream_of(image))
     ext.check(err, "mhent_stem_int8_forward")
     launches += 1
     return out

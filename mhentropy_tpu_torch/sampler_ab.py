@@ -1,17 +1,18 @@
 """Times the RealNVP sampler kernels, int8 stage 1, the Glow sampler, the
-LBS blend and the GEMM, stage-1 and stem probes of one checkout of the port
-at the main path's (and the probes') shapes, so that two trees can be
-compared on one card in turns.
+LBS blend, the GEMM, stage-1 and stem probes and the W8A8 stem of one
+checkout of the port at the main path's (and the probes') shapes, so that
+two trees can be compared on one card in turns.
 
     python mhentropy_tpu_torch/sampler_ab.py [--root DIR] [--label NAME] [--out FILE]
-        [--tiles] [--kinds realnvp,stage1,glow,lbs,gemm_probe,stage1_probe,stem_probe]
+        [--tiles] [--kinds realnvp,stage1,glow,lbs,gemm_probe,stage1_probe,stem_probe,stem_int8]
 
 `--root` is the checkout whose `mhentropy_tpu_torch` is imported (default:
 the one holding this file), so the same script times an older tree's
 kernels through that tree's own wrappers (`cuda_sampler.pack`, `transform`,
 `cuda_sampler_int8.transform_q`, `stage1_int8_cuda.stage1_forward_q`,
 `cuda_glow_sampler.pack` / `pack_context` / `transform`, `lbs_cuda.lbs_blend`,
-`int8_gemm_probe`, `stage1_probe`, `stem_probe`, `stem_cost_attrib`): run
+`int8_gemm_probe`, `stage1_probe`, `stem_probe`, `stem_cost_attrib`,
+`stem_int8_cuda.prepare_stem_site` / `pack` / `stem_forward_q`): run
 it on the parent tree and on this one in turns (parent, this, this, parent)
 within one call. Each shape prints one JSON line: the kernel's median ms of
 RUNS windows as CUDA-graph replays and eagerly, with [min, max], its
@@ -33,7 +34,11 @@ with `torch._int_mm` and `torch.matmul` (bf16) beside them; the stage-1
 probe's variants A and B at B = 32, 64 x 64, with cuDNN's stage 1 and the
 bf16 stage-1 kernel beside them; the stem probe's envelope (f32 planes)
 and its four cuts (bf16 planes) at B = 32, 128 conv rows, with cuDNN's stem
-and the stem kernel at (32, 256, 256, 3) beside them. `--kinds` picks the
+and the stem kernel at (32, 256, 256, 3) beside them; the W8A8 stem at (B,
+256, 256, 3) for B = 8 and 32 on a calibrated site (He-initialised conv,
+random BN with a negative gamma at every third filter), bf16 out, with the
+bf16 stem kernel on the same images and the stem probe's full cut at B = 32
+beside it. `--kinds` picks the
 families (default: all). Runs only on a CUDA card. It times with the tree's own
 `profile_step` helpers (`cuda_ms`, `graphed`, `card_line`), so both trees
 need that module. `--tiles` (this tree only)
@@ -61,7 +66,9 @@ GLOW_SHAPES = {"prohmr": {"d": 144, "h": 1024, "c": 2048, "b": 32, "n": 100},
                "mhent_glow": {"d": 45, "h": 512, "c": 512, "b": 8, "n": 200}}
 LBS_SHAPES = {"mano": {"v": 778, "j": 16, "rows": 12800},  # eval: N = 200, B = 64
               "smpl": {"v": 6890, "j": 24, "rows": 3200}}  # ProHMR: N = 100, B = 32
-KINDS = ("realnvp", "stage1", "glow", "lbs", "gemm_probe", "stage1_probe", "stem_probe")
+KINDS = ("realnvp", "stage1", "glow", "lbs", "gemm_probe", "stage1_probe", "stem_probe",
+         "stem_int8")
+STEM_INT8_BATCHES = (8, 32)  # chip_smoke.py's MID_BATCHES
 RUNS = 3
 WINDOW_S = 0.5
 
@@ -319,6 +326,44 @@ def stem_probe_cases(torch, timed, dev):
               None)
 
 
+def stem_int8_cases(torch, timed, dev):
+    """The tree's W8A8 stem at each STEM_INT8_BATCHES batch against its plain
+    version; the bf16 stem kernel on the same images, and at B = 32 the stem
+    probe's full cut, beside it."""
+    from mhentropy_tpu_torch import stem_cost_attrib, stem_probe as probe
+    from mhentropy_tpu_torch.models import stem_cuda, stem_int8_cuda
+
+    g = torch.Generator().manual_seed(7)
+    conv = torch.randn((64, 3, 7, 7), generator=g) * (2 / 147) ** 0.5
+    bn = torch.nn.BatchNorm2d(64).eval()
+    with torch.no_grad():
+        bn.weight.copy_(1.0 + 0.2 * torch.randn(64, generator=g))
+        bn.weight[::3] *= -1
+        bn.bias.copy_(0.1 * torch.randn(64, generator=g))
+        bn.running_mean.copy_(0.1 * torch.randn(64, generator=g))
+        bn.running_var.copy_(1.0 + 0.5 * torch.rand(64, generator=g))
+    wf, bias = (t.to(dev) for t in stem_cuda.fold(conv, bn.weight, bn.bias, bn.running_mean,
+                                                   bn.running_var))
+    with torch.inference_mode():
+        for b in STEM_INT8_BATCHES:
+            image = (torch.randn((b, 256, 256, 3), generator=g) * 1.5).to(dev)
+            site = stem_int8_cuda.prepare_stem_site(conv.to(dev), bn.to(dev),
+                                                    image.abs().amax(dim=(0, 1, 2)))
+            packed = stem_int8_cuda.pack(site)
+            out = stem_int8_cuda.stem_forward_q(image, packed)
+            err = (out.float() - stem_int8_cuda.stem_plain(image, site)).abs().max().item()
+            timed("stem_int8", tuple(image.shape), b,
+                  lambda: stem_int8_cuda.stem_forward_q(image, packed), err)
+            image_bf16 = image.to(torch.bfloat16)
+            timed("stem_bf16_kernel", tuple(image.shape), b,
+                  lambda: stem_cuda.stem_forward(image_bf16, wf, bias), None)
+        planes, a = probe.inputs(probe.B, dev, dtype=torch.bfloat16)
+        gg, bb, s = probe.epilogue_operands(dev)
+        timed("stem_probe_full", tuple(planes.shape), probe.CONV_ROWS,
+              lambda: stem_cost_attrib.attrib_forward(planes, a, gg, bb, s, "full",
+                                                      probe.CONV_ROWS), None)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -377,6 +422,8 @@ def main(argv=None) -> int:
         stage1_probe_cases(torch, timed, dev)
     if "stem_probe" in kinds:
         stem_probe_cases(torch, timed, dev)
+    if "stem_int8" in kinds:
+        stem_int8_cases(torch, timed, dev)
 
     if args.out:
         with open(args.out, "a") as f:

@@ -138,12 +138,13 @@ def test_sampler_ab_times_the_smokes_glow_and_lbs_shapes():
     assert sampler_ab.LBS_SHAPES["smpl"] == {
         "v": smpl.N_VERTS, "j": 24, "rows": chip_smoke.PROHMR_BENCH[0] * chip_smoke.PROHMR_BENCH[1]}
     assert set(sampler_ab.KINDS) == {"realnvp", "stage1", "glow", "lbs", "gemm_probe",
-                                     "stage1_probe", "stem_probe"}
+                                     "stage1_probe", "stem_probe", "stem_int8"}
+    assert sampler_ab.STEM_INT8_BATCHES == chip_smoke.MID_BATCHES
 
 
 @pytest.mark.parametrize("argv", [["--kinds", "glow,lbs"], ["--kinds", "lbs", "--tiles"], [],
                                   ["--kinds", "gemm_probe,stage1_probe"],
-                                  ["--kinds", "stem_probe"]])
+                                  ["--kinds", "stem_probe"], ["--kinds", "stem_int8"]])
 def test_sampler_ab_needs_a_card(argv, monkeypatch, capsys):
     """On the CPU the script parses its arguments and refuses to time: exit
     1, no line printed."""
@@ -169,7 +170,7 @@ def test_sampler_ab_refuses_an_unknown_kind(monkeypatch):
         sampler_ab.main(["--kinds", "glow,resnet"])
 
 
-@pytest.mark.parametrize("kind", ["gemm", "stage1", "stem"])
+@pytest.mark.parametrize("kind", ["gemm", "stage1", "stem", "stem_int8"])
 def test_kernel_variants_apply_to_the_committed_sources(kind):
     """Every variant's substitutions match the kernel source as committed,
     and each variant but the base changes it."""
@@ -178,6 +179,21 @@ def test_kernel_variants_apply_to_the_committed_sources(kind):
     srcs = kernel_variants.variant_sources(kind)
     base = srcs.pop("base")
     assert srcs and all(text != base for text in srcs.values())
+
+
+def test_stem_int8_split_stamps_apply_to_the_committed_source():
+    """The W8A8 stem's clock64 split: every stamp's substitution matches the
+    committed kernel and each of the split's cuts, and each adds code."""
+    from mhentropy_tpu_torch import kernel_variants
+
+    srcs = kernel_variants.variant_sources("stem_int8")
+    for name in kernel_variants.SPLIT_VARIANTS:
+        text = srcs[name]
+        for sub in kernel_variants.STEM_INT8_SPLIT:
+            stamped = kernel_variants._substitute(text, *sub)
+            assert len(stamped) > len(text)
+            text = stamped
+        assert "mhent_stem_int8_stamps" in text
 
 
 def test_kernel_variants_needs_a_card(monkeypatch, capsys):

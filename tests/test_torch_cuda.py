@@ -664,6 +664,82 @@ def test_stem_int8_kernel_matches_plain(dev, shape):
     assert _within_bf16(out16, ref)
 
 
+def _stem_int8_site(g, dev, image):
+    """A calibrated site whose BN gamma is negative at every third filter."""
+    conv = torch.randn(64, 3, 7, 7, generator=g) * math.sqrt(2 / 147)
+    bn = torch.nn.BatchNorm2d(64).eval()
+    _rand_bn(bn, g)
+    with torch.no_grad():
+        bn.weight[::3] *= -1
+    return stem_int8_cuda.prepare_stem_site(conv.to(dev), bn.to(dev),
+                                            image.abs().amax(dim=(0, 1, 2)))
+
+
+def _stem_int8_holds(image, site, bulk=None):
+    """Both output types through the kernel (`bulk` picks its path): f32
+    equal to stem_plain, bf16 within a bf16 rounding; one launch a call."""
+    packed = stem_int8_cuda.pack(site)
+    ref = stem_int8_cuda.stem_plain(image, site)
+    before = stem_int8_cuda.launches
+    out32 = stem_int8_cuda._stem_kernel(image, packed, torch.float32, bulk)
+    out16 = stem_int8_cuda._stem_kernel(image, packed, torch.bfloat16, bulk)
+    assert stem_int8_cuda.launches == before + 2
+    torch.testing.assert_close(out32, ref, rtol=0, atol=0)
+    assert _within_bf16(out16, ref)
+
+
+# The kernel's band and copy edges: (1, 256, 256, 3) bands of two conv rows;
+# (3, 256, 256, 3) bands of four; (2, 72, 256, 3) a ragged last band; (2,
+# 64, 224, 3) a 2,688-byte row pitch on the bulk path; (1, 40, 260, 3) two
+# column tiles on the load path.
+@pytest.mark.parametrize("shape", [(1, 256, 256, 3), (3, 256, 256, 3), (2, 72, 256, 3),
+                                   (2, 64, 224, 3), (1, 40, 260, 3)])
+def test_stem_int8_kernel_band_and_copy_edges(dev, shape):
+    g = torch.Generator().manual_seed(34)
+    image = (torch.randn(shape, generator=g) * 1.5).to(dev)
+    _stem_int8_holds(image, _stem_int8_site(g, dev, image))
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 256, 3), (2, 64, 224, 3)])
+def test_stem_int8_kernel_load_path_on_aligned_rows(dev, shape):
+    """The load path, forced where the bulk path would run, gives the same
+    exact output."""
+    g = torch.Generator().manual_seed(35)
+    image = (torch.randn(shape, generator=g) * 1.5).to(dev)
+    _stem_int8_holds(image, _stem_int8_site(g, dev, image), bulk=False)
+
+
+def test_stem_int8_kernel_pooled_row_across_a_band_boundary(dev):
+    """An image zero but for the input rows under the conv rows i0 - 1 .. i0 +
+    1 of the second band: the pooled row i0 / 2 that straddles it."""
+    shape = (8, 256, 256, 3)
+    band = stem_int8_cuda.plan_band(8, 128, 1, torch.cuda.get_device_properties(dev)
+                                    .multi_processor_count)
+    g = torch.Generator().manual_seed(36)
+    image = torch.zeros(shape)
+    rows = slice(2 * (band - 1) - 3, 2 * (band + 1) + 4)
+    image[:, rows] = torch.randn(image[:, rows].shape, generator=g) * 1.5
+    image = image.to(dev)
+    _stem_int8_holds(image, _stem_int8_site(g, dev, image))
+
+
+@pytest.mark.parametrize("bulk", [True, False])
+def test_stem_int8_kernel_at_the_quantisers_edges(dev, bulk):
+    """x * inv_a exactly at k + 0.5 (rounded half to even, as torch.round) and
+    at +-127.5, +-128.5 (clipped), weights at +-127, scales of both signs:
+    the kernel equals stem_plain."""
+    g = torch.Generator().manual_seed(37)
+    inv_a = torch.tensor([1.0, 0.5, 4.0])
+    k = torch.randint(-131, 131, (2, 64, 256, 3), generator=g).float() + 0.5
+    k.view(-1)[:8] = torch.tensor([127.5, -127.5, 128.5, -128.5, 126.5, -126.5, 0.5, -0.5])
+    site = {"w8": torch.where(torch.rand(7, 7, 3, 64, generator=g) < 0.5, 127, -127)
+                  .to(torch.int8),
+            "inv_a": inv_a, "scale": (torch.rand(64, generator=g) - 0.5) * 2e-4,
+            "bias": torch.randn(64, generator=g) * 0.1}
+    site = {n: t.to(dev) for n, t in site.items()}
+    _stem_int8_holds((k / inv_a).to(dev), site, bulk=bulk)
+
+
 def _stage_sites(g, stage, dev):
     geom = stage2_int8_cuda.GEOMS[stage]
 
