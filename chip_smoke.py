@@ -5,7 +5,11 @@
 
 1. Prints the card (nvidia-smi name and power limit).
 2. Builds the CUDA kernels from mhentropy_tpu_torch/csrc/ (one nvcc per
-   source, in parallel, sm_90a).
+   source, in parallel, sm_90a) and prints the sources whose build log has
+   ptxas serializing a wgmma (C7515 / C7517 / C7518): a report, which fails
+   the run only for stage2_int8.cu; then `cuobjdump -sass` of the library:
+   every conv kernel of stage2_int8.cu issues s8 wgmma (IGMMA), none
+   mma.sync (IMMA).
 3. Runs each kernel against its plain PyTorch version on the card at the
    main path's shapes with random weights of realistic magnitude: stem
    (8, 256, 256, 3) and the bench's (32, 256, 256, 3); stage 1
@@ -116,6 +120,7 @@ import json
 import math
 import os
 import statistics
+import subprocess
 import sys
 import threading
 import time
@@ -283,6 +288,28 @@ def rand_bn(torch, bn, g) -> None:
 def he_(torch, w, g) -> None:
     with torch.no_grad():
         w.copy_(torch.randn(w.shape, generator=g) * math.sqrt(2.0 / w[0].numel()))
+
+
+def sass_mma_counts(lib_path, source_stem: str) -> dict:
+    """{function: {"IGMMA": n, "IMMA": n}} of the built library's kernels
+    from `source_stem`.cu, by `cuobjdump -sass` (s8 wgmma shows as IGMMA,
+    s8 mma.sync as IMMA)."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            fn = name if f"{source_stem}_cu" in name else None
+            if fn:
+                counts[fn] = {"IGMMA": 0, "IMMA": 0}
+        elif fn:
+            toks = line.split("*/")[1].split() if "*/" in line else []
+            op = toks[1] if len(toks) > 1 and toks[0].startswith("@") else toks[0] if toks else ""
+            for kind in counts[fn]:
+                counts[fn][kind] += op.startswith(kind + ".")
+    return counts
 
 
 def kernel_counters() -> dict:
@@ -1945,6 +1972,19 @@ def main() -> int:
     for line in lib.log.splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
             print(f"build: {line.strip()}", flush=True)
+    serialized = lib.wgmma_serialized()
+    print(f"build: sources whose wgmma ptxas serialized ({'/'.join(ext.SERIALIZED_WGMMA)}): "
+          f"{serialized}", flush=True)
+    check("stage2_int8.cu" not in serialized,
+          "build: ptxas serialized the wgmma of stage2_int8.cu")
+    mma = sass_mma_counts(lib.path, "stage2_int8")
+    convs = {fn: c for fn, c in mma.items() if "conv_kernel" in fn}
+    print(f"build: stage2_int8.cu's conv kernels in SASS: {len(convs)}, IGMMA "
+          f"{sorted({c['IGMMA'] for c in convs.values()})} a kernel, IMMA "
+          f"{sum(c['IMMA'] for c in mma.values())}", flush=True)
+    check(convs and all(c["IGMMA"] > 0 for c in convs.values())
+          and all(c["IMMA"] == 0 for c in mma.values()),
+          f"build: stage2_int8.cu's products are not all on wgmma: {mma}")
 
     results = []
     probe_results, probe_launches = phase_gemm_probe(torch, dev)

@@ -157,7 +157,7 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da, uint64_
 #undef MHENT_REGS64
 
 // clip(rint(v), +-127), rint half to even (as torch.round), in the low byte:
-// one conversion that rounds, where int8_mma.cuh's quant rounds and then
+// one conversion that rounds, where stage2_int8.cu's quant rounds and then
 // converts (the quantiser is on this kernel's critical path).
 __device__ __forceinline__ uint32_t quant_s32(float v) {
   return (uint32_t)max(min(__float2int_rn(v), 127), -127);

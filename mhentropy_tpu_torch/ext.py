@@ -10,12 +10,20 @@ runs at import time.
 
 Every C entry point launches on the stream it is given, allocates nothing,
 and returns `cudaGetLastError()`; `check` raises on anything but 0.
+
+What each `nvcc` printed (ptxas' register and spill report, its warnings)
+is kept by source in `KernelLibrary.logs`, and beside the library as
+`libmhent_<hash>.log.json`, so that a reused build still reports it.
+`KernelLibrary.wgmma_serialized()` names the sources whose ptxas warned
+that it serialized `wgmma` (C7515 / C7517 / C7518), which costs a kernel
+its overlap of products without failing anything.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -60,13 +68,20 @@ _SIGNATURES = {
 }
 
 
-class KernelLibrary:
-    """The loaded shared library and what its build printed."""
+# ptxas' warnings that it serialized a wgmma (an accumulator touched between
+# issue and wait, an issue in a divergent path, ...).
+SERIALIZED_WGMMA = ("C7515", "C7517", "C7518")
 
-    def __init__(self, path: Path, build_seconds: float, log: str):
+
+class KernelLibrary:
+    """The loaded shared library and what its build printed, by source (the
+    link under "link")."""
+
+    def __init__(self, path: Path, build_seconds: float, logs: dict[str, str]):
         self.path = path
         self.build_seconds = build_seconds
-        self.log = log
+        self.logs = logs
+        self.log = "".join(logs.values())
         self._lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(self._lib, name)
@@ -75,6 +90,11 @@ class KernelLibrary:
 
     def __getattr__(self, name):
         return getattr(self._lib, name)
+
+    def wgmma_serialized(self) -> list[str]:
+        """The sources whose ptxas reported a serialized wgmma."""
+        return sorted(name for name, text in self.logs.items()
+                      if any(code in text for code in SERIALIZED_WGMMA))
 
 
 _lock = threading.Lock()
@@ -114,9 +134,13 @@ def load() -> KernelLibrary:
 
 def _build_and_load() -> KernelLibrary:
     out = BUILD_DIR / f"libmhent_{_digest()}.so"
+    log_file = out.with_suffix(".log.json")
     t0 = time.perf_counter()
-    log = ""
-    if not out.exists():
+    logs: dict[str, str] = {}
+    if out.exists():
+        if log_file.exists():
+            logs = json.loads(log_file.read_text())
+    else:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tag = f"{out.stem}.{os.getpid()}"
         nvcc = _nvcc()
@@ -125,29 +149,32 @@ def _build_and_load() -> KernelLibrary:
             obj = BUILD_DIR / f"{tag}.{src.stem}.o"
             cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
             objs.append(obj)
-            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.STDOUT, text=True)))
+            procs.append((src.name, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                          stderr=subprocess.STDOUT, text=True)))
         failed = []
-        for cmd, proc in procs:
+        for name, cmd, proc in procs:
             text = proc.communicate()[0]
-            log += text
+            logs[name] = text
             if proc.returncode != 0:
                 failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
         if not failed:
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
             proc = subprocess.run(cmd, capture_output=True, text=True)
-            log += proc.stdout + proc.stderr
+            logs["link"] = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 failed.append(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                               f"{proc.stdout}{proc.stderr}")
             else:
+                log_tmp = log_file.with_suffix(f".{os.getpid()}.tmp")
+                log_tmp.write_text(json.dumps(logs))
+                os.replace(log_tmp, log_file)
                 os.replace(tmp, out)
         for obj in objs:
             obj.unlink(missing_ok=True)
         if failed:
             raise RuntimeError("\n".join(failed))
-    return KernelLibrary(out, time.perf_counter() - t0, log)
+    return KernelLibrary(out, time.perf_counter() - t0, logs)
 
 
 def check(err: int, name: str) -> None:

@@ -53,6 +53,25 @@ def _stem(slots: int, groups: int) -> list:
             (_STEM_GROUPS, f"constexpr int kBuilderGroups = {groups};")]
 
 
+# stage2_int8.cu's output rows by TMA bulk copies: the writers fence the
+# tiles for the async proxy before the barrier, each of the first `rows`
+# threads copies a row, and the CTA waits for the copies' reads at its end.
+_S2_BULK_STORES = [
+    ("  unsigned char* out = static_cast<unsigned char*>(dst);\n",
+     "  unsigned char* out = static_cast<unsigned char*>(dst);\n"
+     "  for (int r = threadIdx.x; r < rows; r += T)\n"
+     '    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\\n" ::"l"('
+     "out + r * dst_pitch), \"r\"(smem_u32(src + r * src_pitch)), \"r\"(row_bytes) : \"memory\");\n"
+     "  bulk_commit();\n  if (rows >= 0) return;\n"),
+    ("    }\n    __syncthreads();\n    store_rows<C::T>(smem, C::P_S8,",
+     "    }\n    fence_proxy_async();\n    __syncthreads();\n    store_rows<C::T>(smem, C::P_S8,"),
+    ("    }\n    __syncthreads();\n    if (p.out_bf16)",
+     "    }\n    fence_proxy_async();\n    __syncthreads();\n    if (p.out_bf16)"),
+    ("p.q_next + out_at, (size_t)p.N, BN, rows_valid);\n  }\n}\n",
+     "p.q_next + out_at, (size_t)p.N, BN, rows_valid);\n  }\n  bulk_wait_read<0>();\n}\n"),
+]
+
+
 def _rings(a: int, b: int, r: int) -> list:
     return [(_GEMM_RINGS, f"""  static constexpr int A_STAGES = {a};
   static constexpr int B_STAGES = {b};
@@ -135,6 +154,50 @@ VARIANTS = {
         "pairs8": [("constexpr int kPairSlots = 4;", "constexpr int kPairSlots = 8;")],
         "ahead2": [("constexpr int kStages = 4;", "constexpr int kStages = 2;")],
     }),
+    "stage2_int8": ("stage2_int8.cu", {
+        "base": [],
+        # conv2's A gathered by cp.async a stage (the downsample's path), not
+        # read from a band of input rows.
+        "gather_conv2": [("conv<kRequant, kHalo>(c2", "conv<kRequant, kGather>(c2")],
+        # conv1 and conv2 always on 64 x 128 (or 64 x 64) tiles.
+        "rows64": [("    if (wave(128, 128))", "    if (false)")],
+        # 128 x 128 tiles always on a ring of four stages (one CTA an SM).
+        "ring4": [("      return ktiles <= 4 ? launch_conv<EPI, AMODE, 2, 128, 3>",
+                   "      return ktiles <= 0 ? launch_conv<EPI, AMODE, 2, 128, 3>")],
+        # Small grids packed two CTAs an SM (no shared-memory padding).
+        "packed": [("constexpr int kHalfSm = 116 * 1024;", "constexpr int kHalfSm = 0;")],
+        # Block 0's conv3 writes its f32 tile to a region of its own, not over
+        # the drained ring.
+        "down_own_tile": [
+            ("  static constexpr int OFF_Q = OFF_RES + (EPI == kResidual ? BM * P_F32 : 0);",
+             "  static constexpr int OFF_Q = OFF_RES + (EPI != kRequant ? BM * P_F32 : 0);"),
+            ("  static constexpr int OFF_SB = OFF_Q + (EPI == kResidual ? BM * P_S8 : 0);",
+             "  static constexpr int OFF_SB = OFF_Q + (EPI != kRequant ? BM * P_S8 : 0);"),
+            ("    unsigned char* res = smem + (DOWN ? 0 : C::OFF_RES);\n"
+             "    unsigned char* qn = smem + (DOWN ? C::OFF_QD : C::OFF_Q);",
+             "    unsigned char* res = smem + C::OFF_RES;\n    unsigned char* qn = smem + C::OFF_Q;")],
+        # The next kernel may start only once every CTA has stored its tile.
+        "launch_late": [("  griddep_launch();\n  __syncthreads();  // the ring is drained",
+                         "  __syncthreads();  // the ring is drained"),
+                        ("p.q_next + out_at, (size_t)p.N, BN, rows_valid);\n  }\n}\n",
+                         "p.q_next + out_at, (size_t)p.N, BN, rows_valid);\n  }\n"
+                         "  griddep_launch();\n}\n")],
+        # ... or once every CTA has passed its wait for the kernel ahead.
+        "launch_early": [("  griddep_launch();\n  __syncthreads();  // the ring is drained",
+                          "  __syncthreads();  // the ring is drained"),
+                         ("  griddep_wait();\n", "  griddep_wait();\n  griddep_launch();\n")],
+        # Launched without programmatic dependent launch.
+        "no_pdl": [("  cfg.numAttrs = 1;", "  cfg.numAttrs = 0;")],
+        # The stages land and are waited for, the products are not issued.
+        "no_products": [("    for (int kk = 0; kk < kKB / 32; ++kk) wgmma_s8(d, da + 2 * kk, "
+                         "db + 2 * kk);", "    (void)da;\n    (void)db;")],
+        # The output rows by TMA bulk copies, one a row (the async proxy), not
+        # 16-byte stores.
+        "bulk_stores": _S2_BULK_STORES,
+        # The epilogue tiles are built, no output row is written.
+        "no_stores": [("  for (int e = threadIdx.x; e < rows * cpr; e += T) {",
+                       "  for (int e = threadIdx.x; e < rows * cpr && row_bytes < 0; e += T) {")],
+    }),
 }
 
 
@@ -180,6 +243,70 @@ STEM_INT8_SPLIT = [
      "  return (int)cudaMemcpyFromSymbol(host, g_stamps, sizeof(g_stamps));\n}\n\n"
      "extern \"C\" int mhent_stem_int8_forward("),
 ]
+
+
+# The stage kernel with clock64 stamps at its phase boundaries, by thread 0
+# of every CTA (the first STAGE2_STAMP_CTAS of a launch), for each of its
+# kernels (stamp slot EPI * 3 + AMODE: conv1 0, conv2 gathered 1, conv2 from
+# its band 2, conv3 3, block 0's conv3 with the downsample 6): 0 the CTA's start (globaltimer), 1 its start,
+# 2 its first stages, residual rows, scale and bias requested (past the wait
+# for the kernel ahead), 3 its first stage landed, 4 its products retired,
+# 5 every warp's products retired (the ring drained), 6 conv3's residual tile
+# landed, 7 the epilogue tiles written, 8 the output
+# rows stored, 9 the end (globaltimer), 10 the SM, 11 the launch's CTAs (a
+# later launch of the same kernel overwrites the first CTAs' stamps: only
+# the last launch's are read).
+STAGE2_STAMP_CTAS = 2048
+STAGE2_INT8_SPLIT = [
+    ("namespace {\n\nconstexpr int kKB",
+     f"__device__ long long g_stamps[7][{STAGE2_STAMP_CTAS}][12];\n"
+     "namespace {\n\nconstexpr int kKB"),
+    ("  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * C::BM;\n",
+     "  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * C::BM;\n  long long st_[12] = {};\n"
+     '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(st_[0]));\n  st_[1] = clock64();\n'),
+    ("  int acc[C::ACC], accd[", "  st_[2] = clock64();\n  int acc[C::ACC], accd["),
+    ("    mbar_wait_mma(full + 8 * stage, (v / S) & 1);\n",
+     "    mbar_wait_mma(full + 8 * stage, (v / S) & 1);\n    if (v == 0) st_[3] = clock64();\n"),
+    ("    mbar_wait_mma(full + 8 * stage, (v / S) & 1);\n",
+     "    mbar_wait_mma(full + 8 * stage, (v / S) & 1);\n    if (v == 0) st_[3] = clock64();\n",
+     1),
+    ("  wgmma_wait<0>();\n  fence_regs<C::ACC>(acc);\n",
+     "  wgmma_wait<0>();\n  fence_regs<C::ACC>(acc);\n  st_[4] = clock64();\n"),
+    ("  __syncthreads();  // the ring is drained: the epilogue may lay its tiles over it\n",
+     "  __syncthreads();  // the ring is drained: the epilogue may lay its tiles over it\n"
+     "  st_[5] = clock64();\n  st_[6] = st_[5];\n"),
+    ("    if (!DOWN) mbar_wait(res_bar, 0);\n",
+     "    if (!DOWN) mbar_wait(res_bar, 0);\n    st_[6] = clock64();\n"),
+    ("    __syncthreads();\n    store_rows<C::T>(smem, C::P_S8,",
+     "    __syncthreads();\n    st_[7] = clock64();\n    store_rows<C::T>(smem, C::P_S8,"),
+    ("    __syncthreads();\n    if (p.out_bf16)\n      store_rows",
+     "    __syncthreads();\n    st_[7] = clock64();\n    if (p.out_bf16)\n      store_rows"),
+    ("p.q_next + out_at, (size_t)p.N, BN, rows_valid);\n  }\n}\n",
+     "p.q_next + out_at, (size_t)p.N, BN, rows_valid);\n  }\n"
+     "  if (threadIdx.x == 0) {\n"
+     "    const int cta = blockIdx.y * gridDim.x + blockIdx.x;\n"
+     "    st_[8] = clock64();\n"
+     '    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(st_[9]));\n'
+     "    unsigned smid;\n"
+     '    asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));\n'
+     "    st_[10] = smid;\n"
+     "    st_[11] = gridDim.x * gridDim.y;\n"
+     f"    if (cta < {STAGE2_STAMP_CTAS})\n"
+     "      for (int k = 0; k < 12; ++k) g_stamps[EPI * 3 + AMODE][cta][k] = st_[k];\n"
+     "  }\n}\n"),
+    ('extern "C" int mhent_stage2_int8_block(',
+     'extern "C" int mhent_stage2_int8_stamps(void* host) {\n'
+     "  return (int)cudaMemcpyFromSymbol(host, g_stamps, sizeof(g_stamps));\n}\n\n"
+     'extern "C" int mhent_stage2_int8_stamps_clear() {\n'
+     "  void* at = nullptr;\n"
+     "  cudaError_t err = cudaGetSymbolAddress(&at, g_stamps);\n"
+     "  return (int)(err != cudaSuccess ? err : cudaMemset(at, 0, sizeof(g_stamps)));\n}\n\n"
+     'extern "C" int mhent_stage2_int8_block('),
+]
+STAGE2_SPLIT_VARIANTS = ("base", "gather_conv2")
+STAGE2_CONVS = {"conv1": 0, "conv2_gather": 1, "conv2": 2, "conv3": 3,
+                "conv3_down": 6}  # stamp slots
+STAGE2_SHAPES = ((2, 8), (3, 8), (2, 32), (3, 32))  # (stage, B)
 
 
 def _substitute(text: str, old: str, new: str, occurrence: int = 0) -> str:
@@ -417,15 +544,143 @@ def stem_int8_split(dev, emit) -> None:
               "block_cycles": con[-1][2] - t[1001]})
 
 
+def stage_sites(stage: int, g, dev) -> dict:
+    """Random int8 sites of one resnet50 stage (tests/test_torch_cuda.py's):
+    HWIO s8 weights, f32 scale, bias and input factor."""
+    from mhentropy_tpu_torch.models import stage2_int8_cuda as s2
+
+    geom = s2.GEOMS[stage]
+
+    def site(shape):
+        cout = shape[-1]
+        return {"w8": torch.randint(-90, 90, shape, generator=g, dtype=torch.int8).to(dev),
+                "scale": (torch.rand(cout, generator=g) * 1.8e-3 + 2e-4).to(dev),
+                "bias": (torch.randn(cout, generator=g) * 0.05).to(dev),
+                "inv_sa": (torch.rand((), generator=g) * 50 + 30).to(dev)}
+
+    sites = {}
+    for j in range(geom.n_blocks):
+        cin = geom.cin if j == 0 else geom.cout
+        sites[f"layer{stage}_{j}/conv1"] = site((1, 1, cin, geom.width))
+        sites[f"layer{stage}_{j}/conv2"] = site((3, 3, geom.width, geom.width))
+        sites[f"layer{stage}_{j}/conv3"] = site((1, 1, geom.width, geom.cout))
+    sites[f"layer{stage}_0/downsample_conv"] = site((1, 1, geom.cin, geom.cout))
+    sites[f"layer{stage}_0/downsample_conv"]["inv_sa"] = sites[f"layer{stage}_0/conv1"]["inv_sa"]
+    return sites
+
+
+class _StageLib:
+    """A variant library in the place of `ext.load()`'s, for the stage
+    kernel's wrapper (which calls only `mhent_stage2_int8_block`)."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        fn = lib.mhent_stage2_int8_block
+        fn.argtypes = ext._SIGNATURES["mhent_stage2_int8_block"]
+        fn.restype = ctypes.c_int
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+
+def _stage_inputs(dev):
+    """{(stage, B): (x bf16, packed, the plain f32 output)} at STAGE2_SHAPES."""
+    from mhentropy_tpu_torch.models import stage2_int8_cuda as s2
+
+    out = {}
+    for stage, b in STAGE2_SHAPES:
+        g = torch.Generator().manual_seed(31)
+        geom = s2.GEOMS[stage]
+        packed = s2.pack(stage_sites(stage, g, dev), stage)
+        x = torch.randn((b, geom.w_in, geom.w_in, geom.cin), generator=g).to(dev)
+        xb = x.to(torch.bfloat16)
+        out[(stage, b)] = (xb, packed, s2.stage_plain(xb, packed))
+    return out
+
+
+def _run_stage(lib, stage, xb, packed):
+    from mhentropy_tpu_torch.models import stage2_int8_cuda as s2
+
+    saved = ext._loaded
+    ext._loaded = _StageLib(lib)
+    try:
+        return s2.stage_forward_q(xb, packed, stage)
+    finally:
+        ext._loaded = saved
+
+
+def stage2_int8_cases(libs: dict, dev, emit) -> None:
+    """Each variant of the stage kernel at STAGE2_SHAPES, bf16 in and out, as
+    CUDA-graph replays of the whole stage through the wrapper."""
+    from mhentropy_tpu_torch import profile_step
+
+    inputs = _stage_inputs(dev)
+    for variant, lib in libs.items():
+        for (stage, b), (xb, packed, ref) in inputs.items():
+            call = lambda lib=lib, stage=stage, xb=xb, packed=packed: _run_stage(  # noqa: E731
+                lib, stage, xb, packed)
+            err = (call().float() - ref).abs().max().item()
+            emit({"kernel": "stage2_int8", "variant": variant, "stage": stage,
+                  "shape": list(xb.shape), "graph_ms": _ms(profile_step.graphed(call)),
+                  "max_abs_diff": err})
+
+
+def stage2_int8_split(dev, emit) -> None:
+    """The stamped stage kernel (STAGE2_INT8_SPLIT; the base source and the
+    STAGE2_SPLIT_VARIANTS) at STAGE2_SHAPES: for each convolution of the
+    stage's last bottleneck (block 0's for conv3_down), the medians over
+    its CTAs of each phase's cycles, a CTA's life, and the launch's span."""
+    sources = variant_sources("stage2_int8")
+    sources = {name: sources[name] for name in STAGE2_SPLIT_VARIANTS}
+    for name, text in sources.items():
+        for sub in STAGE2_INT8_SPLIT:
+            text = _substitute(text, *sub)
+        sources[name] = text
+    libs = build("stage2_int8_split", sources)
+    inputs = _stage_inputs(dev)
+    phases = {"setup": (1, 2), "first_stage": (2, 3), "products": (3, 4), "drain": (4, 5),
+              "residual_wait": (5, 6), "epilogue_tile": (6, 7), "stores": (7, 8), "cta": (1, 8)}
+    for variant, lib in libs.items():
+        lib.mhent_stage2_int8_stamps.argtypes = [ctypes.c_void_p]
+        for (stage, b), (xb, packed, _) in inputs.items():
+            st = torch.zeros((7, STAGE2_STAMP_CTAS, 12), dtype=torch.int64)
+            _run_stage(lib, stage, xb, packed)  # warm
+            torch.cuda.synchronize()
+            ext.check(lib.mhent_stage2_int8_stamps_clear(), "mhent_stage2_int8_stamps_clear")
+            _run_stage(lib, stage, xb, packed)
+            torch.cuda.synchronize()
+            ext.check(lib.mhent_stage2_int8_stamps(st.data_ptr()), "mhent_stage2_int8_stamps")
+            convs = {}
+            for conv, slot in STAGE2_CONVS.items():
+                every = st[slot].tolist()
+                rows = [r for r in every if r[9] > 0]
+                if not rows:
+                    continue
+                last = max(rows, key=lambda r: r[0])[11]
+                rows = [r for r in every[:last] if r[9] > 0 and r[11] == last]
+                t0 = min(r[0] for r in rows)
+                convs[conv] = {
+                    "ctas": len(rows), "sms": len({r[10] for r in rows}),
+                    **{k: statistics.median(r[b1] - r[a] for r in rows)
+                       for k, (a, b1) in phases.items()},
+                    "cta_ns": statistics.median(r[9] - r[0] for r in rows),
+                    "span_ns": max(r[9] for r in rows) - t0,
+                    "last_start_ns": max(r[0] for r in rows) - t0}
+            emit({"kernel": "stage2_int8", "split": "clock64 cycles (medians over CTAs)",
+                  "variant": variant, "stage": stage, "shape": list(xb.shape), "convs": convs})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kinds", default="gemm,stage1,stem,stem_int8",
-                    help="comma-separated: gemm, stage1, stem, stem_int8, stem_int8_split")
+    ap.add_argument("--kinds", default="gemm,stage1,stem,stem_int8,stage2_int8",
+                    help="comma-separated: gemm, stage1, stem, stem_int8, stage2_int8, "
+                         "stem_int8_split, stage2_int8_split")
     ap.add_argument("--out", default=None, help="append the JSON lines to this file")
     args = ap.parse_args(argv)
     kinds = args.kinds.split(",")
-    if not set(kinds) <= set(VARIANTS) | {"stem_int8_split"}:
-        ap.error(f"--kinds takes {', '.join(VARIANTS)}, stem_int8_split, not {args.kinds}")
+    splits = {"stem_int8_split": stem_int8_split, "stage2_int8_split": stage2_int8_split}
+    if not set(kinds) <= set(VARIANTS) | set(splits):
+        ap.error(f"--kinds takes {', '.join([*VARIANTS, *splits])}, not {args.kinds}")
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device; it times the kernels on the card",
               file=sys.stderr)
@@ -442,11 +697,11 @@ def main(argv=None) -> int:
         lines.append(line)
 
     for kind in kinds:
-        if kind == "stem_int8_split":
-            stem_int8_split(dev, emit)
+        if kind in splits:
+            splits[kind](dev, emit)
             continue
         {"gemm": gemm_cases, "stage1": stage1_cases, "stem": stem_cases,
-         "stem_int8": stem_int8_cases}[kind](
+         "stem_int8": stem_int8_cases, "stage2_int8": stage2_int8_cases}[kind](
             build(kind), dev, emit)
     if args.out:
         with open(args.out, "a") as f:

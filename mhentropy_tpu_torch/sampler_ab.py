@@ -1,10 +1,11 @@
 """Times the RealNVP sampler kernels, int8 stage 1, the Glow sampler, the
-LBS blend, the GEMM, stage-1 and stem probes and the W8A8 stem of one
-checkout of the port at the main path's (and the probes') shapes, so that
-two trees can be compared on one card in turns.
+LBS blend, the GEMM, stage-1 and stem probes, the W8A8 stem and the W8A8
+stage-2/3 kernel of one checkout of the port at the main path's (and the
+probes') shapes, so that two trees can be compared on one card in turns.
 
     python mhentropy_tpu_torch/sampler_ab.py [--root DIR] [--label NAME] [--out FILE]
-        [--tiles] [--kinds realnvp,stage1,glow,lbs,gemm_probe,stage1_probe,stem_probe,stem_int8]
+        [--tiles] [--kinds realnvp,stage1,glow,lbs,gemm_probe,stage1_probe,stem_probe,stem_int8,
+        stage2_int8]
 
 `--root` is the checkout whose `mhentropy_tpu_torch` is imported (default:
 the one holding this file), so the same script times an older tree's
@@ -12,7 +13,9 @@ kernels through that tree's own wrappers (`cuda_sampler.pack`, `transform`,
 `cuda_sampler_int8.transform_q`, `stage1_int8_cuda.stage1_forward_q`,
 `cuda_glow_sampler.pack` / `pack_context` / `transform`, `lbs_cuda.lbs_blend`,
 `int8_gemm_probe`, `stage1_probe`, `stem_probe`, `stem_cost_attrib`,
-`stem_int8_cuda.prepare_stem_site` / `pack` / `stem_forward_q`): run
+`stem_int8_cuda.prepare_stem_site` / `pack` / `stem_forward_q`,
+`stage2_int8_cuda.stage_forward_q`, `quant.calibrate` / `prepare` /
+`walk_stage`): run
 it on the parent tree and on this one in turns (parent, this, this, parent)
 within one call. Each shape prints one JSON line: the kernel's median ms of
 RUNS windows as CUDA-graph replays and eagerly, with [min, max], its
@@ -38,7 +41,13 @@ and the stem kernel at (32, 256, 256, 3) beside them; the W8A8 stem at (B,
 256, 256, 3) for B = 8 and 32 on a calibrated site (He-initialised conv,
 random BN with a negative gamma at every third filter), bf16 out, with the
 bf16 stem kernel on the same images and the stem probe's full cut at B = 32
-beside it. `--kinds` picks the
+beside it; the W8A8 stages 2 and 3 at B = 8 and 32 on sites calibrated
+(int8_stem, pallas_mid, q_from 1) through a He-initialised resnet50 with
+random BN on random 256 px images, bf16 in and out, stage 2's input that
+of the float stem and stage-1 kernels, with the same stage's `torch._int_mm`
+walk (`quant.walk_stage`, the route pallas_mid=False runs) beside each and,
+at B = 8, the device kernels of one forward of each stage (a trace).
+`--kinds` picks the
 families (default: all). Runs only on a CUDA card. It times with the tree's own
 `profile_step` helpers (`cuda_ms`, `graphed`, `card_line`), so both trees
 need that module. `--tiles` (this tree only)
@@ -67,7 +76,7 @@ GLOW_SHAPES = {"prohmr": {"d": 144, "h": 1024, "c": 2048, "b": 32, "n": 100},
 LBS_SHAPES = {"mano": {"v": 778, "j": 16, "rows": 12800},  # eval: N = 200, B = 64
               "smpl": {"v": 6890, "j": 24, "rows": 3200}}  # ProHMR: N = 100, B = 32
 KINDS = ("realnvp", "stage1", "glow", "lbs", "gemm_probe", "stage1_probe", "stem_probe",
-         "stem_int8")
+         "stem_int8", "stage2_int8")
 STEM_INT8_BATCHES = (8, 32)  # chip_smoke.py's MID_BATCHES
 RUNS = 3
 WINDOW_S = 0.5
@@ -364,6 +373,66 @@ def stem_int8_cases(torch, timed, dev):
                                                       probe.CONV_ROWS), None)
 
 
+def he_resnet50(torch, dev, seed: int):
+    """A resnet50 backbone with He-initialised convs and random BN, prepared
+    as the served one is (chip_smoke.py's)."""
+    from mhentropy_tpu_torch.models import resnet
+
+    g = torch.Generator().manual_seed(seed)
+    res = resnet.resnet50()
+    with torch.no_grad():
+        for m in res.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g)
+                               * (2.0 / m.weight[0].numel()) ** 0.5)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.weight.copy_(1.0 + 0.2 * torch.randn(n, generator=g))
+                m.bias.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_var.copy_(1.0 + 0.5 * torch.rand(n, generator=g))
+    res = res.eval().to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
+    res.fold_kernel_weights()
+    return res
+
+
+def stage2_int8_cases(torch, timed, dev, label):
+    """The tree's W8A8 stages 2 and 3 at each STEM_INT8_BATCHES batch on
+    calibrated sites, each against its plain version, with the same stage's
+    `_int_mm` walk beside it; at B = 8 the device kernels a forward."""
+    from mhentropy_tpu_torch import profile_step
+    from mhentropy_tpu_torch.models import quant, stage1_cuda, stage2_int8_cuda, stem_cuda
+
+    res = he_resnet50(torch, dev, 20)
+    g = torch.Generator(device=dev).manual_seed(20)
+    spec = quant.QuantSpec(backbone="resnet50", q_from=1, int8_stem=True, pallas_mid=True)
+    walk_spec = spec._replace(pallas_mid=False)
+    with torch.inference_mode():
+        for b in STEM_INT8_BATCHES:
+            images = torch.randn((b, 256, 256, 3), generator=g, device=dev)
+            qtree = quant.prepare(spec, res, quant.calibrate(spec, res, images))
+            x = stem_cuda.stem_forward(images.to(torch.bfloat16).contiguous(), *res.folded[0])
+            x = stage1_cuda.stage1_forward(x, res.folded[1])
+            for stage in (2, 3):
+                packed = qtree[f"stage{stage}"]
+                out = stage2_int8_cuda.stage_forward_q(x, packed, stage)
+                err = (out.float() - stage2_int8_cuda.stage_plain(x, packed)).abs().max().item()
+                call = lambda x=x, packed=packed, stage=stage: (  # noqa: E731
+                    stage2_int8_cuda.stage_forward_q(x, packed, stage))
+                timed("stage2_int8", tuple(x.shape), b, call, err)
+                if b == STEM_INT8_BATCHES[0]:
+                    events = profile_step.device_events(profile_step.profile(call, 1))
+                    print(json.dumps({"label": label, "kernel": "stage2_int8",
+                                      "stage": stage, "shape": list(x.shape),
+                                      "device_kernels_a_forward": len(events),
+                                      "c_calls_a_forward": len(packed)}), flush=True)
+                timed("stage2_int8_walk", tuple(x.shape), b,
+                      lambda x=x, stage=stage: quant.walk_stage(walk_spec, res, qtree["sites"], x,
+                                                                stage - 1), None)
+                x = out
+            del images, qtree
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -424,6 +493,8 @@ def main(argv=None) -> int:
         stem_probe_cases(torch, timed, dev)
     if "stem_int8" in kinds:
         stem_int8_cases(torch, timed, dev)
+    if "stage2_int8" in kinds:
+        stage2_int8_cases(torch, timed, dev, args.label)
 
     if args.out:
         with open(args.out, "a") as f:

@@ -138,13 +138,14 @@ def test_sampler_ab_times_the_smokes_glow_and_lbs_shapes():
     assert sampler_ab.LBS_SHAPES["smpl"] == {
         "v": smpl.N_VERTS, "j": 24, "rows": chip_smoke.PROHMR_BENCH[0] * chip_smoke.PROHMR_BENCH[1]}
     assert set(sampler_ab.KINDS) == {"realnvp", "stage1", "glow", "lbs", "gemm_probe",
-                                     "stage1_probe", "stem_probe", "stem_int8"}
+                                     "stage1_probe", "stem_probe", "stem_int8", "stage2_int8"}
     assert sampler_ab.STEM_INT8_BATCHES == chip_smoke.MID_BATCHES
 
 
 @pytest.mark.parametrize("argv", [["--kinds", "glow,lbs"], ["--kinds", "lbs", "--tiles"], [],
                                   ["--kinds", "gemm_probe,stage1_probe"],
-                                  ["--kinds", "stem_probe"], ["--kinds", "stem_int8"]])
+                                  ["--kinds", "stem_probe"], ["--kinds", "stem_int8"],
+                                  ["--kinds", "stage2_int8"]])
 def test_sampler_ab_needs_a_card(argv, monkeypatch, capsys):
     """On the CPU the script parses its arguments and refuses to time: exit
     1, no line printed."""
@@ -170,7 +171,7 @@ def test_sampler_ab_refuses_an_unknown_kind(monkeypatch):
         sampler_ab.main(["--kinds", "glow,resnet"])
 
 
-@pytest.mark.parametrize("kind", ["gemm", "stage1", "stem", "stem_int8"])
+@pytest.mark.parametrize("kind", ["gemm", "stage1", "stem", "stem_int8", "stage2_int8"])
 def test_kernel_variants_apply_to_the_committed_sources(kind):
     """Every variant's substitutions match the kernel source as committed,
     and each variant but the base changes it."""
@@ -194,6 +195,38 @@ def test_stem_int8_split_stamps_apply_to_the_committed_source():
             assert len(stamped) > len(text)
             text = stamped
         assert "mhent_stem_int8_stamps" in text
+
+
+def test_stage2_int8_split_stamps_apply_to_the_committed_source():
+    """The stage kernel's clock64 split: every stamp's substitution matches
+    the committed kernel and each of the split's variants, and each adds
+    code."""
+    from mhentropy_tpu_torch import kernel_variants
+
+    srcs = kernel_variants.variant_sources("stage2_int8")
+    for name in kernel_variants.STAGE2_SPLIT_VARIANTS:
+        text = srcs[name]
+        for sub in kernel_variants.STAGE2_INT8_SPLIT:
+            stamped = kernel_variants._substitute(text, *sub)
+            assert len(stamped) > len(text)
+            text = stamped
+        assert "mhent_stage2_int8_stamps" in text
+
+
+def test_build_log_names_the_sources_whose_wgmma_ptxas_serialized():
+    """ext.KernelLibrary.wgmma_serialized reads the per-source build log:
+    a source is named for any of C7515 / C7517 / C7518, and only then."""
+    from types import SimpleNamespace
+
+    from mhentropy_tpu_torch import ext
+
+    logs = {"a.cu": "ptxas info    : Used 90 registers",
+            "b.cu": "ptxas info    : (C7517) warpgroup.wait is injected in around line 7",
+            "c.cu": "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async "
+                    "instructions are serialized",
+            "link": ""}
+    assert ext.KernelLibrary.wgmma_serialized(SimpleNamespace(logs=logs)) == ["b.cu", "c.cu"]
+    assert ext.KernelLibrary.wgmma_serialized(SimpleNamespace(logs={"a.cu": ""})) == []
 
 
 def test_kernel_variants_needs_a_card(monkeypatch, capsys):

@@ -740,14 +740,20 @@ def test_stem_int8_kernel_at_the_quantisers_edges(dev, bulk):
     _stem_int8_holds((k / inv_a).to(dev), site, bulk=bulk)
 
 
-def _stage_sites(g, stage, dev):
+def _stage_sites(g, stage, dev, signed=False):
+    """Random sites of one stage; `signed`: per-channel scales of both signs
+    and zero biases."""
     geom = stage2_int8_cuda.GEOMS[stage]
 
     def site(shape):
         cout = shape[-1]
+        scale = torch.rand(cout, generator=g) * 1.8e-3 + 2e-4
+        bias = torch.randn(cout, generator=g) * 0.05
+        if signed:
+            scale = torch.where(torch.rand(cout, generator=g) < 0.5, -scale, scale)
+            bias = torch.zeros(cout)
         return {"w8": torch.randint(-90, 90, shape, generator=g, dtype=torch.int8).to(dev),
-                "scale": (torch.rand(cout, generator=g) * 1.8e-3 + 2e-4).to(dev),
-                "bias": (torch.randn(cout, generator=g) * 0.05).to(dev),
+                "scale": scale.to(dev), "bias": bias.to(dev),
                 "inv_sa": (torch.rand((), generator=g) * 50 + 30).to(dev)}
 
     sites = {}
@@ -761,11 +767,17 @@ def _stage_sites(g, stage, dev):
     return sites
 
 
-@pytest.mark.parametrize("stage,b", [(2, 1), (2, 8), (3, 2), (3, 8)])
-def test_stage_int8_kernel_matches_plain(dev, stage, b):
+@pytest.mark.parametrize("stage,b,signed", [
+    *(pytest.param(stage, b, False, id=f"{stage}-{b}")
+      for stage, b in [(2, 1), (2, 8), (3, 2), (3, 8), (2, 32), (3, 32), (3, 1)]),
+    pytest.param(2, 2, True, id="2-2-signed")])
+def test_stage_int8_kernel_matches_plain(dev, stage, b, signed):
+    """Every shipped batch, a ragged grid (stage 3 at B = 1: 256 output
+    pixels), and per-channel scales of both signs with zero biases (an
+    epilogue reordered for speed shows there)."""
     g = torch.Generator().manual_seed(31)
     geom = stage2_int8_cuda.GEOMS[stage]
-    packed = stage2_int8_cuda.pack(_stage_sites(g, stage, dev), stage)
+    packed = stage2_int8_cuda.pack(_stage_sites(g, stage, dev, signed), stage)
     x = torch.randn((b, geom.w_in, geom.w_in, geom.cin), generator=g).to(dev)
     xb = x.to(torch.bfloat16)
     before = stage2_int8_cuda.launches
