@@ -101,7 +101,26 @@
    twice, and in f32); ms per train step for kernels +
    "stats", kernels + "full" and the plain path in alternating windows;
    a torch.profiler trace of a few steps (device busy share, top ops).
-9b. The port's bench (mhentropy_tpu_torch/bench.py) at N=100, B=32 with
+9b. RLE: the run.py path (Experiment.train_baseline) on configs/rhd_rle.yaml
+   with training.epochs 1 (the initial eval's 2 batches at B=64, 4 train
+   steps, checkpoints; resnet50 at 256 px, the per-joint RealNVP of dim 3,
+   H=256, 12 layers, K1=10, nf_res rle): finite losses and metrics, the
+   checkpoint reloads, launches stem 2, stage 1 6, BN stats sums 4 x 53 and
+   no other; then from one copy of its weights, kernels against the plain
+   path on the same batch and draws: one step (loss, log p, running
+   statistics; in f32 every parameter's gradient against float64, a
+   check that the planted BN-sum faults of RLE_F32_FAULTS must fail),
+   RLE_STEPS make_rle_train_step steps' losses and launches, and one eval
+   batch (metrics, log p, draws) on the kernel-trained weights; ms per
+   train step and per eval batch, kernels and plain in alternating
+   windows; a trace of TRACED train steps of each (device busy share,
+   time by layer, top ops).
+9c. det: MHEnt with the det regressor at configs/ho3d.yaml's widths:
+   sample_hypotheses at B=8, N=200 with the mesh (launches stem 1, stage 1
+   3, LBS 1) and one train step at B=64 (BN stats sums 53), each against
+   the plain path; ms per call, in alternating windows; a trace of each
+   train step.
+9d. The port's bench (mhentropy_tpu_torch/bench.py) at N=100, B=32 with
    BENCH_STEPS steps a round: the headline hypotheses/s, mfu, every
    section of bench.py (none may fail), the device time by layer.
 10. Prints the kernels' JSON line, the card line, and last
@@ -225,6 +244,38 @@ BENCH_QUANT = (32, 100)  # bench_quant's default B, N
 BENCH_QUANT_STEPS = 30  # steps a window
 BENCH_STEPS = 100  # the port's bench: steps a round (its default is bench.py's 250)
 BENCH_BATCH = 32  # the port's bench batch: the stem and stage 1 are also timed there
+# The RLE mode (configs/rhd_rle.yaml) and the det MHEnt, kernels against the
+# plain path from the same weights, inputs and draws, in bf16. RLE: one
+# step's and each of RLE_STEPS steps' loss (relative), one step's log p
+# (max-abs over the largest |log p|) and running statistics
+# (TRAIN_STATS_TOL), one eval batch's log p, draws and mu (max-abs, in the
+# pose's bone-normalised units) and every eval metric (relative). On an
+# H100 (700 W) they differed by 2.8e-3 (loss, the worst of 3 steps), 4.2e-3
+# (log p, train mode), 3.7e-3 (draws) and 1.2e-4 (metrics); the bounds are
+# about three times that. The gradients in bf16 are printed beside those of
+# the plain path against itself with the image nudged by TRAIN_NUDGE. In
+# f32, where both paths share flax's E[x^2] - E[x]^2 statistics and differ
+# only in the sums' order, every parameter's gradient is held to a float64
+# evaluation of the plain path: the kernel path's relative L2 error at most
+# RLE_F32_GRAD_FACTOR x the plain f32 path's largest plus 1e-4, and its
+# cosine at least RLE_F32_GRAD_COS; the loss to TRAIN_F32_LOSS_TOL. On an
+# H100 (700 W) the f32 kernel path lay 0.053 (relative L2, a BN weight;
+# lowest cosine 0.99861) from float64 and the plain f32 path 0.038
+# (0.99930): flax's statistics in f32 carry that much on their own. Every
+# fault of RLE_F32_FAULTS must fail the same check: there the BN sums off
+# by 1e-5 of themselves gave 0.148 / 0.98987 (sum of squares) and 0.213 /
+# 0.97815 (sum), by 1e-6 0.065 / 0.99798 (which passes); the bounds lie
+# between. det: the kernel and plain paths
+# differed by 3.3e-3 (xyz), 0.63 px (uv), 3.1e-3 (verts) and 4.2e-4 (train
+# loss, relative): xyz and verts bone-normalised, uv in pixels, bounds about
+# three times that; the train step's loss to TRAIN_LOSS_TOL.
+RLE_STEPS = 3
+RLE_TOL = {"loss": 1e-2, "log_p": 1.5e-2, "xyz": 1.2e-2, "metrics": 4e-4}
+RLE_F32_GRAD_FACTOR = 2.0
+RLE_F32_GRAD_COS = 0.995
+DET_TOL = {"xyz": 1e-2, "uv": 2.0, "verts": 1e-2}
+RLE_WINDOW_S = 0.75  # the RLE and det phases' timing windows
+TRACED = 2  # steps a trace of the RLE and det train steps
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1773,17 +1824,47 @@ def one_step_grads(torch, net, model, fold, image, target, noise):
     return loss.item(), grads, stats
 
 
-def trace_steps(torch, step, untraced_ms: float, n: int = 3, top: int = 15) -> dict:
+def trace_steps(torch, step, untraced_ms: float, n: int = 3, top: int = 15,
+                label: str | None = None) -> dict:
     """A torch.profiler trace of n steps (profile_step.step_stats): device
     kernel time and operations per step, the busy share against the
-    untraced step time, the time by layer, the top operations."""
+    untraced step time, the time by layer, the top operations (printed,
+    under a line of the totals when `label` names the step)."""
     from mhentropy_tpu_torch import profile_step
 
     stats = profile_step.step_stats(step, untraced_ms, n, top)
+    if label is not None:
+        layers = {k: round(v, 3) for k, v in stats["layer_ms_per_step"].items()}
+        print(f"{label} trace: {stats['device_ms_per_step']:.3f} ms device a step, "
+              f"{stats['device_ops_per_step']:.0f} operations, busy {stats['busy_share']:.3f} "
+              f"of {untraced_ms:.3f} ms; by layer {layers}", flush=True)
     for op in stats["top_ops"]:
         print(f"  {op['ms_per_step']:10.4f} ms {op['calls_per_step']:8.1f}x  "
               f"{op['category']:<20} {op['name']}", flush=True)
     return stats
+
+
+def windows_ms(torch, fns: dict, seconds: float) -> dict:
+    """Spreads of ms a call for each of `fns` (name -> callable), RUNS
+    windows of at least `seconds` each, the names in turn (reversed on odd
+    runs), every window ending in a synchronise; "calls" counts the timed
+    calls of each."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    order = tuple(fns)
+    runs = {name: [] for name in order}
+    calls = dict.fromkeys(order, 0)
+    for r in range(RUNS):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            count, t1 = 0, time.perf_counter()
+            while time.perf_counter() - t1 < seconds:
+                fns[name]()
+                count += 1
+            torch.cuda.synchronize()
+            runs[name].append((time.perf_counter() - t1) * 1e3 / count)
+            calls[name] += count
+    return {name: {**spread(v), "calls": calls[name]} for name, v in runs.items()}
 
 
 def phase_train(torch, dev):
@@ -1919,25 +2000,10 @@ def phase_train(torch, dev):
             res.bn_mode = mode
             return step(image, target, noise)
 
-        for name in variants:
-            for _ in range(2):
-                run(name)
-        torch.cuda.synchronize()
-        order = tuple(variants)
-        runs = {name: [] for name in order}
-        n_steps = 0
         torch.cuda.reset_peak_memory_stats()
-        for r in range(RUNS):
-            for name in (order if r % 2 == 0 else order[::-1]):
-                count, t1 = 0, time.perf_counter()
-                while time.perf_counter() - t1 < STEP_WINDOW_S:
-                    run(name)
-                    count += 1
-                torch.cuda.synchronize()
-                runs[name].append((time.perf_counter() - t1) * 1e3 / count)
-                n_steps += count
-        results["ms_per_step"] = {name: spread(v) for name, v in runs.items()}
-        results["steps_timed"] = n_steps
+        results["ms_per_step"] = windows_ms(torch, {name: (lambda name=name: run(name))
+                                                    for name in variants}, STEP_WINDOW_S)
+        results["steps_timed"] = sum(t["calls"] for t in results["ms_per_step"].values())
         results["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
         # Where a step's time goes: the default variant (kernels, "stats").
@@ -1946,6 +2012,388 @@ def phase_train(torch, dev):
         net.set_kernels(True)
         res.bn_mode = "full"
     return results
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over the largest |b| (at least 1)."""
+    b = b.float()
+    return float((a.float() - b).abs().max() / b.abs().max().clamp_min(1.0))
+
+
+def cosines(torch, grads: dict, ref: dict) -> dict:
+    return {n: float(torch.nn.functional.cosine_similarity(grads[n].flatten(),
+                                                           ref[n].flatten(), dim=0))
+            for n in ref}
+
+
+def rle_one_step(torch, net, image, target, draws):
+    """One forward and backward of the RLE loss (no update): the loss, log
+    p, every parameter's gradient and the new running statistics."""
+    from mhentropy_tpu_torch.models import rle
+
+    net.train()
+    net.zero_grad(set_to_none=True)
+    out = rle.loss_and_predict(net, image, target, *draws, train=True)
+    loss = -out["log_p"].mean()
+    loss.backward()
+    grads = {n: p.grad.detach().double().clone() for n, p in net.named_parameters()
+             if p.grad is not None}
+    stats = {n: t.detach().clone() for n, t in net.state_dict().items()
+             if n.endswith(("running_mean", "running_var"))}
+    return loss.item(), out["log_p"].detach(), grads, stats
+
+
+def _sums_off(stats_sums, rel_sum: float, rel_sumsq: float):
+    def faulty(x):
+        s, ss = stats_sums(x)
+        return s * (1.0 + rel_sum), ss * (1.0 + rel_sumsq)
+    return faulty
+
+
+# Faults planted in the BN sums (name -> a wrapper of bn_cuda.stats_sums),
+# each of which the f32 gradient check must catch: the sums leave out the
+# batch's first image (the count stays the whole batch's), or the sum or
+# the sum of squares is off by 1e-5 of itself.
+RLE_F32_FAULTS = {"drop_image": lambda sums: lambda x: sums(x[1:]),
+                  "sum_1e-5": lambda sums: _sums_off(sums, 1e-5, 0.0),
+                  "sumsq_1e-5": lambda sums: _sums_off(sums, 0.0, 1e-5)}
+
+
+def phase_rle(torch, dev):
+    """The RLE mode (configs/rhd_rle.yaml at its widths: resnet50 at 256 px,
+    B = 64, the per-joint RealNVP of dim 3 over 21 joints, H = 256, 12
+    layers, K1 = 10, nf_res 'rle'): the run.py path (train_baseline, one
+    epoch: the initial eval's 2 batches, 4 train steps, checkpoints) with
+    its launches; then from one copy of its weights, kernels against the
+    plain path on the same batch and draws: one step's loss, log p, running
+    statistics and gradients (bf16; in f32 every parameter's gradient
+    against a float64 evaluation, a check that each fault planted in the
+    BN sums must fail), RLE_STEPS optimizer steps through
+    make_rle_train_step (its launches a step), and one eval batch; ms per
+    train step and per eval batch in alternating windows, and a trace of
+    each train step."""
+    import tempfile
+
+    from mhentropy_tpu_torch.data import synthetic
+    from mhentropy_tpu_torch.models import bn_cuda, resnet, rle
+    from mhentropy_tpu_torch.train import engine
+    from mhentropy_tpu_torch.utils.config import load_cfg
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = load_cfg("configs/rhd_rle.yaml")
+        cfg.training.epochs = 1
+        cfg.training.seed = 0
+        cfg.model_dir = tmp + "/"
+        mc = engine.build_rle_config(cfg)
+        fc = mc.flow
+        check(mc.encoder.backbone == "resnet50" and mc.image_size == 256
+              and cfg.training.batch_size == TRAIN_BATCH and (fc.dim, fc.h_dim, fc.n_layers,
+                                                              fc.joint_n) == (3, 256, 12, 21)
+              and fc.tsfm_on == "x" and mc.k1 == 10 and mc.nf_res == "rle",
+              f"rle: configs/rhd_rle.yaml reads as {mc}")
+        exp = engine.Experiment(cfg, device=dev)
+        n_bn = sum(isinstance(m, resnet.BatchNorm2d) for m in exp.net.modules())
+        check(isinstance(exp.net, rle.RLE) and n_bn == 53, f"rle: {type(exp.net)}, {n_bn} BNs")
+        t0 = time.perf_counter()
+        reset_launches()
+        summary = exp.train_baseline()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        losses = exp.losses
+        check(len(losses) == 4 and all(math.isfinite(v) for v in losses),
+              f"rle: losses {losses}")
+        check(all(math.isfinite(v) for v in summary.values()) and "sigma_i" in summary,
+              f"rle: eval metrics {summary}")
+        n_eval = -(-128 // TRAIN_BATCH)
+        want = {"bn_stats_sums": 4 * n_bn, "stem": n_eval, "stage1": 3 * n_eval}
+        for name, count in launches.items():
+            check(count == want.get(name, 0),
+                  f"rle: {count} {name} launches, expected {want.get(name, 0)}")
+        path = os.path.join(cfg.model_dir, "baseline_final.pth")
+        reloaded = rle.init(mc, seed=1)
+        engine.Experiment._restore(reloaded, path)
+        here = rle.checkpoint(exp.net)
+        check(all(torch.equal(v, here[m][k]) for m, sd in rle.checkpoint(reloaded).items()
+                  for k, v in sd.items()), f"rle: {path} does not reload the trained weights")
+        print(f"rle: {wall:.1f} s for train_baseline (datasets, initial eval, 4 steps, "
+              f"checkpoints); losses {losses}; launches {launches}", flush=True)
+        out.update(launches=launches, losses=losses, run_s=wall, eval_summary=summary)
+
+        # Kernels against the plain path from the same weights, batch and
+        # draws.
+        data = synthetic.make_dataset(exp.model, n=2 * TRAIN_BATCH, image_size=256, seed=7,
+                                      ds="rhd")
+        (image, target), (eval_image, eval_target) = [
+            engine._prep_batch(*b) for b in synthetic.batches(data, TRAIN_BATCH, device=dev)]
+        g = torch.Generator(device=dev).manual_seed(17)
+        draws = [rle.draws(mc, target["pose3d"], g) for _ in range(RLE_STEPS)]
+        eval_draws = rle.draws(mc, eval_target["pose3d"], g)
+        base = copy.deepcopy(exp.net)
+        one = {}
+        stats_sums = bn_cuda.stats_sums
+        faults = [f"kernels_f32_fault_{f}" for f in RLE_F32_FAULTS]
+        for name, kernels, dtype, nudge in (
+                ("kernels", True, None, 0.0), ("plain", False, None, 0.0),
+                ("plain_nudged", False, None, TRAIN_NUDGE),
+                ("kernels_f32", True, torch.float32, 0.0),
+                *((f, True, torch.float32, 0.0) for f in faults),
+                ("plain_f32", False, torch.float32, 0.0),
+                ("plain_f64", False, torch.float64, 0.0)):
+            net = copy.deepcopy(base)
+            net.set_kernels(kernels)
+            args = (image + nudge, target, draws[0])
+            if dtype is not None:
+                net.encoderRGB.res.dtype = dtype
+            if dtype == torch.float64:
+                net.double()
+                args = (image.double(), {k: v.double() for k, v in target.items()},
+                        tuple(d.double() for d in draws[0]))
+            if name in faults:
+                bn_cuda.stats_sums = RLE_F32_FAULTS[name[len("kernels_f32_fault_"):]](stats_sums)
+            reset_launches()
+            try:
+                one[name] = rle_one_step(torch, net, *args)
+                torch.cuda.synchronize()
+            finally:
+                bn_cuda.stats_sums = stats_sums
+            one[name] += (read_launches(),)
+            del net
+        agreement = {}
+        for name, ref in (("kernels", "plain"), ("plain_nudged", "plain"),
+                          ("kernels_f32", "plain_f64"), *((f, "plain_f64") for f in faults),
+                          ("plain_f32", "plain_f64")):
+            loss, lp, grads, stats, launches = one[name]
+            ref_loss, ref_lp, ref_grads, ref_stats, _ = one[ref]
+            cos = cosines(torch, grads, ref_grads)
+            l2 = {n: float((grads[n] - ref_grads[n]).norm()
+                           / ref_grads[n].norm().clamp_min(1e-30)) for n in ref_grads}
+            lowest = sorted(cos, key=cos.get)[:4]
+            a = agreement[name] = {
+                "against": ref, "loss": loss, "ref_loss": ref_loss,
+                "loss_rel": abs(loss - ref_loss) / abs(ref_loss), "log_p_rel": rel_err(lp, ref_lp),
+                "stats_rel": max(float(((stats[n] - ref_stats[n]).abs()
+                                        / ref_stats[n].abs().clamp_min(1.0)).max())
+                                 for n in stats),
+                "min_grad_cosine": cos[lowest[0]], "min_grad_cosine_param": lowest[0],
+                "median_grad_cosine": statistics.median(cos.values()),
+                "max_grad_rel_l2": max(l2.values()),
+                "max_grad_rel_l2_param": max(l2, key=l2.get),
+                "launches_per_step": launches}
+            print(f"rle {name} vs {ref}, one step: loss {loss:.6g} vs {ref_loss:.6g} (rel "
+                  f"{a['loss_rel']:.3g}), log p {a['log_p_rel']:.3g} of its largest, running "
+                  f"stats {a['stats_rel']:.3g}; lowest gradient cosines "
+                  f"{[(n, round(cos[n], 6)) for n in lowest]}, largest relative L2 error "
+                  f"{a['max_grad_rel_l2']:.3g} ({a['max_grad_rel_l2_param']}); launches "
+                  f"{launches}", flush=True)
+        for name in ("kernels", "kernels_f32", *faults):
+            launches = one[name][4]
+            check(launches["bn_stats_sums"] == n_bn and sum(launches.values()) == n_bn,
+                  f"rle {name}: launches {launches}")
+        for name in ("plain", "plain_nudged", "plain_f32", "plain_f64"):
+            check(sum(one[name][4].values()) == 0, f"rle {name}: launches {one[name][4]}")
+        a = agreement["kernels"]
+        check(a["loss_rel"] <= RLE_TOL["loss"] and a["log_p_rel"] <= RLE_TOL["log_p"]
+              and a["stats_rel"] <= TRAIN_STATS_TOL, f"rle kernels vs plain, one step: {a}")
+        p32 = agreement["plain_f32"]
+
+        def f32_grads_ok(k32):
+            return (k32["max_grad_rel_l2"] <= RLE_F32_GRAD_FACTOR * p32["max_grad_rel_l2"] + 1e-4
+                    and k32["min_grad_cosine"] >= RLE_F32_GRAD_COS)
+
+        k32 = agreement["kernels_f32"]
+        check(f32_grads_ok(k32) and max(k32["loss_rel"], p32["loss_rel"]) <= TRAIN_F32_LOSS_TOL,
+              f"rle f32 against float64, one step: kernels {k32}, plain {p32}")
+        for f in faults:
+            check(not f32_grads_ok(agreement[f]),
+                  f"rle f32: the gradient check passes the planted fault {f}: {agreement[f]}")
+        out["one_step"] = agreement
+
+        tr = cfg.training
+        nets, step_losses, step_launches = {}, {}, {}
+        for name, kernels in (("kernels", True), ("plain", False)):
+            net = nets[name] = copy.deepcopy(base).train()
+            net.set_kernels(kernels)
+            step = engine.make_rle_train_step(
+                net, engine.make_optimizer(net, tr.lr, tr.milestones, 4))
+            reset_launches()
+            step_losses[name] = [float(step(image, target, *d)["loss"]) for d in draws]
+            torch.cuda.synchronize()
+            step_launches[name] = read_launches()
+        step_rel = [abs(k - p) / abs(p) for k, p in zip(step_losses["kernels"],
+                                                        step_losses["plain"])]
+        print(f"rle {RLE_STEPS} steps: losses kernels {step_losses['kernels']}, plain "
+              f"{step_losses['plain']} (rel {step_rel}); launches {step_launches}", flush=True)
+        check(max(step_rel) <= RLE_TOL["loss"] and all(map(math.isfinite,
+                                                           step_losses["kernels"])),
+              f"rle: {RLE_STEPS} steps' losses {step_losses}")
+        check(step_launches["kernels"]["bn_stats_sums"] == RLE_STEPS * n_bn
+              and all(v % RLE_STEPS == 0 for v in step_launches["kernels"].values())
+              and sum(step_launches["plain"].values()) == 0, f"rle steps: {step_launches}")
+        out["steps"] = {"losses": step_losses, "loss_rel": step_rel, "launches": step_launches,
+                        "launches_per_step": {k: v // RLE_STEPS for k, v in
+                                              step_launches["kernels"].items()}}
+
+        # One eval batch from the kernel-trained weights, on both paths.
+        net = nets["kernels"]
+        rle.refresh_kernel_weights(net.eval())
+        eval_step = engine.make_rle_eval_step(net)
+        ev = {}
+        for name, kernels in (("kernels", True), ("plain", False)):
+            net.set_kernels(kernels)
+            reset_launches()
+            with torch.inference_mode():
+                mets = eval_step(eval_image, eval_target, *eval_draws)
+                torch.cuda.synchronize()
+                launches = read_launches()
+                pred = rle.loss_and_predict(net, eval_image, eval_target, *eval_draws)
+            ev[name] = (mets, pred, launches)
+        mets, pred, launches = ev["kernels"]
+        ref_mets, ref_pred, ref_launches = ev["plain"]
+        check(launches["stem"] == 1 and launches["stage1"] == 3 and sum(launches.values()) == 4
+              and sum(ref_launches.values()) == 0,
+              f"rle eval step: launches kernels {launches}, plain {ref_launches}")
+        check(all(bool(torch.isfinite(v)) for v in mets.values()), f"rle eval: {mets}")
+        met_rel = {k: abs(float(mets[k]) - float(ref_mets[k])) / max(abs(float(ref_mets[k])),
+                                                                      1e-6)
+                   for k in ref_mets}
+        diffs = {"log_p_rel": rel_err(pred["log_p"], ref_pred["log_p"]),
+                 "xyz": float((pred["xyz"] - ref_pred["xyz"]).abs().max()),
+                 "mu": float((pred["pred_jts"] - ref_pred["pred_jts"]).abs().max()),
+                 "worst_metric": max(met_rel, key=met_rel.get),
+                 "worst_metric_rel": max(met_rel.values())}
+        print(f"rle eval batch, kernels vs plain: {diffs} (tolerances {RLE_TOL}); metrics "
+              f"{ {k: round(float(v), 6) for k, v in mets.items()} }", flush=True)
+        check(diffs["log_p_rel"] <= RLE_TOL["log_p"] and diffs["xyz"] <= RLE_TOL["xyz"]
+              and diffs["mu"] <= RLE_TOL["xyz"]
+              and diffs["worst_metric_rel"] <= RLE_TOL["metrics"], f"rle eval: {diffs}")
+        out["eval_batch"] = {"kernels_vs_plain": diffs, "metrics": {k: float(v) for k, v in
+                                                                     mets.items()},
+                             "launches": launches}
+
+        # ms per train step and per eval batch, kernels and plain in turns.
+        net.train()
+        step = engine.make_rle_train_step(net, engine.make_optimizer(net, tr.lr, tr.milestones,
+                                                                     4))
+
+        def train_with(kernels):
+            def run():
+                net.set_kernels(kernels)
+                step(image, target, *draws[0])
+            return run
+
+        out["ms_per_train_step"] = windows_ms(torch, {"kernels": train_with(True),
+                                                      "plain": train_with(False)}, RLE_WINDOW_S)
+        out["train_trace"] = {
+            name: trace_steps(torch, train_with(name == "kernels"),
+                              out["ms_per_train_step"][name]["median"], TRACED, 8,
+                              f"rle train step {name}")
+            for name in ("kernels", "plain")}
+        rle.refresh_kernel_weights(net.eval())
+
+        def eval_with(kernels):
+            def run():
+                net.set_kernels(kernels)
+                eval_step(eval_image, eval_target, *eval_draws)
+            return run
+
+        out["ms_per_eval_batch"] = windows_ms(torch, {"kernels": eval_with(True),
+                                                      "plain": eval_with(False)}, RLE_WINDOW_S)
+        net.set_kernels(True)
+    return out
+
+
+def phase_det(torch, dev):
+    """MHEnt with the det regressor at configs/ho3d.yaml's widths (resnet50
+    at 256 px, a 61-wide det head, no flow): sample_hypotheses at B = 8, N =
+    200 with the mesh (stem, stage 1 and LBS kernels), and one train step at
+    B = 64 (the BN sums), each against the plain path on the same weights
+    and inputs; ms per call of each, kernels and plain in turns, and a
+    trace of each train step."""
+    from mhentropy_tpu_torch.core import lbs_cuda, mano
+    from mhentropy_tpu_torch.data import synthetic
+    from mhentropy_tpu_torch.models import mhent
+    from mhentropy_tpu_torch.train import engine
+    from mhentropy_tpu_torch.utils.config import load_cfg
+
+    cfg = load_cfg("configs/ho3d.yaml")
+    cfg.network.regressor = "det"
+    mc = engine.build_model_config(cfg)
+    check(mc.det_dims() == 61 and mc.encoder.backbone == "resnet50" and mc.image_size == 256,
+          f"det: {mc}")
+    model = engine.load_mano_model(device=dev)
+    fold = mano.fold_keypoints(model)
+    net = mhent.prepare(mhent.init(mc, seed=0), dev)
+    check(net.q_z_giv_i is None and net.packed_flow is None, "det: the net carries a flow")
+    g = torch.Generator(device=dev).manual_seed(20)
+    images = torch.randn((BATCH, 256, 256, 3), generator=g, device=dev)
+    kernel_blend = lbs_cuda.lbs_blend
+
+    def sample(kernels):
+        net.set_kernels(kernels)
+        lbs_cuda.lbs_blend = kernel_blend if kernels else lbs_cuda.lbs_blend_plain
+        try:
+            with torch.inference_mode():
+                return mhent.sample_hypotheses(model, net, images, n=N_HYPO, fold=fold)
+        finally:
+            lbs_cuda.lbs_blend = kernel_blend
+
+    res = {}
+    for name, kernels in (("kernels", True), ("plain", False)):
+        reset_launches()
+        res[name] = (sample(kernels), read_launches())
+        torch.cuda.synchronize()
+    got, launches = res["kernels"]
+    ref, ref_launches = res["plain"]
+    check(launches["stem"] == 1 and launches["stage1"] == 3 and launches["lbs_blend"] == 1
+          and sum(launches.values()) == 5 and sum(ref_launches.values()) == 0,
+          f"det sample: launches kernels {launches}, plain {ref_launches}")
+    check(got["verts"].shape == (N_HYPO, BATCH, 778 * 3)
+          and all(bool(torch.isfinite(got[k]).all()) for k in ("xyz", "uv", "verts"))
+          and torch.equal(got["xyz"][0], got["xyz"][-1]), "det sample: shapes, finite, rows")
+    sample_err = max_abs(got, ref, ("xyz", "uv", "verts"))
+    print(f"det sample_hypotheses B={BATCH}, N={N_HYPO}, kernels vs plain: {sample_err} "
+          f"(tolerances {DET_TOL}); launches {launches}", flush=True)
+    check(all(sample_err[k] <= DET_TOL[k] for k in sample_err), f"det sample: {sample_err}")
+    sample_ms = windows_ms(torch, {"kernels": lambda: sample(True),
+                                   "plain": lambda: sample(False)}, RLE_WINDOW_S)
+
+    # One train step at B = 64 from the same weights, batch and (unused) noise.
+    data = synthetic.make_dataset(model, n=TRAIN_BATCH, image_size=256, seed=21)
+    image, target = engine._prep_batch(*next(synthetic.batches(data, TRAIN_BATCH, device=dev)))
+    noise = torch.zeros((mc.n_train_hypotheses * TRAIN_BATCH, 45), device=dev)
+    tr = cfg.training
+    base = mhent.prepare(mhent.init(mc, seed=0), dev, masters=True)
+    steps, step_fns = {}, {}
+    for name, kernels in (("kernels", True), ("plain", False)):
+        tnet = copy.deepcopy(base).train()
+        tnet.set_kernels(kernels)
+        step_fns[name] = engine.make_train_step(
+            model, tnet, engine.make_optimizer(tnet, tr.lr, tr.milestones, 1), fold=fold)
+        reset_launches()
+        aux = step_fns[name](image, target, noise)
+        torch.cuda.synchronize()
+        steps[name] = ({k: float(v) for k, v in aux.items()}, read_launches())
+    (aux, t_launches), (ref_aux, ref_t_launches) = steps["kernels"], steps["plain"]
+    loss_rel = abs(aux["loss"] - ref_aux["loss"]) / abs(ref_aux["loss"])
+    print(f"det train step B={TRAIN_BATCH}: loss kernels {aux['loss']:.6g}, plain "
+          f"{ref_aux['loss']:.6g} (rel {loss_rel:.3g}); launches {t_launches}", flush=True)
+    check(math.isfinite(aux["loss"]) and loss_rel <= TRAIN_LOSS_TOL and aux["h_q"] == 0.0,
+          f"det train step: {aux} vs {ref_aux}")
+    check(t_launches["bn_stats_sums"] == 53 and sum(t_launches.values()) == 53
+          and sum(ref_t_launches.values()) == 0,
+          f"det train step: launches {t_launches}, plain {ref_t_launches}")
+    train_ms = windows_ms(torch, {k: (lambda f=f: f(image, target, noise))
+                                  for k, f in step_fns.items()}, RLE_WINDOW_S)
+    train_trace = {k: trace_steps(torch, lambda f=f: f(image, target, noise),
+                                  train_ms[k]["median"], TRACED, 8, f"det train step {k}")
+                   for k, f in step_fns.items()}
+    return {"sample": {"launches": launches, "kernels_vs_plain_max_abs": sample_err,
+                       "ms_per_call": sample_ms},
+            "train_step": {"launches": t_launches, "loss": aux["loss"],
+                           "ref_loss": ref_aux["loss"], "loss_rel": loss_rel,
+                           "ms_per_step": train_ms, "trace": train_trace}}
 
 
 def main() -> int:
@@ -2071,6 +2519,16 @@ def main() -> int:
     print(f"train trace (kernels, stats): {json.dumps(train['trace'])}; peak memory "
           f"{train['peak_memory_gb']:.2f} GB; dy copies per full step "
           f"{train['full']['dy_copies']}", flush=True)
+    rle_res = phase_rle(torch, dev)
+    det_res = phase_det(torch, dev)
+    for label, t in (("rle train step", rle_res["ms_per_train_step"]),
+                     ("rle eval batch", rle_res["ms_per_eval_batch"]),
+                     ("det sample_hypotheses", det_res["sample"]["ms_per_call"]),
+                     ("det train step", det_res["train_step"]["ms_per_step"])):
+        print(f"{label}: " + "; ".join(
+            f"{k} median {v['median']:.3f} ms [{v['min']:.3f}, {v['max']:.3f}]"
+            for k, v in t.items()) + f" over {RUNS} windows of >= {RLE_WINDOW_S} s [{card}]",
+            flush=True)
     bench_line = phase_bench(torch, dev)
     print(f"bench: {bench_line['value']:.1f} hypotheses/s at N=100, B=32, mfu "
           f"{bench_line['mfu']:.4f}, skipped {bench_line['skipped']} [{card}]", flush=True)
@@ -2088,8 +2546,16 @@ def main() -> int:
                      "int8_gemm_probe_bf16": probe_launches,
                      **{k: new_probe_launches for k in ("stem_probe", "stem_cost_attrib",
                                                         "stage1_probe_a", "stage1_probe_b")}}
+    # This slice's paths: each kernel's launches on each of them.
+    slice_paths = {"rle_train_baseline": rle_res["launches"],
+                   "rle_train_step": rle_res["steps"]["launches_per_step"],
+                   "rle_eval_batch": rle_res["eval_batch"]["launches"],
+                   "det_sample_hypotheses": det_res["sample"]["launches"],
+                   "det_train_step": det_res["train_step"]["launches"]}
     kernels = [{"name": r["name"], "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": path_launches[r["name"]][r["name"]],
+                "launches_by_path": {p: c[r["name"]] for p, c in slice_paths.items()
+                                     if c[r["name"]]},
                 "max_abs_err": r["max_abs_err"],
                 **{key: r[key]["median"] for key in TIMES},
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -2115,7 +2581,8 @@ def main() -> int:
                       "int8_opt_in": opt_in, "bench_quant": bench_q,
                       "eval": evals, "verts": {"launches": verts_launches,
                                                "kernel_vs_plain_max_abs": verts_err},
-                      "train": train, "prohmr": humans, "bench": bench_line}),
+                      "train": train, "prohmr": humans, "rle": rle_res, "det": det_res,
+                      "bench": bench_line}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

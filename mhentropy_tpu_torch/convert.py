@@ -6,7 +6,8 @@
 and batch stats, given as numpy arrays, into the reference's `encoderRGB`
 state_dict names, which are also the port's module names. The result loads
 into `models.mhent.MHEnt` with `strict=True`; so does a reference
-`ent_ho3d.pth`'s `encoderRGB` entry.
+`ent_ho3d.pth`'s `encoderRGB` entry. `rle_from_jax` does the same for the
+RLE mode's params, in the schema `load_rle_checkpoint` :181 reads.
 
 `glow_from_jax` turns the JAX ConditionalGlow params (flows/glow.py) into
 the nkolot/nflows fork's state_dict names, which are the port's
@@ -91,21 +92,43 @@ def realnvp_state_dict(flow, prefix: str = "") -> dict:
                     _linear(sd, f"{prefix}{net}.{i}.c.{j}",
                             {"w": np.asarray(p[f"{net}_c{j}"])[i],
                              "b": np.asarray(p[f"{net}_cb{j}"])[i]})
+    # The joint-index embedding and the partitioner: names of the port's
+    # (flows/realnvp.py), no key in the JAX package's loader.
+    if p.get("kemb_w0") is not None:
+        _linear(sd, f"{prefix}kemb.0", {"w": p["kemb_w0"], "b": p["kemb_b0"]})
+        _linear(sd, f"{prefix}kemb.2", {"w": p["kemb_w1"], "b": p["kemb_b1"]})
+    for i, (w, b) in enumerate(zip(p.get("part_ws") or (), p.get("part_bs") or ())):
+        _linear(sd, f"{prefix}cond_mapping.{i}", {"w": w, "b": b})
     return sd
+
+
+def _encoder(sd: dict, prefix: str, enc: dict, batch_stats: dict) -> None:
+    _resnet(sd, f"{prefix}res.", enc["backbone"], batch_stats)
+    for head in ("l1", "l2"):
+        _linear(sd, f"{prefix}{head}.0", enc[head])
 
 
 def from_jax(params: dict, batch_stats: dict) -> dict:
-    """JAX MHEnt params {'encoder', 'flow', 'det_head'} + backbone batch
-    stats -> state_dict for models.mhent.MHEnt."""
+    """JAX MHEnt params {'encoder', 'flow', 'det_head'} (no 'flow' for the
+    det regressor) + backbone batch stats -> state_dict for
+    models.mhent.MHEnt."""
     sd: dict = {}
-    enc = params["encoder"]
-    _resnet(sd, "feat_extractor.res.", enc["backbone"], batch_stats)
-    for head in ("l1", "l2"):
-        _linear(sd, f"feat_extractor.{head}.0", enc[head])
-    sd.update(realnvp_state_dict(params["flow"], "q_z_giv_i."))
+    _encoder(sd, "feat_extractor.", params["encoder"], batch_stats)
+    if params.get("flow") is not None:
+        sd.update(realnvp_state_dict(params["flow"], "q_z_giv_i."))
     _linear(sd, "det_head.0", params["det_head"]["l0"])
     _linear(sd, "det_head.2", params["det_head"]["l1"])
     return sd
+
+
+def rle_from_jax(params: dict, batch_stats: dict) -> dict:
+    """JAX RLE params {'encoder', 'p_nf'} + backbone batch stats -> the
+    reference's RLE checkpoint schema {'encoderRGB': BasicEnc state_dict,
+    'p_nf': RealNVP state_dict}, the key names tools/convert_torch.py's
+    `load_rle_checkpoint` reads (models.rle.load_checkpoint loads it)."""
+    enc: dict = {}
+    _encoder(enc, "", params["encoder"], batch_stats)
+    return {"encoderRGB": enc, "p_nf": realnvp_state_dict(params["p_nf"])}
 
 
 def opt_state_from_jax(opt_state) -> dict:
@@ -215,7 +238,7 @@ def glow_from_jax(params: list, prefix: str = "") -> dict:
         for k, blk in enumerate(cpl["blocks"]):
             if "bn0" in blk:
                 raise NotImplementedError("Glow coupling nets with BatchNorm are not ported yet "
-                                          "(ROADMAP queue 1, item 9)")
+                                          "(ROADMAP queue 1, \"ProHMR training\")")
             b = f"{c}.transform_net.blocks.{k}"
             _linear(sd, f"{b}.context_layer", blk["ctx"])
             _linear(sd, f"{b}.linear_layers.0", blk["l0"])

@@ -16,7 +16,7 @@ The functions read the weights as (in, out) matrices like the JAX params.
 
 Eval mode only: the coupling nets' BatchNorm (`use_batch_norm`), dropout,
 `ddi` and `bn_stats_update` belong to training, which is not ported yet
-(ROADMAP queue 1, item 9): `use_batch_norm=True` and a call on a module in
+(ROADMAP queue 1, "ProHMR training"): `use_batch_norm=True` and a call on a module in
 train mode raise.
 """
 
@@ -33,7 +33,7 @@ from torch.nn import functional as F
 from mhentropy_tpu_torch.flows.priors import std_normal_logp
 
 LU_EPS = 1e-3
-_NOT_PORTED = "is not ported yet (ROADMAP queue 1, item 9: ProHMR training)"
+_NOT_PORTED = "is not ported yet (ROADMAP queue 1, \"ProHMR training\")"
 
 
 class GlowConfig(NamedTuple):

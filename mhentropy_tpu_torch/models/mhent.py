@@ -6,9 +6,12 @@ Port of mhentropy_tpu/models/mhent.py: `MHEntConfig` :48, `make_priors`
 and the plain `differentiable` one included), `decode` :339,
 `forward_log_p` :384, `reverse_kld` :446 (the training objective and the
 eval step's log p, with the entropy term and the chamfer branch) and
-`sample_hypotheses` :496 (with `quant=` and the top-N_quant filter :540).
-The Glow / det regressors and `kld_weight` :566 are not ported yet (ROADMAP
-queue 1, items 9 and 4).
+`sample_hypotheses` :496 (with `quant=` and the top-N_quant filter :540),
+the det regressor (`det_dims` :94, no flow, `combine_z`'s det branch, zero
+log q in `sample_q_z` :221), `log_q_z` :327, `kld_weight` :566,
+`sample_p_z` :573, `evidence_from_target` :598 and `set_evidences` :613.
+The Glow regressor is not ported yet (ROADMAP queue 1, "ProHMR training"):
+its reverse-KL draw trains through the coupling nets' dropout.
 
 The module's parameter names are the reference's `encoderRGB` state_dict:
 `feat_extractor.res.*`, `feat_extractor.l1.0.*`, `q_z_giv_i.*`,
@@ -53,24 +56,31 @@ class MHEntConfig(NamedTuple):
     bt_alpha: float = 50.0
     temperature: float = 1.0  # T in log_p / T
     entropy: bool = True
+    kld_w: float = 1.0
+    kld_w_annealing: tuple = (1.0, 24000)
     n_train_hypotheses: int = 10
     use_chamfer_loss: bool = False
     w_chamfer: float = 10.0
 
     def det_dims(self) -> int:
+        """The det head's width: theta3, beta, log s and t, and theta45 too
+        for the det regressor."""
         return 3 + 10 + 1 + 2 + (45 if self.regressor == "det" else 0)
 
 
 class MHEnt(nn.Module):
     def __init__(self, cfg: MHEntConfig):
         super().__init__()
-        if cfg.regressor != "realnvp":
+        if cfg.regressor not in ("realnvp", "det"):
             raise NotImplementedError(
-                f"regressor {cfg.regressor!r} is not ported yet (ROADMAP queue 1, "
-                f"item 9 for glow); the port serves realnvp")
+                f"regressor {cfg.regressor!r} is not ported yet (ROADMAP queue 1, \"ProHMR "
+                f"training\": the glow draw trains through its coupling nets' dropout); the "
+                f"port has realnvp and det")
         self.cfg = cfg
         self.feat_extractor = Encoder(cfg.encoder)
-        self.q_z_giv_i = realnvp.RealNVP(cfg.flow)
+        # The posterior over theta45; the det regressor has none (its det
+        # head regresses theta45 too).
+        self.q_z_giv_i = realnvp.RealNVP(cfg.flow) if cfg.regressor == "realnvp" else None
         f = cfg.feat_dim
         self.det_head = nn.Sequential(nn.Linear(f, f), nn.ReLU(), nn.Linear(f, cfg.det_dims()))
         self.kernels = True
@@ -92,7 +102,8 @@ def init(cfg: MHEntConfig, seed: int = 0) -> MHEnt:
     g = torch.Generator().manual_seed(seed)
     net = MHEnt(cfg)
     init_weights_(net, g)
-    net.q_z_giv_i.init_params(g)
+    if net.q_z_giv_i is not None:
+        net.q_z_giv_i.init_params(g)
     return net
 
 
@@ -104,20 +115,16 @@ def prepare(net: MHEnt, device, masters: bool = False) -> MHEnt:
     casts its weight in the forward). Run it, or `refresh_kernel_weights`,
     again after changing weights."""
     net.eval().to(device)
-    res = net.feat_extractor.res
-    if masters:
-        res.to(memory_format=torch.channels_last)
-    else:
-        res.to(dtype=getattr(torch, net.cfg.encoder.dtype), memory_format=torch.channels_last)
+    net.feat_extractor.res.place(getattr(torch, net.cfg.encoder.dtype), masters)
     return refresh_kernel_weights(net)
 
 
 @torch.no_grad()
 def refresh_kernel_weights(net: MHEnt) -> MHEnt:
-    """Fold the stem's and stage 1's eval BN and pack the flow for the eval
-    kernels, from the module's current weights."""
+    """Fold the stem's and stage 1's eval BN and pack the flow (none for the
+    det regressor) for the eval kernels, from the module's current weights."""
     net.feat_extractor.res.fold_kernel_weights()
-    net.packed_flow = cuda_sampler.pack(net.q_z_giv_i)
+    net.packed_flow = None if net.q_z_giv_i is None else cuda_sampler.pack(net.q_z_giv_i)
     return net
 
 
@@ -182,11 +189,17 @@ def sample_q_z(net: MHEnt, feat: torch.Tensor, n: int, temp: float = 1.0,
     kernels always run, and `set_kernels(False)` is the A/B switch (PERF.md
     has the H100 A/B).
 
+    The det regressor draws nothing: its n rows repeat the det head's z,
+    and log q is 0.
+
     Returns z (n * B, 61) and log q (n * B,).
     """
     cfg = net.cfg
     b = feat.shape[0]
     flow = net.q_z_giv_i
+    if flow is None:
+        z_det = det_head_apply(net, feat).repeat(n, 1)
+        return combine_z(cfg, z_det, None), feat.new_zeros(n * b)
     if base_noise is None:
         base_noise = torch.randn((n * b, cfg.flow.dim), generator=generator,
                                  device=feat.device) * temp
@@ -206,6 +219,14 @@ def sample_q_z(net: MHEnt, feat: torch.Tensor, n: int, temp: float = 1.0,
     return combine_z(cfg, z_det, z_flow), log_q
 
 
+def log_q_z(net: MHEnt, z: torch.Tensor, feat_rows: torch.Tensor) -> torch.Tensor:
+    """log q of the flow block (theta45) of z rows (R, 61), conditioned on
+    the (R, C) feature rows; zeros for the det regressor."""
+    if net.q_z_giv_i is None:
+        return z.new_zeros(z.shape[0])
+    return realnvp.log_prob(net.q_z_giv_i, z[:, 3:48], feat=feat_rows)
+
+
 def decode(model: ManoModel, cfg: MHEntConfig, th_bt: torch.Tensor, logs_t: torch.Tensor,
            mods=("uv",), inv_norm: bool = False,
            fold: mano.KeypointFold | None = None) -> dict:
@@ -215,7 +236,8 @@ def decode(model: ManoModel, cfg: MHEntConfig, th_bt: torch.Tensor, logs_t: torc
     bone (R,), uv (R, K, 2) if requested, verts (R, 778, 3) if requested.
     """
     if "m" in mods or "depth" in mods:
-        raise NotImplementedError("the mask/depth renderer is not ported yet (ROADMAP queue 1, item 10)")
+        raise NotImplementedError("the mask/depth renderer is not ported yet (ROADMAP queue 1, "
+                                  "\"Rendering and viz\")")
     theta, beta = th_bt[:, :48], th_bt[:, -10:]
     out = mano.mano_decode(model, theta, beta, skeidx="RHD", fold=fold,
                            with_mesh="verts" in mods)
@@ -348,3 +370,72 @@ def sample_hypotheses(model: ManoModel, net: MHEnt, image: torch.Tensor, n: int 
     if "verts" in mods:
         out["faces"] = model.faces
     return out
+
+
+def kld_weight(cfg: MHEntConfig, step) -> torch.Tensor:
+    """Linear KLD-weight annealing from kld_w_annealing[0] to kld_w over
+    kld_w_annealing[1] steps."""
+    w0, steps = cfg.kld_w_annealing
+    frac = torch.clamp(torch.as_tensor(step, dtype=torch.float32) / steps, max=1.0)
+    return w0 + (cfg.kld_w - w0) * frac
+
+
+def sample_p_z(cfg: MHEntConfig, n: int, b: int, generator: torch.Generator | None = None,
+               device=None, draws: dict | None = None, **means) -> torch.Tensor:
+    """Ancestral draw of (n * B, 61) z rows from the z-priors: each block
+    from its prior when there is one (the theta3 ball, the theta45 box or
+    ball, the beta box), else N(0, 1); a `<name>_mean` array instead
+    perturbs that mean by 0.3 x its batch std (ddof 0) times N(0, 1).
+
+    draws: {block name: {"u": uniforms, "normal": standard normals}}, the
+    standard draws of a block (a ball prior takes both, a box prior "u",
+    the others "normal"); a block without them draws from `generator`.
+    """
+    pr = make_priors(cfg, device)
+    rows = n * b
+    draws = draws or {}
+    parts = []
+    for name, nd in ZDIMS:
+        d = draws.get(name, {})
+        if f"{name}_mean" in means:
+            mean = means[f"{name}_mean"]
+            eps = d.get("normal")
+            if eps is None:
+                eps = torch.randn(mean.shape, generator=generator, device=mean.device)
+            parts.append(mean + eps * mean.std(0, correction=0) * 0.3)
+        elif f"{name}_ref" in pr or name in pr:
+            sampler = pr.get(f"{name}_ref", pr.get(name))
+            shape = (rows,) if sampler.sup == "ball" else (rows, nd)
+            parts.append(sampler.sample(shape, generator, device, **d).reshape(rows, nd))
+        else:
+            eps = d.get("normal")
+            if eps is None:
+                eps = torch.randn((rows, nd), generator=generator, device=device)
+            parts.append(eps)
+    return torch.cat(parts, dim=1)
+
+
+def evidence_from_target(y: dict, use_gt, n: int) -> dict:
+    """GT evidence blocks of (n * B,) rows for ancestral conditioning: 'bt'
+    zeros, 'logs' and 't' from the fitted orthographic camera y["st"]."""
+    ev = {}
+    st = y["st"].repeat(n, 1)
+    if "bt" in use_gt:
+        ev["bt"] = st.new_zeros((st.shape[0], 10))
+    if "logs" in use_gt:
+        ev["logs"] = torch.log(st[:, 0:1])
+    if "t" in use_gt:
+        ev["t"] = st[:, 1:3]
+    return ev
+
+
+def set_evidences(z: torch.Tensor, evidences: dict | None) -> torch.Tensor:
+    """z with its beta, log s and t blocks replaced by the given evidence (a
+    new tensor)."""
+    if not evidences:
+        return z
+    z = z.clone()
+    for name, (lo, hi) in (("bt", (48, 58)), ("logs", (58, 59)), ("t", (59, 61))):
+        if name in evidences:
+            z[:, lo:hi] = evidences[name]
+    return z

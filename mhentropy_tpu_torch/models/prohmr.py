@@ -7,7 +7,7 @@ Port of mhentropy_tpu/models/prohmr.py, eval mode: `ProHMRConfig` :36,
 rotations of SMPL's 24 joints; linear heads give betas and a
 weak-perspective camera; every hypothesis decodes through SMPL and projects
 its joints. Training (`nll_loss` :109 with the flow's DDI, BN statistics
-and dropout) is not ported yet (ROADMAP queue 1, item 9).
+and dropout) is not ported yet (ROADMAP queue 1, "ProHMR training").
 
 The module's parameter names: `encoder.res.*` (torchvision names),
 `encoder.l1.0.*` / `encoder.l2.0.*` (the unused 1-wide mu / sigma heads
@@ -114,7 +114,7 @@ def context_features(net: ProHMR, image: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 3) NHWC image -> the flow context (B, C), eval BN."""
     if net.encoder.training:
         raise NotImplementedError("train-mode ProHMR is not ported yet (ROADMAP queue 1, "
-                                  "item 9); call net.eval()")
+                                  "\"ProHMR training\"); call net.eval()")
     return _context_from_feats(net, backbone_features(net.encoder, image))
 
 

@@ -157,6 +157,15 @@ class ResNet(nn.Module):
             if isinstance(m, BatchNorm2d):
                 m.mode = mode
 
+    def place(self, dtype: torch.dtype, masters: bool = False) -> None:
+        """channels_last memory, the parameters cast to `dtype` unless
+        `masters` keeps them f32 for training (each conv then casts its
+        weight in the forward)."""
+        if masters:
+            self.to(memory_format=torch.channels_last)
+        else:
+            self.to(dtype=dtype, memory_format=torch.channels_last)
+
     @torch.no_grad()
     def fold_kernel_weights(self) -> None:
         """Fold eval BN into the stem's and stage 1's kernel weights, on the

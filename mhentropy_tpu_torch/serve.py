@@ -108,7 +108,7 @@ class InferenceServer:
         if not path.endswith(".pth"):
             raise NotImplementedError(
                 f"{path!r}: orbax checkpoints are not ported yet (ROADMAP queue 1, "
-                f"item 4); pass a reference .pth")
+                f"\"What training still lacks\"); pass a reference .pth")
         ckpt = torch.load(path, map_location="cpu")
         net.load_state_dict(ckpt.get("encoderRGB", ckpt), strict=True)
 

@@ -9,16 +9,18 @@ and a step count here), `make_train_step` :359, `make_eval_step` :426, and
 of `Experiment` the synthetic branch of `make_datasets` :654-667,
 `_get_optimizer` :692, `_ensure_state` :718, `train_baseline` :841,
 `train_epoch` :876, `_quant_spec` :921, `eval_loop` :950, `eval` :1016 and
-`save_model` :1043. Not ported yet: autoresume and orbax checkpoints
-(ROADMAP queue 1, item 4; checkpoints are the reference's .pth), the
-real-dataset loaders (item 5), and the non-integrated RLE mode that
-`network.enc_type` other than "MHEnt" selects (:510-517; item "RLE,
-rendering and viz"): `Experiment` refuses it.
+`save_model` :1043; and the non-integrated RLE mode that a
+`network.enc_type` other than "MHEnt" selects (:505-518): `build_rle_config`
+:115, `make_rle_train_step` :249 and `make_rle_eval_step` :280, with
+`Experiment`'s branches for it (checkpoints in the reference's RLE schema,
+{'encoderRGB', 'p_nf'}). Not ported yet: autoresume and orbax checkpoints
+(ROADMAP queue 1, "What training still lacks"; checkpoints are the
+reference's .pth) and the real-dataset loaders ("Data loaders").
 
 The steps are plain functions of their batch and noise: torch cannot replay
-jax.random, so the reverse-KL draw's noise (temperature 1) and the eval
-hypotheses' noise (times temp) come from the caller, as the JAX steps split
-their keys into independent streams.
+jax.random, so the reverse-KL draw's noise (temperature 1), the eval
+hypotheses' noise (times temp) and the RLE step's two draws come from the
+caller, as the JAX steps split their keys into independent streams.
 """
 
 from __future__ import annotations
@@ -33,10 +35,11 @@ from mhentropy_tpu_torch.core import mano as mano_lib
 from mhentropy_tpu_torch.core.mano import ManoConfig, ManoModel
 from mhentropy_tpu_torch.data import synthetic
 from mhentropy_tpu_torch.flows.realnvp import RealNVPConfig
-from mhentropy_tpu_torch.models import mhent
+from mhentropy_tpu_torch.models import mhent, rle
 from mhentropy_tpu_torch.models import quant as quant_mod
 from mhentropy_tpu_torch.models.encoder import EncoderConfig
 from mhentropy_tpu_torch.models.mhent import MHEntConfig
+from mhentropy_tpu_torch.models.rle import RLEConfig
 from mhentropy_tpu_torch.train import metrics as metrics_lib
 from mhentropy_tpu_torch.utils.logging import AverageMeter
 
@@ -53,17 +56,8 @@ def build_model_config(cfg) -> MHEntConfig:
     net = cfg.network
     if net.use_mask_loss:
         raise NotImplementedError("the mask likelihood needs the renderer, which is not ported "
-                                  "yet (ROADMAP queue 1, item 10)")
-    n_latent = net.nums_latent if net.nums_latent else net.num_latent
-    enc = EncoderConfig(
-        backbone=net.backbone,
-        n_latent=(n_latent, n_latent) if isinstance(n_latent, int) else tuple(n_latent),
-        feat_dim=net.feat_dim,
-        sigma_act=net.acts,
-        deterministic=net.deterministic,
-        dtype=cfg.tpu.compute_dtype,
-        fused_train_bn=_fused_bn_mode(cfg),
-    )
+                                  "yet (ROADMAP queue 1, \"Rendering and viz\")")
+    enc = _encoder_config(cfg)
     flow = RealNVPConfig(
         dim=45,
         cond_dim=net.num_latent,
@@ -90,6 +84,41 @@ def build_model_config(cfg) -> MHEntConfig:
         use_chamfer_loss=bool(net.use_chamfer_loss),
         w_chamfer=float(net.w_chamfer),
     )
+
+
+def _encoder_config(cfg) -> EncoderConfig:
+    net = cfg.network
+    n_latent = net.nums_latent if net.nums_latent else net.num_latent
+    return EncoderConfig(
+        backbone=net.backbone,
+        n_latent=(n_latent, n_latent) if isinstance(n_latent, int) else tuple(n_latent),
+        feat_dim=net.feat_dim,
+        sigma_act=net.acts,
+        deterministic=net.deterministic,
+        dtype=cfg.tpu.compute_dtype,
+        fused_train_bn=_fused_bn_mode(cfg),
+    )
+
+
+def build_rle_config(cfg) -> RLEConfig:
+    """YAML schema -> RLEConfig for the non-integrated BasicEnc + p_nf mode:
+    a per-joint flow of dim network.p_nf_dim, unconditional with the
+    actnorm of a string tsfm_on ('x' / 'z'), conditioned on an integer
+    tsfm_on's width otherwise."""
+    net = cfg.network
+    tsfm_on = net.tsfm_on
+    flow = RealNVPConfig(
+        dim=net.p_nf_dim,
+        cond_dim=tsfm_on if isinstance(tsfm_on, int) else 0,
+        h_dim=net.h_dims[0],
+        num_steps=net.num_steps,
+        joint_n=cfg.dataset.jointN,
+        kemb=bool(net.kemb),
+        tsfm_on=tsfm_on if isinstance(tsfm_on, str) else None,
+        cond_mapping_dims=tuple(tuple(x) for x in (net.cond_mapping_dims or ())),
+    )
+    return RLEConfig(encoder=_encoder_config(cfg), flow=flow, pe=cfg.dataset.pe,
+                     nf_res=net.nf_res, image_size=max(cfg.dataset.image_size))
 
 
 def mano_fingerprint(mano_dir: str):
@@ -217,7 +246,7 @@ class Optimizer:
         self.count = count
 
 
-def make_optimizer(net: mhent.MHEnt, lr: float, milestones, steps_per_epoch: int,
+def make_optimizer(net: torch.nn.Module, lr: float, milestones, steps_per_epoch: int,
                    gamma: float = 0.1) -> Optimizer:
     """Adam + MultiStep LR (gamma 0.1) + global-norm clip 1.0 over every
     parameter of `net` (CrossModalHand.py:201-203, 462-467)."""
@@ -243,12 +272,7 @@ def make_train_step(model: ManoModel, net: mhent.MHEnt, optimizer: Optimizer,
         image, target = _prep_batch(image, target)
         out = mhent.reverse_kld(model, net, target, image, base_noise=noise, train=True,
                                 fold=fold)
-        lp = out["log_p"]  # criteria.py:55,173
-        if "valid" in target:
-            v = target["valid"]
-            loss = -(lp * v).sum() / (v.sum() + 1e-16)
-        else:
-            loss = -lp.mean()
+        loss = _masked_loss(out["log_p"], target)  # criteria.py:55,173
         optimizer.zero_grad()
         loss.backward()
         optimizer.step()
@@ -301,9 +325,65 @@ def make_eval_step(model: ManoModel, net: mhent.MHEnt, n: int, temp: float,
     return eval_fn
 
 
+def _masked_loss(lp: torch.Tensor, target: dict) -> torch.Tensor:
+    """-mean log p, a padded tail batch's padding (target["valid"]) masked out."""
+    if "valid" in target:
+        v = target["valid"]
+        return -(lp * v).sum() / (v.sum() + 1e-16)
+    return -lp.mean()
+
+
+def make_rle_train_step(net: rle.RLE, optimizer: Optimizer):
+    """One optimisation step of the RLE density loss -log p.
+
+    Returns step_fn(image, target, noise, base_noise) -> aux {loss, sigma_i}
+    as 0-d tensors on the device; noise and base_noise as
+    `rle.loss_and_predict` takes them. The net must be in train mode.
+    """
+    def step_fn(image, target, noise, base_noise):
+        image, target = _prep_batch(image, target)
+        out = rle.loss_and_predict(net, image, target, noise=noise, base_noise=base_noise,
+                                   train=True)
+        loss = _masked_loss(out["log_p"], target)
+        optimizer.zero_grad()
+        loss.backward()
+        optimizer.step()
+        return {"loss": loss.detach(), "sigma_i": out["sigma_i"]}
+
+    return step_fn
+
+
+def make_rle_eval_step(net: rle.RLE):
+    """The RLE eval step: log p and the K1 draws scored by the BH / WH /
+    diversity metrics, plus loss_total and sigma_i.
+
+    Returns eval_fn(image, target, noise, base_noise) -> {metric: 0-d tensor}.
+    """
+    @torch.inference_mode()
+    def eval_fn(image, target, noise, base_noise):
+        image, target = _prep_batch(image, target)
+        out = rle.loss_and_predict(net, image, target, noise=noise, base_noise=base_noise)
+        output = {"log_p": out["log_p"]}
+        for k in ("xyz", "uv"):
+            if k in out:
+                output[k] = out[k].reshape(*out[k].shape[:2], -1)
+        total, _, mets = metrics_lib.mhent_metrics(output, target,
+                                                   image_size=net.cfg.image_size)
+        mets = {k: v.mean() for k, v in mets.items()}
+        mets["loss_total"] = total
+        mets["sigma_i"] = out["sigma_i"]
+        return mets
+
+    return eval_fn
+
+
 class Experiment:
     """The JAX Experiment on the synthetic data: config -> MANO, fresh or
     restored weights on the device, the train loop and the eval loop.
+
+    network.enc_type "MHEnt" builds the integrated MHEnt; any other value
+    the non-integrated RLE mode (BasicEnc + the network.p_nf flow,
+    `models/rle.py`), as the JAX Experiment does.
 
     device: the card unless the caller passes another one (e.g. "cpu").
     With training.epochs > 0 the backbone keeps f32 master parameters and
@@ -313,15 +393,11 @@ class Experiment:
 
     def __init__(self, cfg, device=None, mano_dir: str = "./mano/"):
         self.cfg = cfg
-        # The JAX Experiment builds the integrated MHEnt only for this value
-        # (engine.py:510); any other is its non-integrated RLE mode.
-        if cfg.network.enc_type != "MHEnt":
-            raise NotImplementedError(
-                f"network.enc_type {cfg.network.enc_type!r}: the port builds the integrated "
-                f"MHEnt only (enc_type: MHEnt); RLE and the non-integrated mode are not ported "
-                f"yet (ROADMAP queue 1, \"RLE, rendering and viz\")")
+        self.integrated = cfg.network.enc_type == "MHEnt"
+        if not self.integrated and not cfg.network.p_nf:
+            raise NotImplementedError("non-integrated mode requires network.p_nf (realnvp)")
         self.device = resolve_device(device)
-        self.model_cfg = build_model_config(cfg)
+        self.model_cfg = build_model_config(cfg) if self.integrated else build_rle_config(cfg)
         self.model = load_mano_model(mano_dir, device=self.device)
         self.fold = mano_lib.fold_keypoints(self.model)
         seed = cfg.training.seed
@@ -332,35 +408,50 @@ class Experiment:
         self.step = 0
         self.losses = []  # every train step's loss, read on the host at log points
         self._pending_opt = None
-        net = mhent.init(self.model_cfg, seed=self.seed)
+        self._lib = mhent if self.integrated else rle
+        net = self._lib.init(self.model_cfg, seed=self.seed)
         if cfg.training.pth:
             ckpt = self._restore(net, cfg.training.pth)
             self._pending_opt = ckpt.get("optimizer")
             self.step = int(ckpt.get("step", 0))
-        self.net = mhent.prepare(net, self.device, masters=self.masters)
+        self.net = self._lib.prepare(net, self.device, masters=self.masters)
         self.gen = torch.Generator(device=self.device).manual_seed(self.seed)
         self.quant_spec = None
         self.qtree = None
         self._train_step = None
 
     @staticmethod
-    def _restore(net: mhent.MHEnt, path: str) -> dict:
-        """Load a .pth in the reference's schema ({"encoderRGB": state_dict,
-        ...}, or a bare state_dict) into net; returns the checkpoint dict."""
+    def _restore(net, path: str) -> dict:
+        """Load a .pth in the reference's schema into net (an MHEnt:
+        {"encoderRGB": state_dict, ...} or a bare state_dict; an RLE:
+        {"encoderRGB", "p_nf"}); returns the checkpoint dict."""
         if not path.endswith(".pth"):
             raise NotImplementedError(
-                f"{path!r}: orbax checkpoints are not ported yet (ROADMAP queue 1, item 4); "
-                f"pass a reference .pth")
+                f"{path!r}: orbax checkpoints are not ported yet (ROADMAP queue 1, \"What "
+                f"training still lacks\"); pass a reference .pth")
         ckpt = torch.load(path, map_location="cpu")
-        net.load_state_dict(ckpt.get("encoderRGB", ckpt), strict=True)
+        if isinstance(net, rle.RLE):
+            rle.load_checkpoint(net, ckpt)
+        else:
+            net.load_state_dict(ckpt.get("encoderRGB", ckpt), strict=True)
         return ckpt
+
+    def _draws(self, target: dict, bs: int):
+        """One step's noise: the reverse-KL draw's (n_train_hypotheses * B,
+        45) for an MHEnt; for the RLE mode `rle.draws`."""
+        mc = self.model_cfg
+        if self.integrated:
+            return (torch.randn((mc.n_train_hypotheses * bs, mc.flow.dim), generator=self.gen,
+                                device=self.device),)
+        return rle.draws(mc, target["pose3d" if mc.pe == "3d" else "crop_uv"], self.gen)
 
     def make_datasets(self, which=("train", "eval")):
         """The synthetic fixture: (train, eval), None for a split not asked."""
         if self.cfg.tpu.data_dir:
             raise NotImplementedError(
                 f"data_dir {self.cfg.tpu.data_dir!r}: the real-dataset loaders are not ported "
-                f"yet (ROADMAP queue 1, item 5); leave tpu.data_dir null for the synthetic set")
+                f"yet (ROADMAP queue 1, \"Data loaders\"); leave tpu.data_dir null for the "
+                f"synthetic set")
         name = self.cfg.dataset.dataset_name
         img = self.model_cfg.image_size
         bs = self.cfg.training.batch_size
@@ -397,8 +488,9 @@ class Experiment:
             if self._pending_opt is not None:
                 self.optimizer.load_state_dict(self._pending_opt)
                 self._pending_opt = None
-            self._train_step = make_train_step(self.model, self.net, self.optimizer,
-                                               fold=self.fold)
+            self._train_step = (
+                make_train_step(self.model, self.net, self.optimizer, fold=self.fold)
+                if self.integrated else make_rle_train_step(self.net, self.optimizer))
 
     def train_baseline(self):
         """The initial eval, then `training.epochs` epochs of train steps, an
@@ -407,7 +499,7 @@ class Experiment:
         initial eval only."""
         if self.cfg.tpu.autoresume:
             raise NotImplementedError("tpu.autoresume is not ported yet (ROADMAP queue 1, "
-                                      "item 4)")
+                                      "\"What training still lacks\")")
         epochs = self.cfg.training.epochs
         if not epochs:
             _, eval_data = self.make_datasets(which=("eval",))
@@ -432,10 +524,7 @@ class Experiment:
         """One pass over `data` in the epoch's shuffled batch order; the
         losses are read on the host only at log points and at the end.
         Returns the epoch's mean loss."""
-        tr = self.cfg.training
-        bs = tr.batch_size
-        n_kld = self.model_cfg.n_train_hypotheses
-        dim = self.model_cfg.flow.dim
+        bs = self.cfg.training.batch_size
         self.net.train()
         pending, epoch_losses = [], []
 
@@ -447,27 +536,30 @@ class Experiment:
         for idx, (image, target) in enumerate(synthetic.batches(
                 data, bs, pad_remainder=True, device=self.device, shuffle=True,
                 seed=self.seed + epoch)):
-            noise = torch.randn((n_kld * bs, dim), generator=self.gen, device=self.device)
-            aux = self._train_step(image, target, noise)
+            aux = self._train_step(image, target, *self._draws(target, bs))
             pending.append(aux["loss"])
             self.step += 1
             if idx % self.cfg.info_interval == 0:
                 drain()
-                extras = torch.stack([aux["h_q"], aux["q_log_p"]]).tolist()
+                names = [k for k in ("h_q", "q_log_p", "sigma_i") if k in aux]
+                extras = torch.stack([aux[k] for k in names]).tolist()
                 avg = sum(epoch_losses) / len(epoch_losses)
-                print(f"Epoch:{epoch}| Step:{idx}| Avg_Loss:{avg:.4f}| h_q:{extras[0]:.4f}| "
-                      f"q_log_p:{extras[1]:.4f}|", flush=True)
+                print(f"Epoch:{epoch}| Step:{idx}| Avg_Loss:{avg:.4f}|"
+                      + "".join(f" {k}:{v:.4f}|" for k, v in zip(names, extras)), flush=True)
         drain()
         self.losses.extend(epoch_losses)
         return sum(epoch_losses) / max(1, len(epoch_losses))
 
     def save_model(self, name: str, epoch: int | None = None) -> str:
         """<model_dir>/<name>[_<epoch>].pth in the reference's schema:
-        {"encoderRGB": state_dict, "optimizer": ..., "step": ...}."""
+        {"encoderRGB": state_dict, "optimizer": ..., "step": ...}, and
+        "p_nf" beside a BasicEnc "encoderRGB" in the RLE mode."""
         tag = name if epoch is None else f"{name}_{epoch}"
         path = os.path.abspath(os.path.join(self.cfg.model_dir, f"{tag}.pth"))
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        torch.save({"encoderRGB": {k: v.detach().cpu() for k, v in self.net.state_dict().items()},
+        modules = (rle.checkpoint(self.net) if not self.integrated else
+                   {"encoderRGB": {k: v.detach().cpu() for k, v in self.net.state_dict().items()}})
+        torch.save({**modules,
                     "optimizer": self.optimizer.state_dict() if self.optimizer else None,
                     "step": self.step}, path)
         print(f"save model in {path}", flush=True)
@@ -481,14 +573,15 @@ class Experiment:
                 raise FileNotFoundError(f"eval(name={name!r}): no checkpoint at "
                                         f"{os.path.abspath(name)}")
             self._restore(self.net, name)
-            self.net = mhent.prepare(self.net, self.device, masters=self.masters)
+            self.net = self._lib.prepare(self.net, self.device, masters=self.masters)
         _, eval_data = self.make_datasets(which=("eval",))
         return self.eval_loop(eval_data)
 
     def _quant_spec(self, batch_size: int):
-        """The QuantSpec of the int8 eval (tpu.quantize_encoder), or None."""
+        """The QuantSpec of the int8 eval (tpu.quantize_encoder), or None
+        (always for the RLE mode)."""
         tpu = self.cfg.tpu
-        if not tpu.quantize_encoder:
+        if not (self.integrated and tpu.quantize_encoder):
             return None
         img, backbone = self.model_cfg.image_size, self.model_cfg.encoder.backbone
         return quant_mod.QuantSpec(
@@ -506,17 +599,17 @@ class Experiment:
         (the sampler at this eval's temp)."""
         self.net.eval()
         if self.masters:
-            mhent.refresh_kernel_weights(self.net)
+            self._lib.refresh_kernel_weights(self.net)
         tr = self.cfg.training
         n = n or tr.test_samples
         bs = tr.batch_size
         temp = tr.eval_temp
-        n_quant = min(tr.test_quant or n, n)
-        n_kld = self.model_cfg.n_train_hypotheses
-        dim = self.model_cfg.flow.dim
         spec = self.quant_spec = self._quant_spec(bs)
-        step = make_eval_step(self.model, self.net, n, temp, n_quant=n_quant, quant_spec=spec,
-                              fold=self.fold)
+        if self.integrated:
+            step = make_eval_step(self.model, self.net, n, temp, n_quant=min(tr.test_quant or n, n),
+                                  quant_spec=spec, fold=self.fold)
+        else:
+            step = make_rle_eval_step(self.net)
         qtree = None
         batch_mets = []
         for image, target in synthetic.batches(data, bs, pad_remainder=True, device=self.device):
@@ -529,9 +622,12 @@ class Experiment:
                         _, qtree = quant_mod.quantize_sampler_into(spec, qtree, self.net, calib,
                                                                    temp=temp)
                 self.qtree = qtree
-            kld = torch.randn((n_kld * bs, dim), generator=self.gen, device=self.device)
-            hypo = torch.randn((n * bs, dim), generator=self.gen, device=self.device) * temp
-            batch_mets.append(step(image, target, kld, hypo, qtree))
+            draws = self._draws(target, bs)
+            if self.integrated:
+                hypo = torch.randn((n * bs, self.model_cfg.flow.dim), generator=self.gen,
+                                   device=self.device) * temp
+                draws = (*draws, hypo, qtree)
+            batch_mets.append(step(image, target, *draws))
         # One device-to-host copy per metric, after the loop; the means are
         # the JAX loop's AverageMeters: valid-weighted, a batch whose value
         # is exactly 0 left out of that metric.

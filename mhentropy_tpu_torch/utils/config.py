@@ -35,14 +35,17 @@ DEFAULTS = {
     "info_interval": 200,
     "save_interval": 5,
     "eval_interval": 1,
-    "dataset": {"dataset_name": "rhd", "image_size": [256, 256], "jointN": 21},
+    "dataset": {"dataset_name": "rhd", "image_size": [256, 256], "jointN": 21, "pe": "3d"},
     "network": {"enc_type": "BasicEnc", "num_latent": 64, "nums_latent": None,
                 "backbone": "resnet18", "feat_dim": None, "acts": "exp", "deterministic": False,
                 "decoder_type": "mano",
                 "regressor": "realnvp", "h_dims": [64, 64], "num_steps": 3,
                 "w_reg_th": 50, "b_2d": 0.03, "b_3d": 0.03, "entropy": True, "T": 1.0,
                 "th3_ref_alpha": 5.0, "bt_alpha": 50.0, "use_chamfer_loss": False,
-                "w_chamfer": 10.0, "use_mask_loss": False},
+                "w_chamfer": 10.0, "use_mask_loss": False,
+                # The non-integrated RLE mode (engine.build_rle_config).
+                "p_nf": None, "p_nf_dim": 3, "tsfm_on": None, "cond_mapping_dims": None,
+                "kemb": False, "nf_res": None},
     "training": {"mode": "pretrain", "seed": None, "batch_size": 32, "pth": None,
                  "epochs": 80, "lr": 1e-4, "milestones": [30, 60], "test_samples": 200,
                  "n_train_hypotheses": 10, "test_quant": None, "eval_temp": 0.8},

@@ -4,7 +4,7 @@ Port of mhentropy_tpu/utils/logging.py's `AverageMeter` (:23-49), the
 reference's meter (utils.py:75-91) with its quirk of dropping zero-valued
 updates, on by default for log parity. The port keeps its own copy so that
 it imports nothing of the JAX package. `get_logger` and `ScalarWriter` are
-not ported yet (ROADMAP queue 1, item 4).
+not ported yet (ROADMAP queue 1, "What training still lacks").
 """
 
 from __future__ import annotations

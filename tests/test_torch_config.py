@@ -2,10 +2,11 @@
 JAX package's.
 
 The JAX Experiment builds the integrated MHEnt only for enc_type "MHEnt"
-(train/engine.py:510) and otherwise its non-integrated RLE mode, which the
-port does not have: the port's Experiment refuses those configs. The eval
-summary averages each metric as the JAX loop's `AverageMeter()` does: a
-batch whose value is exactly 0 does not enter that metric's mean.
+(train/engine.py:510) and otherwise its non-integrated RLE mode, which it
+refuses without network.p_nf; the port's Experiment does the same, with the
+same RLEConfig. The eval summary averages each metric as the JAX loop's
+`AverageMeter()` does: a batch whose value is exactly 0 does not enter that
+metric's mean.
 """
 
 import os
@@ -16,7 +17,7 @@ import torch
 from mhentropy_tpu.train import engine as jengine
 from mhentropy_tpu.utils import config as jconfig
 from mhentropy_tpu.utils.logging import AverageMeter as JAverageMeter
-from mhentropy_tpu_torch.models import mhent
+from mhentropy_tpu_torch.models import mhent, rle
 from mhentropy_tpu_torch.train import engine
 from mhentropy_tpu_torch.utils import logging as tlogging
 from mhentropy_tpu_torch.utils.config import load_cfg
@@ -39,25 +40,35 @@ def _without_enc_type(tmp_path):
 
 @pytest.mark.parametrize("name", ["smoke_rle.yaml", "rhd_rle.yaml", None])
 def test_experiment_refuses_the_non_integrated_mode(name, tmp_path):
+    """The non-integrated mode as the JAX Experiment takes it: the RLE
+    configs build it (the same RLEConfig in both packages); a YAML without
+    network.p_nf is refused by both, naming p_nf."""
     path = _config(name) if name else _without_enc_type(tmp_path)
     cfg = load_cfg(path)
     assert cfg.network.enc_type == ("BasicEnc" if name is None else
                                     jconfig.update_cfg(path).network.enc_type)
-    with pytest.raises(NotImplementedError, match="RLE, rendering and viz"):
-        engine.Experiment(cfg, device="cpu")
-    # The JAX Experiment takes its non-integrated branch on the same file
-    # (and, without network.p_nf, refuses it too).
     jcfg = jconfig.update_cfg(path)
     jcfg.model_dir = str(tmp_path / "jax") + "/"
-    if jcfg.network.p_nf:
-        exp = jengine.Experiment(jcfg)
-        try:
-            assert not exp.integrated and type(exp.model_cfg).__name__ == "RLEConfig"
-        finally:
-            exp.close()
-    else:
+    if not jcfg.network.p_nf:
+        with pytest.raises(NotImplementedError, match="p_nf"):
+            engine.Experiment(cfg, device="cpu")
         with pytest.raises(NotImplementedError, match="p_nf"):
             jengine.Experiment(jcfg)
+        return
+    exp = engine.Experiment(cfg, device="cpu")
+    assert not exp.integrated and isinstance(exp.net, rle.RLE)
+    jexp = jengine.Experiment(jcfg)
+    try:
+        assert not jexp.integrated and type(jexp.model_cfg).__name__ == "RLEConfig"
+        ours, theirs = exp.model_cfg, jexp.model_cfg
+    finally:
+        jexp.close()
+    assert ours.flow._asdict() == theirs.flow._asdict()
+    for k in ("pe", "k1", "sample_temp", "nf_res", "image_size"):
+        assert getattr(ours, k) == getattr(theirs, k), k
+    for k in ours.encoder._fields:
+        assert getattr(ours.encoder, k) == getattr(theirs.encoder, k), k
+    assert ours.flow.dim == 3 and ours.flow.tsfm_on == "x" and ours.nf_res == "rle"
 
 
 @pytest.mark.parametrize("name", ["smoke.yaml", "ho3d.yaml", "rhd.yaml"])

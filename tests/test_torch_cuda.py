@@ -949,3 +949,75 @@ def test_stage1_probe_refuses_what_it_does_not_take(dev):
         stage1_probe.forward_a(stage1_probe.input_a(1, dev).float(), wa)
     with pytest.raises(ValueError, match="w1 must be"):
         stage1_probe.forward_b(stage1_probe.input_a(1, dev).transpose(1, 2).contiguous(), wa)
+
+
+def test_rle_path_launches_the_encoder_kernels_and_matches_plain(dev):
+    """The RLE mode's resnet50 on the card: eval mode launches the stem (1)
+    and stage 1 (3) kernels and agrees with the plain path on the same
+    weights and draws (bf16 kernels against cuDNN: log p within 2e-2 of its
+    largest value, the draws within 0.1); train mode launches the BN sums,
+    one a BatchNorm, and its gradients are finite."""
+    from mhentropy_tpu_torch.models import rle
+    from mhentropy_tpu_torch.models.encoder import EncoderConfig
+
+    cfg = rle.RLEConfig(encoder=EncoderConfig(backbone="resnet50", n_latent=(63, 63)),
+                        flow=realnvp.RealNVPConfig(dim=3, h_dim=32, num_steps=2, joint_n=21,
+                                                   tsfm_on="x"),
+                        nf_res="rle", image_size=64)
+    net = rle.prepare(rle.init(cfg, seed=0), dev, masters=True)
+    rng = np.random.RandomState(0)
+    image = torch.from_numpy(rng.randn(2, 64, 64, 3).astype(np.float32)).to(dev)
+    y = {"pose3d": torch.from_numpy(rng.randn(2, 63).astype(np.float32) * 0.3).to(dev)}
+    g = torch.Generator(device=dev).manual_seed(0)
+    draws = (torch.randn(2, 63, generator=g, device=dev),
+             torch.randn(10, 42, 3, generator=g, device=dev) * 0.8)
+    before = (stem_cuda.launches, stage1_cuda.launches)
+    with torch.inference_mode():
+        kern = rle.loss_and_predict(net, image, y, *draws)
+        assert (stem_cuda.launches, stage1_cuda.launches) == (before[0] + 1, before[1] + 3)
+        net.set_kernels(False)
+        plain = rle.loss_and_predict(net, image, y, *draws)
+    assert (stem_cuda.launches, stage1_cuda.launches) == (before[0] + 1, before[1] + 3)
+    lp, ref = kern["log_p"], plain["log_p"]
+    assert torch.isfinite(lp).all() and (lp - ref).abs().max() <= 2e-2 * ref.abs().max()
+    assert (kern["xyz"] - plain["xyz"]).abs().max() <= 0.1
+    net.set_kernels(True)
+    net.train()
+    n_bn = sum(isinstance(m, resnet.BatchNorm2d) for m in net.modules())
+    before = bn_cuda.stats_launches
+    out = rle.loss_and_predict(net, image, y, *draws, train=True)
+    (-out["log_p"].mean()).backward()
+    assert bn_cuda.stats_launches == before + n_bn == before + 53
+    assert all(torch.isfinite(p.grad).all() for p in net.parameters() if p.grad is not None)
+
+
+def test_det_path_launches_the_lbs_kernel_and_matches_plain(dev):
+    """The det MHEnt's sample_hypotheses with the mesh on the card: stem 1,
+    stage 1 3, LBS 1 and no sampler launch (it has no flow); its hypotheses
+    against the plain path's (bone-normalised xyz and verts within 4e-2, uv
+    within 5 px, chip_smoke.SLICE_TOL's bounds)."""
+    from mhentropy_tpu_torch.core import mano
+    from mhentropy_tpu_torch.models import mhent
+    from mhentropy_tpu_torch.models.encoder import EncoderConfig
+
+    cfg = mhent.MHEntConfig(encoder=EncoderConfig(backbone="resnet50", n_latent=(64, 64)),
+                            regressor="det", feat_dim=64, image_size=64)
+    net = mhent.prepare(mhent.init(cfg, seed=0), dev)
+    model = mano.synthetic_mano_model(0, device=dev)
+    image = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(1)).to(dev)
+    counts = lambda: (stem_cuda.launches, stage1_cuda.launches, lbs_cuda.launches,  # noqa: E731
+                      cuda_sampler.launches, cuda_sampler.launches_f32)
+    before = counts()
+    with torch.inference_mode():
+        kern = mhent.sample_hypotheses(model, net, image, n=4)
+        assert tuple(a - b for a, b in zip(counts(), before)) == (1, 3, 1, 0, 0)
+        net.set_kernels(False)
+        blend, lbs_cuda.lbs_blend = lbs_cuda.lbs_blend, lbs_cuda.lbs_blend_plain
+        try:
+            plain = mhent.sample_hypotheses(model, net, image, n=4)
+        finally:
+            lbs_cuda.lbs_blend = blend
+    assert counts()[:3] == (before[0] + 1, before[1] + 3, before[2] + 1)
+    assert torch.equal(kern["xyz"][0], kern["xyz"][3])
+    for k, tol in (("xyz", 4e-2), ("uv", 5.0), ("verts", 4e-2)):
+        assert torch.isfinite(kern[k]).all() and (kern[k] - plain[k]).abs().max() <= tol, k

@@ -36,7 +36,7 @@ def test_port_imports_no_jax():
         "import mhentropy_tpu_torch.eval_prohmr, mhentropy_tpu_torch.bench_prohmr\n"
         "import mhentropy_tpu_torch.models.stem_int8_cuda, mhentropy_tpu_torch.bench_quant\n"
         "import mhentropy_tpu_torch.models.stage2_int8_cuda, mhentropy_tpu_torch.int8_gemm_probe\n"
-        "import mhentropy_tpu_torch.utils.logging\n"
+        "import mhentropy_tpu_torch.utils.logging, mhentropy_tpu_torch.models.rle\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'mhentropy_tpu', 'tools'))\n"
         "print(bad)\n"
