@@ -123,6 +123,22 @@
 9d. The port's bench (mhentropy_tpu_torch/bench.py) at N=100, B=32 with
    BENCH_STEPS steps a round: the headline hypotheses/s, mfu, every
    section of bench.py (none may fail), the device time by layer.
+9e. Loaders: which of Pillow, cv2 and imageio import (decided once, up
+   front); an RHD tree (LOADER_RHD train / eval items at 320 x 320), a
+   FreiHAND tree and, where cv2 imports, an HO3D tree, written by
+   mhentropy_tpu_torch/data/fixtures.py (without Pillow, every image also
+   into the decode cache, tpu.decode_cache); then run.py's path
+   (Experiment.train_baseline, tpu.data_dir at the tree, training.epochs 1)
+   on configs/rhd.yaml (its eval alone without Pillow: the train mode's
+   hue jitter needs it), configs/freihand.yaml and, with cv2,
+   configs/ho3d.yaml and configs/rhd.yaml as mixed_ho3d_rhd: finite losses
+   and metrics, every kernel's launches equal to the counted numbers, the
+   checkpoint reloads; the first train run's first loader batch through one
+   step with kernels and the plain path (held as in 9); host items/s of the
+   train loader plain and through the prefix cache and of the eval loader
+   plain and through the sample cache (LOADER_THREADS threads), and ms per
+   train step fed by the loader through prefetch against pre-staged
+   synthetic batches, alternating windows, with the busy share of each.
 10. Prints the kernels' JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
@@ -225,7 +241,7 @@ PROHMR_BENCH = (32, 100)  # tools/bench_prohmr.py's B, N
 PROHMR_SHAPES = ((PROHMR_EVAL[0], 224), (PROHMR_BENCH[0], 224))
 # Timing: RUNS windows per version, each at least this many seconds long.
 RUNS = 3
-KERNEL_WINDOW_S = 0.5
+KERNEL_WINDOW_S = 0.3
 SLICE_WINDOW_S = 2.0
 EVAL_BATCH = 64
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense rates, 700 W).
@@ -2396,6 +2412,292 @@ def phase_det(torch, dev):
                            "ms_per_step": train_ms, "trace": train_trace}}
 
 
+# The loader phase (9e): the RHD tree's train / eval items (RHD's 320 x 320),
+# FreiHAND's items (the loader keeps the last 10 % for evaluation) and the
+# HO3D tree's train / eval frames; the loader throughput windows.
+LOADER_RHD = (128, 64)
+LOADER_FREIHAND = 128
+LOADER_HO3D = (64, 32)
+LOADER_WINDOW_S = 0.5
+LOADER_THREADS = 4  # data.common.batches' default pool, as train_epoch runs it
+
+
+def importable(name: str) -> bool:
+    """Whether `import name` succeeds here (the card's image libraries are
+    checked up front, once)."""
+    import importlib
+
+    try:
+        importlib.import_module(name)
+    except ImportError:
+        return False
+    return True
+
+
+def loader_cfg(yaml: str, data_dir: str, model_dir: str, epochs: int, decode_cache,
+               dataset_name: str | None = None):
+    """A shipped YAML at full width, trained `epochs` (0: the eval alone)
+    from tpu.data_dir, seed 0."""
+    from mhentropy_tpu_torch.utils.config import load_cfg
+
+    cfg = load_cfg(yaml)
+    cfg.training.epochs = epochs
+    cfg.training.seed = 0
+    cfg.model_dir = model_dir + "/"
+    cfg.tpu.data_dir = data_dir
+    cfg.tpu.decode_cache = decode_cache
+    if dataset_name:
+        cfg.dataset.dataset_name = dataset_name
+    return cfg
+
+
+def loader_run(torch, dev, label: str, cfg) -> dict:
+    """Experiment.train_baseline (run.py's path) on a loader tree: finite
+    losses and metrics, each kernel launched the counted number of times
+    (per eval batch stem 1, stage 1 3, the bf16 draw 1 and the reverse-KL
+    f32 draw 1; per train step the BN stats sums 53 and the f32 draw 1;
+    none other), and the final checkpoint reloads."""
+    from mhentropy_tpu_torch.models import mhent
+    from mhentropy_tpu_torch.train import engine
+
+    exp = engine.Experiment(cfg, device=dev)
+    train, evald = exp.make_datasets(which=("train", "eval") if cfg.training.epochs
+                                     else ("eval",))
+    bs = cfg.training.batch_size
+    n_eval, n_steps = -(-len(evald) // bs), -(-len(train) // bs) if train is not None else 0
+    t0 = time.perf_counter()
+    reset_launches()
+    summary = exp.train_baseline()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check(len(exp.losses) == n_steps and all(math.isfinite(v) for v in exp.losses),
+          f"loaders {label}: losses {exp.losses}, expected {n_steps} steps")
+    check(summary and all(math.isfinite(v) for v in summary.values()),
+          f"loaders {label}: eval metrics {summary}")
+    want = dict.fromkeys(launches, 0)
+    want.update(stem=n_eval, stage1=3 * n_eval, realnvp_sampler=n_eval,
+                realnvp_sampler_f32=n_eval + n_steps, bn_stats_sums=53 * n_steps)
+    check(launches == want, f"loaders {label}: launches {launches}, expected {want}")
+    if n_steps:
+        path = os.path.join(cfg.model_dir, "baseline_final.pth")
+        reloaded = mhent.init(exp.model_cfg, seed=1)
+        engine.Experiment._restore(reloaded, path)
+        here = {k: v.cpu() for k, v in exp.net.state_dict().items()}
+        check(all(torch.equal(v, here[k]) for k, v in reloaded.state_dict().items()),
+              f"loaders {label}: {path} does not reload the trained weights")
+    print(f"loaders {label}: {wall:.1f} s for train_baseline ({len(train) if n_steps else 0} "
+          f"train / {len(evald)} eval items, {n_steps} steps, {n_eval} eval batches); losses "
+          f"{exp.losses}; eucLoss_3d_rgb_sample {summary['eucLoss_3d_rgb_sample']:.6g}; "
+          f"launches {launches}", flush=True)
+    return {"exp": exp, "train": train, "eval": evald, "launches": launches, "run_s": wall,
+            "losses": exp.losses, "eval_summary": summary, "steps": n_steps,
+            "eval_batches": n_eval}
+
+
+def loader_items_per_s(datasets: dict, seconds: float) -> dict:
+    """Host items/s of whole epochs of common.batches (LOADER_THREADS
+    threads, host numpy, no device), each dataset in turn for RUNS windows
+    of at least `seconds` (reversed on odd runs), after one warm epoch that
+    fills any cache."""
+    from mhentropy_tpu_torch.data import common
+
+    def epoch(ds, e):
+        if hasattr(ds, "set_epoch"):
+            ds.set_epoch(e)
+        n = 0
+        for image, _ in common.batches(ds, TRAIN_BATCH, shuffle=True, seed=e,
+                                       num_workers=LOADER_THREADS, pad_remainder=True):
+            n += image.shape[0]
+        return n
+
+    for ds in datasets.values():
+        epoch(ds, 0)
+    runs = {name: [] for name in datasets}
+    order = tuple(datasets)
+    for r in range(RUNS):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            items, e, t1 = 0, 1, time.perf_counter()
+            while time.perf_counter() - t1 < seconds:
+                items += epoch(datasets[name], e)
+                e += 1
+            runs[name].append(items / (time.perf_counter() - t1))
+    return {name: spread(v) for name, v in runs.items()}
+
+
+def loader_stream(ds, dev):
+    """Train batches on the device for as long as they are drawn: epoch
+    after epoch (set_epoch, shuffled) through ONE prefetch thread, so the
+    tiny tree's epoch boundaries add no pipeline restarts that a real epoch
+    of hundreds of steps would not have."""
+    from mhentropy_tpu_torch.data import common
+
+    def epochs():
+        e = 0
+        while True:
+            ds.set_epoch(e)
+            yield from common.batches(ds, TRAIN_BATCH, shuffle=True, seed=e, pad_remainder=True,
+                                      device=dev)
+            e += 1
+
+    return common.prefetch(epochs())
+
+
+def phase_loaders(torch, dev):
+    """9e: the image libraries; the loader trees; run.py's path on each
+    dataset that this machine's libraries can read; on the first train run
+    the loader's first batch through one step with kernels and the plain
+    path; host items/s of the loaders; ms per train step fed by the loader
+    against pre-staged synthetic batches, and the busy share of each."""
+    import importlib
+    import tempfile
+
+    from mhentropy_tpu_torch.data import cached, common, fixtures, synthetic
+    from mhentropy_tpu_torch.train import engine
+
+    libs = {name: importable(name) for name in ("PIL", "cv2", "imageio")}
+    print(f"loaders: image libraries importable: {libs}", flush=True)
+    out = {"libraries": libs, "runs": {}, "not_run": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        fh_root = os.path.join(tmp, "freihand")
+        # Without Pillow the images reach the loaders through the decode
+        # cache alone: the writers put every array there.
+        decode_cache = None if libs["PIL"] else os.path.join(tmp, "decode_cache")
+        if decode_cache:
+            common.set_decode_cache(decode_cache)
+        t0 = time.perf_counter()
+        fixtures.write_rhd(data, *LOADER_RHD, cache=bool(decode_cache))
+        fixtures.write_freihand(fh_root, LOADER_FREIHAND, cache=bool(decode_cache))
+        if libs["cv2"]:
+            fixtures.write_ho3d(data, *LOADER_HO3D, cache=bool(decode_cache))
+        out["write_s"] = time.perf_counter() - t0
+        print(f"loaders: trees written in {out['write_s']:.1f} s", flush=True)
+        # RHD's train mode jitters hue through Pillow; HO3D reads its depth
+        # with cv2 (and so does the mixed set, with RHD's jitter).
+        plan = [("rhd", "configs/rhd.yaml", data, 1 if libs["PIL"] else 0, None),
+                ("freihand", "configs/freihand.yaml", fh_root, 1, None)]
+        if libs["cv2"]:
+            plan.append(("ho3d", "configs/ho3d.yaml", data, 1, None))
+            plan.append(("mixed_ho3d_rhd", "configs/rhd.yaml", data, 1 if libs["PIL"] else 0,
+                         "mixed_ho3d_rhd"))
+        else:
+            out["not_run"].update(ho3d="cv2 absent", mixed_ho3d_rhd="cv2 absent")
+        if not libs["PIL"]:
+            out["not_run"].update(rhd_train="Pillow absent (hue jitter)",
+                                  mixed_ho3d_rhd_train="Pillow absent (RHD's hue jitter)")
+        runs = {}
+        for name, yaml, root, epochs, ds_name in plan:
+            cfg = loader_cfg(yaml, root, os.path.join(tmp, "model", name), epochs, decode_cache,
+                             ds_name)
+            runs[name] = loader_run(torch, dev, name, cfg)
+        print(f"loaders: ran {sorted(runs)}; not run: {out['not_run']}", flush=True)
+
+        # The first train run's loader: its first batch through one step,
+        # kernels against the plain path (as phase 9 holds a step).
+        first = next(r for r in runs.values() if r["steps"])
+        exp, train = first["exp"], first["train"]
+        train.set_epoch(0)
+        batches = common.batches(train, TRAIN_BATCH, shuffle=True, seed=exp.seed,
+                                 pad_remainder=True, device=dev)
+        image, target = engine._prep_batch(*next(batches))
+        batches.close()
+        g = torch.Generator(device=dev).manual_seed(13)
+        noise = torch.randn((N_TRAIN_HYPO * TRAIN_BATCH, 45), generator=g, device=dev)
+        steps = {}
+        for kernels in (True, False):
+            net = copy.deepcopy(exp.net)
+            net.set_kernels(kernels)
+            reset_launches()
+            steps[kernels] = one_step_grads(torch, net, exp.model, exp.fold, image, target,
+                                            noise) + (read_launches(),)
+            del net
+        (loss, _, stats, launches), (ref_loss, _, ref_stats, plain_launches) = (
+            steps[True], steps[False])
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        stats_rel = max(float(((stats[n] - ref_stats[n]).abs()
+                               / ref_stats[n].abs().clamp_min(1.0)).max()) for n in stats)
+        check(all(v == 0 for v in plain_launches.values()),
+              f"loaders: the plain step launched kernels {plain_launches}")
+        check(launches["bn_stats_sums"] == 53 and launches["realnvp_sampler_f32"] == 1,
+              f"loaders: one loader-fed step launched {launches}")
+        check(rel <= TRAIN_LOSS_TOL and stats_rel <= TRAIN_STATS_TOL,
+              f"loaders: loader-fed step, kernels vs plain: loss {loss} vs {ref_loss} (rel "
+              f"{rel}), running stats {stats_rel}")
+        print(f"loaders: first {first['train'].__class__.__name__} batch, one step kernels vs "
+              f"plain: loss {loss:.6g} vs {ref_loss:.6g} (rel {rel:.3g}), running stats "
+              f"{stats_rel:.3g}; launches {launches}", flush=True)
+        out["kernels_vs_plain"] = {"dataset": first["train"].__class__.__name__, "loss": loss,
+                                   "ref_loss": ref_loss, "loss_rel": rel, "stats_rel": stats_rel,
+                                   "launches_per_step": launches}
+
+        # Host items/s: train mode plain and through the prefix cache, eval
+        # mode plain and through the sample cache.
+        name = "rhd" if "rhd" in runs and runs["rhd"]["steps"] else "freihand"
+        tree = data if name == "rhd" else fh_root
+        mod = importlib.import_module(f"mhentropy_tpu_torch.data.{name}")
+        kw = dict(heavy_fields=set(), image_u8=True, device_st=True)
+        prefix = os.path.join(tmp, "prefix_cache")
+        datasets = {"train": mod.load(tree, mode="training", **kw),
+                    "train_prefix_cache": mod.load(tree, mode="training", prefix_cache=prefix,
+                                                   **kw),
+                    "eval": mod.load(tree, mode="evaluation", **kw),
+                    "eval_sample_cache": cached.SampleCache(mod.load(tree, mode="evaluation",
+                                                                     **kw), prefix)}
+        rates = loader_items_per_s(datasets, LOADER_WINDOW_S)
+        for k, v in rates.items():
+            print(f"loaders {name} {k}: median {v['median']:.1f} items/s [{v['min']:.1f}, "
+                  f"{v['max']:.1f}] over {RUNS} windows of >= {LOADER_WINDOW_S} s, "
+                  f"{LOADER_THREADS} threads", flush=True)
+        out["items_per_s"] = {"dataset": name, "threads": LOADER_THREADS, **rates}
+
+        # ms per train step: fed by the loader through prefetch, against the
+        # same step on pre-staged synthetic batches, in alternating windows.
+        run = runs[name]
+        exp, stream = run["exp"], loader_stream(run["train"], dev)
+        exp.net.train()
+        img = exp.model_cfg.image_size
+        staged = list(synthetic.batches(synthetic.make_dataset(
+            exp.model, n=2 * TRAIN_BATCH, image_size=img, seed=0, ds=name), TRAIN_BATCH,
+            device=dev))
+        turn = [0]
+
+        def loader_step():
+            image, target = next(stream)
+            return exp._train_step(image, target, *exp._draws(target, TRAIN_BATCH))
+
+        def synthetic_step():
+            image, target = staged[turn[0] % len(staged)]
+            turn[0] += 1
+            return exp._train_step(image, target, *exp._draws(target, TRAIN_BATCH))
+
+        try:
+            ms = windows_ms(torch, {"loader": loader_step, "synthetic": synthetic_step},
+                            STEP_WINDOW_S)
+            traces = {k: trace_steps(torch, fn, ms[k]["median"], n=TRACED,
+                                     label=f"loaders {name} {k}-fed step")
+                      for k, fn in (("loader", loader_step), ("synthetic", synthetic_step))}
+        finally:
+            stream.close()
+        for k, v in ms.items():
+            print(f"loaders {name} train step fed by {k}: median {v['median']:.3f} ms/step of "
+                  f"B={TRAIN_BATCH} [{v['min']:.3f}, {v['max']:.3f}] over {RUNS} windows of >= "
+                  f"{STEP_WINDOW_S} s ({v['calls']} steps); busy {traces[k]['busy_share']:.3f}",
+                  flush=True)
+        out["ms_per_step"] = {"dataset": name, **ms}
+        out["traces"] = {k: {key: t[key] for key in ("device_ms_per_step", "busy_share",
+                                                      "device_ops_per_step",
+                                                      "layer_ms_per_step")}
+                         for k, t in traces.items()}
+        out["runs"] = {k: {key: r[key] for key in ("launches", "run_s", "losses", "eval_summary",
+                                                   "steps", "eval_batches")}
+                       for k, r in runs.items()}
+        if decode_cache:
+            common.set_decode_cache(None)
+        del runs, first, exp, staged
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2532,6 +2834,9 @@ def main() -> int:
     bench_line = phase_bench(torch, dev)
     print(f"bench: {bench_line['value']:.1f} hypotheses/s at N=100, B=32, mfu "
           f"{bench_line['mfu']:.4f}, skipped {bench_line['skipped']} [{card}]", flush=True)
+    loaders = phase_loaders(torch, dev)
+    print(f"loaders: ran {sorted(loaders['runs'])}, not run {loaders['not_run']} [{card}]",
+          flush=True)
 
     path_launches = {"stem": launches, "stage1": launches, "realnvp_sampler": launches,
                      "lbs_blend": verts_launches, "stage1_int8": int8_launches[f"b{BATCH}"],
@@ -2551,7 +2856,10 @@ def main() -> int:
                    "rle_train_step": rle_res["steps"]["launches_per_step"],
                    "rle_eval_batch": rle_res["eval_batch"]["launches"],
                    "det_sample_hypotheses": det_res["sample"]["launches"],
-                   "det_train_step": det_res["train_step"]["launches"]}
+                   "det_train_step": det_res["train_step"]["launches"],
+                   **{f"loader_{k}_train_baseline": r["launches"]
+                      for k, r in loaders["runs"].items()},
+                   "loader_train_step": loaders["kernels_vs_plain"]["launches_per_step"]}
     kernels = [{"name": r["name"], "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": path_launches[r["name"]][r["name"]],
                 "launches_by_path": {p: c[r["name"]] for p, c in slice_paths.items()
@@ -2582,7 +2890,7 @@ def main() -> int:
                       "eval": evals, "verts": {"launches": verts_launches,
                                                "kernel_vs_plain_max_abs": verts_err},
                       "train": train, "prohmr": humans, "rle": rle_res, "det": det_res,
-                      "bench": bench_line}),
+                      "bench": bench_line, "loaders": loaders}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,9 +1,11 @@
 """Batched rotation math on torch tensors.
 
 Port of mhentropy_tpu/core/rotations.py (`quat_to_rotmat` :22,
-`batch_rodrigues` :49, `rotmat_from_6d` :68): axis-angle -> rotation matrix
-through the quaternion path, with the reference's `+ eps` norm, and the 6D
-representation -> rotation matrix.
+`batch_rodrigues` :49, `rotmat_from_6d` :68, `project_rotmat` :90,
+`posemap_axisang` :103): axis-angle -> rotation matrix through the
+quaternion path, with the reference's `+ eps` norm, the 6D representation
+-> rotation matrix, the projection onto the closest rotation, and the full
+pose's per-joint matrices with the pose-blendshape features.
 """
 
 from __future__ import annotations
@@ -51,3 +53,23 @@ def rotmat_from_6d(x6d: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     b2 = b2 / (torch.linalg.norm(b2, dim=-1, keepdim=True) + eps)
     b3 = torch.linalg.cross(b1, b2, dim=-1)
     return torch.stack([b1, b2, b3], dim=-1)
+
+
+def project_rotmat(mats: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) arbitrary matrices -> the closest rotations (SVD, the last
+    singular direction's sign set so the determinant is +1)."""
+    u, _, vt = torch.linalg.svd(mats)
+    det = torch.sign(torch.linalg.det(u @ vt))
+    fix = torch.cat([torch.ones((*det.shape, 2), dtype=mats.dtype, device=mats.device),
+                     det[..., None]], dim=-1)
+    return (u * fix[..., None, :]) @ vt
+
+
+def posemap_axisang(pose_vectors: torch.Tensor):
+    """(B, 3 * J) axis-angle pose -> (pose_map (B, J * 9) = R - I flattened,
+    rot_mats (B, J, 3, 3))."""
+    b = pose_vectors.shape[0]
+    nj = pose_vectors.shape[1] // 3
+    rots = batch_rodrigues(pose_vectors.reshape(b, nj, 3))
+    pose_map = (rots - torch.eye(3, dtype=rots.dtype, device=rots.device)).reshape(b, nj * 9)
+    return pose_map, rots

@@ -6,16 +6,21 @@ Port of mhentropy_tpu/train/engine.py: `_fused_bn_mode` :54,
 :308), `_prep_image` :197, `_prep_batch` :225, `make_optimizer` :338 with
 the TrainState :47 / `init_state` :349 it sits in (a module, an optimizer
 and a step count here), `make_train_step` :359, `make_eval_step` :426, and
-of `Experiment` the synthetic branch of `make_datasets` :654-667,
-`_get_optimizer` :692, `_ensure_state` :718, `train_baseline` :841,
-`train_epoch` :876, `_quant_spec` :921, `eval_loop` :950, `eval` :1016 and
-`save_model` :1043; and the non-integrated RLE mode that a
+`_num_samples` :304, of `Experiment` `make_datasets` :587 (the RHD,
+FreiHAND, HO3D and mixed loaders from tpu.data_dir, the synthetic fixture
+without one), `_get_optimizer` :692, `_ensure_state` :718, `train_baseline`
+:841, `train_epoch` :876, `_quant_spec` :921, `eval_loop` :950, `eval`
+:1016 and `save_model` :1043; and the non-integrated RLE mode that a
 `network.enc_type` other than "MHEnt" selects (:505-518): `build_rle_config`
 :115, `make_rle_train_step` :249 and `make_rle_eval_step` :280, with
 `Experiment`'s branches for it (checkpoints in the reference's RLE schema,
 {'encoderRGB', 'p_nf'}). Not ported yet: autoresume and orbax checkpoints
 (ROADMAP queue 1, "What training still lacks"; checkpoints are the
-reference's .pth) and the real-dataset loaders ("Data loaders").
+reference's .pth).
+
+Both loops feed their steps through `data.common.prefetch` over
+`data.common.batches(..., device=)`: a thread builds each batch and copies
+it to the device while the step before it runs.
 
 The steps are plain functions of their batch and noise: torch cannot replay
 jax.random, so the reverse-KL draw's noise (temperature 1), the eval
@@ -33,6 +38,7 @@ import torch
 from mhentropy_tpu_torch.core import camera
 from mhentropy_tpu_torch.core import mano as mano_lib
 from mhentropy_tpu_torch.core.mano import ManoConfig, ManoModel
+from mhentropy_tpu_torch.data import common as data_common
 from mhentropy_tpu_torch.data import synthetic
 from mhentropy_tpu_torch.flows.realnvp import RealNVPConfig
 from mhentropy_tpu_torch.models import mhent, rle
@@ -377,9 +383,14 @@ def make_rle_eval_step(net: rle.RLE):
     return eval_fn
 
 
+def _num_samples(data) -> int:
+    return data.images.shape[0] if hasattr(data, "images") else len(data)
+
+
 class Experiment:
-    """The JAX Experiment on the synthetic data: config -> MANO, fresh or
-    restored weights on the device, the train loop and the eval loop.
+    """The JAX Experiment: config -> MANO, fresh or restored weights on the
+    device, the datasets (tpu.data_dir's loaders, else the synthetic
+    fixture), the train loop and the eval loop.
 
     network.enc_type "MHEnt" builds the integrated MHEnt; any other value
     the non-integrated RLE mode (BasicEnc + the network.p_nf flow,
@@ -446,13 +457,46 @@ class Experiment:
         return rle.draws(mc, target["pose3d" if mc.pe == "3d" else "crop_uv"], self.gen)
 
     def make_datasets(self, which=("train", "eval")):
-        """The synthetic fixture: (train, eval), None for a split not asked."""
-        if self.cfg.tpu.data_dir:
-            raise NotImplementedError(
-                f"data_dir {self.cfg.tpu.data_dir!r}: the real-dataset loaders are not ported "
-                f"yet (ROADMAP queue 1, \"Data loaders\"); leave tpu.data_dir null for the "
-                f"synthetic set")
+        """(train, eval), None for a split not asked: the loader of
+        dataset.dataset_name over tpu.data_dir, else the synthetic fixture.
+
+        tpu.target_fields "auto" has the loaders skip the heavy target
+        fields (clouds, heatmaps, per-pixel masks) that no loss reads;
+        "full" keeps the reference's whole target. tpu.sample_cache serves
+        the train split's deterministic prefix and the whole eval item from
+        disk (the eval split only when its items draw no RNG)."""
         name = self.cfg.dataset.dataset_name
+        tpu = self.cfg.tpu
+        if tpu.data_dir:
+            from mhentropy_tpu_torch.data import cached, freihand, ho3d, mixed, rhd
+
+            if tpu.decode_cache:
+                data_common.set_decode_cache(tpu.decode_cache)
+            loader = {"ho3d": ho3d, "rhd": rhd, "freihand": freihand,
+                      "mixed_ho3d_rhd": mixed}.get(name)
+            if loader is None:
+                raise NotImplementedError(name)
+            # The mask likelihood, which would request the hand masks, is
+            # refused by build_model_config.
+            heavy = None if tpu.target_fields == "full" else set()
+            kw = dict(heavy_fields=heavy, image_u8=bool(tpu.image_u8),
+                      device_st=bool(tpu.device_st))
+            if name == "mixed_ho3d_rhd":
+                # A loss input present on one member only fails here, not
+                # on the first mixed batch.
+                kw["required"] = ({"object_verts"}
+                                  if getattr(self.model_cfg, "use_chamfer_loss", False) else set())
+            train = loader.load(tpu.data_dir, mode="training", prefix_cache=tpu.sample_cache,
+                                **kw) if "train" in which else None
+            evald = loader.load(tpu.data_dir, mode="evaluation", **kw) \
+                if "eval" in which else None
+            if tpu.sample_cache and evald is not None:
+                if cached.eval_deterministic(evald):
+                    evald = cached.SampleCache(evald, tpu.sample_cache)
+                else:
+                    print("sample_cache skipped: eval items draw RNG (full target_fields with "
+                          "the RHD cloud?)", flush=True)
+            return train, evald
         img = self.model_cfg.image_size
         bs = self.cfg.training.batch_size
         ds = name if name in ("rhd", "ho3d", "freihand") else "ho3d"
@@ -509,7 +553,7 @@ class Experiment:
                                "with training.epochs > 0")
         train_data, eval_data = self.make_datasets()
         bs = self.cfg.training.batch_size
-        self._ensure_state(max(1, train_data.images.shape[0] // bs))
+        self._ensure_state(max(1, _num_samples(train_data) // bs))
         summary = self.eval_loop(eval_data, epoch=0)
         for epoch in range(epochs):
             self.train_epoch(train_data, epoch)
@@ -521,10 +565,13 @@ class Experiment:
         return summary
 
     def train_epoch(self, data, epoch: int) -> float:
-        """One pass over `data` in the epoch's shuffled batch order; the
-        losses are read on the host only at log points and at the end.
-        Returns the epoch's mean loss."""
+        """One pass over `data` in the epoch's shuffled order (the loaders'
+        augmentation stream advanced to `epoch`); the losses are read on the
+        host only at log points and at the end. Returns the epoch's mean
+        loss."""
         bs = self.cfg.training.batch_size
+        if hasattr(data, "set_epoch"):
+            data.set_epoch(epoch)
         self.net.train()
         pending, epoch_losses = [], []
 
@@ -533,9 +580,9 @@ class Experiment:
                 epoch_losses.extend(torch.stack(pending).tolist())
                 pending.clear()
 
-        for idx, (image, target) in enumerate(synthetic.batches(
-                data, bs, pad_remainder=True, device=self.device, shuffle=True,
-                seed=self.seed + epoch)):
+        for idx, (image, target) in enumerate(data_common.prefetch(data_common.batches(
+                data, bs, shuffle=True, seed=self.seed + epoch, pad_remainder=True,
+                device=self.device))):
             aux = self._train_step(image, target, *self._draws(target, bs))
             pending.append(aux["loss"])
             self.step += 1
@@ -612,7 +659,8 @@ class Experiment:
             step = make_rle_eval_step(self.net)
         qtree = None
         batch_mets = []
-        for image, target in synthetic.batches(data, bs, pad_remainder=True, device=self.device):
+        for image, target in data_common.prefetch(
+                data_common.batches(data, bs, pad_remainder=True, device=self.device)):
             if spec is not None and qtree is None:
                 with torch.inference_mode():
                     calib = _prep_image(image, target)

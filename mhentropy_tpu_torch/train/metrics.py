@@ -2,13 +2,14 @@
 
 Port of mhentropy_tpu/train/metrics.py: `mean_euclidean` :20,
 `_group_stats` :35, `chamfer_dist` :53 and `mhent_metrics` :73 (with the
-`valid` mask of padded tail batches). The host-numpy `calc_coord_accuracy`
-and `evaluate_map` are not ported: the eval step does not reach them
-(ROADMAP queue 1).
+`valid` mask of padded tail batches), and the host-numpy
+`calc_coord_accuracy` :183 and `evaluate_map` :259 (its lazy pycocotools
+import and refusal; COCO mAP is the RLE human-pose stack's).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 ROOT_IDX = 12
@@ -118,3 +119,100 @@ def mhent_metrics(output: dict, target: dict, image_size: int = 256):
         total = sum((v * valid).sum() / denom for v in losses.values())
         metrics["n_valid"] = valid.sum()
     return total, losses, metrics
+
+
+def calc_coord_accuracy(
+    coords,
+    target: dict,
+    hm_shape=(64, 48, 64),
+    output_3d: bool = False,
+    root_idx: int | None = None,
+    thr: float = 0.5,
+    ds_type: str = "human",
+    output_normalized: bool = True,
+):
+    """Integral-coordinate PCK accuracy (utils.py:187-323 'calc_coord_accuracy'
+    + calc_dist + dist_acc), vectorised on host numpy.
+
+    Args:
+        coords: (B, K*D) predicted coords (normalised to [-0.5, 0.5) when
+            output_normalized).
+        target: pose3d/crop_uv (+ target_uv(d)_weight masks).
+
+    Returns:
+        Mean per-joint PCK@thr over joints with any valid sample.
+    """
+    # np.array (not asarray): float64 inputs would otherwise alias the
+    # caller's buffers and the in-place scaling below would corrupt the
+    # target dict for later consumers.
+    coords = np.array(coords, dtype=float)
+    d = 3 if output_3d else 2
+    if output_3d:
+        labels = np.array(target["pose3d"], dtype=float)
+        masks = np.ones_like(labels)
+    else:
+        labels = np.array(target["crop_uv"], dtype=float)
+        masks = np.array(target["target_uv_weight"], dtype=float)
+        if masks.ndim == 2 and masks.shape[1] * 2 == labels.shape[1]:
+            masks = np.repeat(masks, 2, axis=1)
+    b = coords.shape[0]
+    coords = coords.reshape(b, -1, d)
+    labels = labels.reshape(b, -1, d)
+    masks = masks.reshape(b, -1, d)
+
+    hm = np.asarray(hm_shape, dtype=float)
+    if output_normalized:
+        coords[..., 0] = (coords[..., 0] + 0.5) * hm[0]
+        coords[..., 1] = (coords[..., 1] + 0.5) * hm[1]
+        if output_3d:
+            coords[..., 2] = (coords[..., 2] + 0.5) * hm[2]
+    if output_3d:
+        if output_normalized:
+            labels[..., 0] = (labels[..., 0] + 0.5) * hm[0]
+            labels[..., 1] = (labels[..., 1] + 0.5) * hm[1]
+            labels[..., 2] = (labels[..., 2] + 0.5) * hm[2]
+    else:
+        # The reference scales 2D labels UNCONDITIONALLY
+        # (utils.py:255-256) — output_normalized only gates the coords.
+        labels[..., 0] = (labels[..., 0] + 0.5) * hm[0]
+        labels[..., 1] = (labels[..., 1] + 0.5) * hm[1]
+    if output_3d and root_idx is not None:
+        labels = labels - labels[:, root_idx : root_idx + 1]
+        coords = coords - coords[:, root_idx : root_idx + 1]
+
+    coords = coords * masks
+    labels = labels * masks
+    norm = np.ones((b, 1, d))
+    if ds_type == "human":
+        norm = norm * hm[:d] / 10.0
+
+    valid = (labels[..., 0] > 1) & (labels[..., 1] > 1)  # calc_dist gating
+    dists = np.linalg.norm((coords - labels) / norm, axis=-1)
+    hits = (dists < thr) & valid
+    per_joint_n = valid.sum(0)
+    per_joint_acc = np.where(per_joint_n > 0, hits.sum(0) / np.maximum(per_joint_n, 1), -1.0)
+    used = per_joint_acc >= 0
+    return float(per_joint_acc[used].mean()) if used.any() else 0.0
+
+
+def evaluate_map(res_file: str, ann_file: str, ann_type: str = "keypoints"):
+    """COCO mAP via pycocotools (utils.py:327-370), lazily imported — the
+    environment ships without pycocotools; the COCO branch is vestigial in
+    the reference too (SURVEY.md §2 'RLE-ported human-pose stack')."""
+    try:
+        from pycocotools.coco import COCO
+        from pycocotools.cocoeval import COCOeval
+    except ImportError as e:  # pragma: no cover
+        raise ImportError(
+            "pycocotools is required for COCO mAP evaluation; install it or "
+            "use the hand/PCK metrics"
+        ) from e
+    gt = COCO(ann_file)
+    dt = gt.loadRes(res_file)
+    ev = COCOeval(gt, dt, ann_type)
+    ev.evaluate()
+    ev.accumulate()
+    ev.summarize()
+    names = ["AP", "Ap .5", "AP .75", "AP (M)", "AP (L)",
+             "AR", "AR .5", "AR .75", "AR (M)", "AR (L)"]
+    return dict(zip(names, ev.stats))

@@ -51,7 +51,10 @@ DEFAULTS = {
                  "n_train_hypotheses": 10, "test_quant": None, "eval_temp": 0.8},
     "tpu": {"compute_dtype": "bfloat16", "data_dir": None, "quantize_encoder": False,
             "quantize_q_from": "auto", "quantize_sampler": True, "fused_train_bn": False,
-            "autoresume": False},
+            "autoresume": False,
+            # The dataset loaders (train/engine.py make_datasets).
+            "decode_cache": None, "target_fields": "auto", "image_u8": True,
+            "sample_cache": None, "device_st": True},
 }
 
 

@@ -1021,3 +1021,52 @@ def test_det_path_launches_the_lbs_kernel_and_matches_plain(dev):
     assert torch.equal(kern["xyz"][0], kern["xyz"][3])
     for k, tol in (("xyz", 4e-2), ("uv", 5.0), ("verts", 4e-2)):
         assert torch.isfinite(kern[k]).all() and (kern[k] - plain[k]).abs().max() <= tol, k
+
+
+def test_loader_fed_train_step_launches_the_training_kernels_and_matches_plain(dev, tmp_path):
+    """A FreiHAND-format tree (data/fixtures.py, read through the decode
+    cache, so no image library is needed) batched by data.common onto the
+    card: u8 images and the pixel-noise factors arrive on the device, and
+    one train step from the same weights, batch and noise launches the BN
+    sums (one a BatchNorm) and the f32 sampler (1), and its loss agrees
+    with the plain path's within chip_smoke.TRAIN_LOSS_TOL (1e-2 relative,
+    bf16 backbone)."""
+    import copy
+
+    from mhentropy_tpu_torch.core import mano
+    from mhentropy_tpu_torch.data import common, fixtures, freihand
+    from mhentropy_tpu_torch.models import mhent
+    from mhentropy_tpu_torch.models.encoder import EncoderConfig
+    from mhentropy_tpu_torch.train import engine
+
+    common.set_decode_cache(str(tmp_path / "dc"))
+    try:
+        fixtures.write_freihand(str(tmp_path / "fh"), 10, cache=True)
+        ds = freihand.load(str(tmp_path / "fh"), heavy_fields=set(), image_u8=True,
+                           device_st=True)
+        image, target = next(common.prefetch(common.batches(
+            ds, 4, shuffle=True, seed=0, pad_remainder=True, device=dev)))
+    finally:
+        common.set_decode_cache(None)
+    assert image.device.type == "cuda" and image.dtype == torch.uint8
+    assert target["_pixel_noise"].device.type == "cuda" and "st" not in target
+    cfg = mhent.MHEntConfig(
+        encoder=EncoderConfig(backbone="resnet18", n_latent=(64, 64)),
+        flow=realnvp.RealNVPConfig(dim=45, cond_dim=64, h_dim=64, num_steps=1),
+        feat_dim=64, image_size=224, n_train_hypotheses=3, ds="freihand")
+    base = mhent.init(cfg, seed=0)
+    model = mano.synthetic_mano_model(0, device=dev)
+    noise = torch.randn(12, 45, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    out = {}
+    for kernels in (True, False):
+        net = mhent.prepare(copy.deepcopy(base), dev, masters=True).train()
+        net.set_kernels(kernels)
+        before = (bn_cuda.stats_launches, cuda_sampler.launches_f32)
+        step = engine.make_train_step(model, net, engine.make_optimizer(net, 1e-4, [5], 2))
+        loss = float(step(image, target, noise)["loss"])
+        out[kernels] = (loss, bn_cuda.stats_launches - before[0],
+                        cuda_sampler.launches_f32 - before[1])
+    n_bn = sum(isinstance(m, resnet.BatchNorm2d) for m in net.modules())
+    assert out[True][1:] == (n_bn, 1) and out[False][1:] == (0, 0)
+    assert math.isfinite(out[True][0])
+    assert abs(out[True][0] - out[False][0]) <= 1e-2 * abs(out[False][0]), out

@@ -319,7 +319,8 @@ def test_experiment_refuses_what_is_not_ported(tmp_path, monkeypatch):
         run.main(["--cfg", str(path), "--device", "cpu"])
     path.write_text(cfg_text.replace("pth: some/orbax/dir", "pth: null")
                     .replace("compute_dtype: float32", "compute_dtype: float32, data_dir: /x"))
-    with pytest.raises(NotImplementedError, match="Data loaders"):
+    # tpu.data_dir is read now: a directory that holds no dataset raises.
+    with pytest.raises(FileNotFoundError, match="/x"):
         run.main(["--cfg", str(path), "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

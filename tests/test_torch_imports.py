@@ -37,6 +37,12 @@ def test_port_imports_no_jax():
         "import mhentropy_tpu_torch.models.stem_int8_cuda, mhentropy_tpu_torch.bench_quant\n"
         "import mhentropy_tpu_torch.models.stage2_int8_cuda, mhentropy_tpu_torch.int8_gemm_probe\n"
         "import mhentropy_tpu_torch.utils.logging, mhentropy_tpu_torch.models.rle\n"
+        "import mhentropy_tpu_torch.data.common, mhentropy_tpu_torch.data.transforms\n"
+        "import mhentropy_tpu_torch.data.occlusion, mhentropy_tpu_torch.data.colorjitter\n"
+        "import mhentropy_tpu_torch.data.cached, mhentropy_tpu_torch.data.rhd\n"
+        "import mhentropy_tpu_torch.data.freihand, mhentropy_tpu_torch.data.ho3d\n"
+        "import mhentropy_tpu_torch.data.mixed, mhentropy_tpu_torch.core.camera\n"
+        "import mhentropy_tpu_torch.core.rotations, mhentropy_tpu_torch.data.fixtures\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'mhentropy_tpu', 'tools'))\n"
         "print(bad)\n"
@@ -99,3 +105,21 @@ def test_config_defaults_equal():
 def test_every_shipped_yaml_loads_like_jax(name):
     path = os.path.join(REPO, "configs", name)
     assert _read_keys(config.load_cfg(path)) == _read_keys(jconfig.update_cfg(path))
+
+
+def test_data_keys_read_like_jax(tmp_path):
+    """The loaders' tpu keys (decode_cache, target_fields, image_u8,
+    sample_cache, device_st): the JAX defaults when left out, and a YAML's
+    values when set, equal to the JAX loader's."""
+    keys = ("decode_cache", "target_fields", "image_u8", "sample_cache", "device_st")
+    port, jax_cfg = config.make_cfg(), jconfig.get_cfg_defaults()
+    assert {k: getattr(port.tpu, k) for k in keys} == {k: jax_cfg.tpu[k] for k in keys} \
+        == {"decode_cache": None, "target_fields": "auto", "image_u8": True,
+            "sample_cache": None, "device_st": True}
+    path = tmp_path / "data.yaml"
+    path.write_text("tpu: {data_dir: /d, decode_cache: /c, target_fields: full, "
+                    "image_u8: false, sample_cache: /s, device_st: false}\n")
+    port, jax_cfg = config.load_cfg(str(path)), jconfig.update_cfg(str(path))
+    assert {k: getattr(port.tpu, k) for k in keys} == {k: jax_cfg.tpu[k] for k in keys} \
+        == {"decode_cache": "/c", "target_fields": "full", "image_u8": False,
+            "sample_cache": "/s", "device_st": False}
