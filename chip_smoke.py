@@ -139,6 +139,20 @@
    plain and through the sample cache (LOADER_THREADS threads), and ms per
    train step fed by the loader through prefetch against pre-staged
    synthetic batches, alternating windows, with the busy share of each.
+9f. Glow: the glow MHEnt that Experiment builds from configs/rhd.yaml with
+   network.regressor glow (resnet50 at 256 px, feature 512,
+   ConditionalGlow(45, 512, 4, 2), dropout 0.2): 3 train steps at B=64,
+   N=10 (losses kernels against plain; launches a step: BN stats sums 53,
+   no sampler kernel of any kind) and one eval batch at B=64, N=200
+   (launches stem 1, stage 1 3, Glow 1, no RealNVP sampler; every metric
+   against plain), ms of each in alternating windows; the Glow kernel
+   alone at the eval batch's 12,800 rows (as in 3, a side line of the
+   glow_sampler entry); ProHMR's nll_loss forward and backward at B=32
+   (every gradient finite, kernels on and off); run.py's path twice in one
+   model_dir (configs/smoke.yaml as a glow MHEnt, 1 epoch, then 2 with
+   tpu.autoresume: resumed at epoch 1, twice the steps, both runs' log and
+   scalars); the learning demo at its defaults (BH-MPJPE must fall); the
+   phase within 90 s.
 10. Prints the kernels' JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
@@ -154,6 +168,7 @@ import copy
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -242,13 +257,13 @@ PROHMR_SHAPES = ((PROHMR_EVAL[0], 224), (PROHMR_BENCH[0], 224))
 # Timing: RUNS windows per version, each at least this many seconds long.
 RUNS = 3
 KERNEL_WINDOW_S = 0.3
-SLICE_WINDOW_S = 2.0
+SLICE_WINDOW_S = 1.0
 EVAL_BATCH = 64
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense rates, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12}
 # Eval and train steps' windows.
-STEP_WINDOW_S = 2.0
+STEP_WINDOW_S = 1.0
 # The int8 stem and stage 2/3 kernels against their plain versions: exact
 # integer sums and identically rounded f32 epilogues, so the kernel's bf16
 # output is the plain f32 result rounded to bf16; the max-abs error is held
@@ -290,7 +305,7 @@ RLE_TOL = {"loss": 1e-2, "log_p": 1.5e-2, "xyz": 1.2e-2, "metrics": 4e-4}
 RLE_F32_GRAD_FACTOR = 2.0
 RLE_F32_GRAD_COS = 0.995
 DET_TOL = {"xyz": 1e-2, "uv": 2.0, "verts": 1e-2}
-RLE_WINDOW_S = 0.75  # the RLE and det phases' timing windows
+RLE_WINDOW_S = 0.5  # the RLE and det phases' timing windows
 TRACED = 2  # steps a trace of the RLE and det train steps
 
 
@@ -708,79 +723,94 @@ def o1_glow(torch, cfg, seed: int, dev):
 
 def glow_macs(rows: int, d: int, h: int, n_layers: int) -> int:
     """A layer's products per row: the four H x H of the residual blocks,
-    the initial (D x H) and the shift / scale (H x D each), the LU (D x D)."""
-    return rows * n_layers * (4 * h * h + 3 * d * h + d * d)
+    the initial Linear on the identity lanes (d_id x H), the shift and
+    scale of the transformed lanes (H x d_tr each), the LU (D x D). The
+    identity lanes alternate between ceil(D / 2) and floor(D / 2), as
+    glow.coupling_masks gives them."""
+    total = 0
+    for i in range(n_layers):
+        d_id = (d + 1) // 2 if i % 2 == 0 else d // 2
+        total += 4 * h * h + (d_id + 2 * (d - d_id)) * h + d * d
+    return rows * total
+
+
+def glow_case(torch, dev, label: str, s: dict) -> dict:
+    """The Glow kernel against transform_plain at shape `s` on an O(1)
+    flow: x and the log-det each against its tolerance (max- and
+    mean-abs), kernel and plain timed eager and as graph replays, a trace
+    of 10 calls, torch.matmul on one (rows, H) x (H, H) bf16 hidden product
+    as the per-stage yardstick, the bound from glow_macs."""
+    from mhentropy_tpu_torch.flows import cuda_glow_sampler as cgs
+    from mhentropy_tpu_torch.flows import glow
+
+    cfg = glow.GlowConfig(features=s["d"], hidden=s["h"], num_layers=4, num_blocks=2,
+                          context_features=s["c"])
+    flow = o1_glow(torch, cfg, 14, dev)
+    b, n, d = s["b"], s["n"], s["d"]
+    g = torch.Generator(device=dev).manual_seed(14)
+    feat = torch.randn((b, s["c"]), generator=g, device=dev)
+    z0 = torch.randn((b, n, d), generator=g, device=dev)
+    with torch.inference_mode():
+        packed = cgs.pack(flow)
+        ctx = cgs.pack_context(flow, feat)
+        x, ld = cgs.transform(packed, z0, ctx)
+        torch.cuda.synchronize()
+        x_ref, ld_ref = cgs.transform_plain(packed, z0, ctx)
+        check(x.shape == (b, n, d) and ld.shape == (b, n),
+              f"glow {label}: shapes {tuple(x.shape)} {tuple(ld.shape)}")
+        check(bool(torch.isfinite(x).all() and torch.isfinite(ld).all()),
+              f"glow {label}: non-finite outputs")
+        err_x = (x - x_ref).abs().max().item()
+        err_ld = (ld - ld_ref).abs().max().item()
+        mean_x = (x - x_ref).abs().mean().item()
+        mean_ld = (ld - ld_ref).abs().mean().item()
+        tol_x = TOL["glow_sampler"] * max(1.0, x_ref.abs().max().item())
+        tol_ld = GLOW_LD_TOL
+        print(f"glow {label}: x max-abs {err_x:.4g} mean {mean_x:.4g} (tol {tol_x:.4g}, "
+              f"largest {x_ref.abs().max().item():.4g}); log-det max-abs {err_ld:.4g} "
+              f"mean {mean_ld:.4g} (tol {tol_ld:.4g}, largest "
+              f"{ld_ref.abs().max().item():.4g})", flush=True)
+        check(err_x <= tol_x, f"glow {label}: x max-abs error {err_x} > {tol_x}")
+        check(err_ld <= tol_ld, f"glow {label}: log-det max-abs error {err_ld} > {tol_ld}")
+        check(mean_x <= GLOW_MEAN_TOL and mean_ld <= GLOW_MEAN_TOL,
+              f"glow {label}: mean-abs errors x {mean_x}, log-det {mean_ld} > "
+              f"{GLOW_MEAN_TOL}")
+        times = ab_ms(torch, lambda: cgs.transform(packed, z0, ctx),
+                      lambda: cgs.transform_plain(packed, z0, ctx))
+        # Device time by kernel (the GEMMs, the coupling steps) of 10 calls.
+        trace = trace_steps(torch, lambda: cgs.transform(packed, z0, ctx),
+                            times["ms"]["median"], n=10, top=6)
+        # The per-stage yardstick: torch.matmul on one of the call's 16
+        # (rows, H) x (H, H) bf16 products, timed here only.
+        a16 = torch.randn((b * n, s["h"]), generator=g, device=dev).to(torch.bfloat16)
+        w16 = packed.big[0, 0]
+        stage_ms = spread([cuda_ms(torch, graphed(torch, lambda: torch.matmul(a16, w16)))
+                           for _ in range(RUNS)])["median"]
+        print(f"glow {label}: torch.matmul ({b * n}, {s['h']}) x ({s['h']}, {s['h']}) "
+              f"bf16 {stage_ms:.4f} ms graph", flush=True)
+    n_weights = sum(t.numel() * t.element_size() for t in packed[:13])
+    n_bytes = 2 * z0.numel() * 4 + b * n * 4 + ctx.numel() * 4 + n_weights
+    return {"shape": {**s, "layers": 4}, "max_abs_err": max(err_x, err_ld),
+            "max_abs_err_x": err_x, "max_abs_err_logdet": err_ld,
+            "mean_abs_err_x": mean_x, "mean_abs_err_logdet": mean_ld, "tol": tol_x,
+            "tol_logdet": tol_ld, "tol_mean": GLOW_MEAN_TOL, **times, "trace": trace,
+            "library_stage_graph_ms": stage_ms,
+            **roofline(n_bytes, 2 * glow_macs(b * n, d, s["h"], 4), "bf16")}
 
 
 def phase_glow_sampler(torch, dev):
     """The Glow kernel against transform_plain at both GLOW_SHAPES on an
     O(1) flow; the ProHMR shape's numbers make the line, the MHEnt shape's
-    stand beside them."""
-    from mhentropy_tpu_torch.flows import cuda_glow_sampler as cgs
-    from mhentropy_tpu_torch.flows import glow
-
+    stand beside them (phase_glow adds the glow MHEnt's eval batch)."""
     out = {}
     for label, s in GLOW_SHAPES.items():
-        cfg = glow.GlowConfig(features=s["d"], hidden=s["h"], num_layers=4, num_blocks=2,
-                              context_features=s["c"])
-        flow = o1_glow(torch, cfg, 14, dev)
-        b, n, d = s["b"], s["n"], s["d"]
-        g = torch.Generator(device=dev).manual_seed(14)
-        feat = torch.randn((b, s["c"]), generator=g, device=dev)
-        z0 = torch.randn((b, n, d), generator=g, device=dev)
-        with torch.inference_mode():
-            packed = cgs.pack(flow)
-            ctx = cgs.pack_context(flow, feat)
-            x, ld = cgs.transform(packed, z0, ctx)
-            torch.cuda.synchronize()
-            x_ref, ld_ref = cgs.transform_plain(packed, z0, ctx)
-            check(x.shape == (b, n, d) and ld.shape == (b, n),
-                  f"glow {label}: shapes {tuple(x.shape)} {tuple(ld.shape)}")
-            check(bool(torch.isfinite(x).all() and torch.isfinite(ld).all()),
-                  f"glow {label}: non-finite outputs")
-            err_x = (x - x_ref).abs().max().item()
-            err_ld = (ld - ld_ref).abs().max().item()
-            mean_x = (x - x_ref).abs().mean().item()
-            mean_ld = (ld - ld_ref).abs().mean().item()
-            tol_x = TOL["glow_sampler"] * max(1.0, x_ref.abs().max().item())
-            tol_ld = GLOW_LD_TOL
-            print(f"glow {label}: x max-abs {err_x:.4g} mean {mean_x:.4g} (tol {tol_x:.4g}, "
-                  f"largest {x_ref.abs().max().item():.4g}); log-det max-abs {err_ld:.4g} "
-                  f"mean {mean_ld:.4g} (tol {tol_ld:.4g}, largest "
-                  f"{ld_ref.abs().max().item():.4g})", flush=True)
-            check(err_x <= tol_x, f"glow {label}: x max-abs error {err_x} > {tol_x}")
-            check(err_ld <= tol_ld, f"glow {label}: log-det max-abs error {err_ld} > {tol_ld}")
-            check(mean_x <= GLOW_MEAN_TOL and mean_ld <= GLOW_MEAN_TOL,
-                  f"glow {label}: mean-abs errors x {mean_x}, log-det {mean_ld} > "
-                  f"{GLOW_MEAN_TOL}")
-            times = ab_ms(torch, lambda: cgs.transform(packed, z0, ctx),
-                          lambda: cgs.transform_plain(packed, z0, ctx))
-            # Device time by kernel (the GEMMs, the coupling steps) of 10 calls.
-            trace = trace_steps(torch, lambda: cgs.transform(packed, z0, ctx),
-                                times["ms"]["median"], n=10, top=6)
-            # The per-stage yardstick: torch.matmul on one of the call's 16
-            # (rows, H) x (H, H) bf16 products, timed here only.
-            a16 = torch.randn((b * n, s["h"]), generator=g, device=dev).to(torch.bfloat16)
-            w16 = packed.big[0, 0]
-            stage_ms = spread([cuda_ms(torch, graphed(torch, lambda: torch.matmul(a16, w16)))
-                               for _ in range(RUNS)])["median"]
-            print(f"glow {label}: torch.matmul ({b * n}, {s['h']}) x ({s['h']}, {s['h']}) "
-                  f"bf16 {stage_ms:.4f} ms graph", flush=True)
-        n_weights = sum(t.numel() * t.element_size() for t in packed[:13])
-        n_bytes = 2 * z0.numel() * 4 + b * n * 4 + ctx.numel() * 4 + n_weights
-        entry = {"shape": {**s, "layers": 4}, "max_abs_err": max(err_x, err_ld),
-                 "max_abs_err_x": err_x, "max_abs_err_logdet": err_ld,
-                 "mean_abs_err_x": mean_x, "mean_abs_err_logdet": mean_ld, "tol": tol_x,
-                 "tol_logdet": tol_ld, "tol_mean": GLOW_MEAN_TOL, **times, "trace": trace,
-                 "library_stage_graph_ms": stage_ms,
-                 **roofline(n_bytes, 2 * glow_macs(b * n, d, s["h"], 4), "bf16")}
+        entry = glow_case(torch, dev, label, s)
         if label == "prohmr":
             out = {"name": "glow_sampler", "source": "mhentropy_tpu_torch/csrc/glow_sampler.cu",
                    "replaces": "mhentropy_tpu/flows/pallas_glow_sampler.py:324",
                    "library": None, **entry}
         else:
             out["other_shape"] = side_line(entry)
-        del flow, packed, x, x_ref
     return out
 
 
@@ -1482,15 +1512,19 @@ def phase_eval(torch, dev):
     """The run.py path (Experiment.train_baseline, epochs 0) on
     configs/ho3d.yaml, float and with tpu.quantize_encoder, then the eval
     step timed on one batch of the eval split."""
+    import tempfile
+
     from mhentropy_tpu_torch.data import synthetic
     from mhentropy_tpu_torch.train import engine
     from mhentropy_tpu_torch.utils.config import load_cfg
 
     results = {}
+    model_dirs = tempfile.TemporaryDirectory()
     for label, quantize in (("float", False), ("int8", True)):
         cfg = load_cfg("configs/ho3d.yaml")
         cfg.training.seed = 0
         cfg.tpu.quantize_encoder = quantize
+        cfg.model_dir = os.path.join(model_dirs.name, label) + "/"
         tr = cfg.training
         check(tr.epochs == 0 and tr.batch_size == EVAL_BATCH and tr.test_samples == N_HYPO,
               f"eval: configs/ho3d.yaml has epochs {tr.epochs}, batch {tr.batch_size}, "
@@ -1566,6 +1600,8 @@ def phase_eval(torch, dev):
                           "hypotheses_per_s": EVAL_BATCH * N_HYPO / ms["median"] * 1e3}
         if not quantize:
             results[label]["ms_per_batch_plain_kld_draw"] = spread(runs["plain_kld_draw"])
+        exp.close()
+    model_dirs.cleanup()
     return results
 
 
@@ -1823,14 +1859,16 @@ def train_cfg(fused, model_dir: str):
     return cfg
 
 
-def one_step_grads(torch, net, model, fold, image, target, noise):
+def one_step_grads(torch, net, model, fold, image, target, noise, generator=None):
     """One forward and backward of the training loss (no update): the loss,
-    every parameter's gradient and the new running statistics."""
+    every parameter's gradient and the new running statistics. generator:
+    the glow regressor's dropout masks."""
     from mhentropy_tpu_torch.models import mhent
 
     net.train()
     net.zero_grad(set_to_none=True)
-    out = mhent.reverse_kld(model, net, target, image, base_noise=noise, train=True, fold=fold)
+    out = mhent.reverse_kld(model, net, target, image, base_noise=noise, train=True,
+                            generator=generator, fold=fold)
     loss = -out["log_p"].mean()
     loss.backward()
     grads = {n: p.grad.detach().float().clone() for n, p in net.named_parameters()
@@ -2412,6 +2450,385 @@ def phase_det(torch, dev):
                            "ms_per_step": train_ms, "trace": train_trace}}
 
 
+# The glow phase (9f): MHEnt's glow regressor at configs/rhd.yaml's widths,
+# its train steps and eval batch, the Glow kernel at the eval batch's rows,
+# ProHMR's nll_loss, a resumed run and the learning demo.
+GLOW_TRAIN_STEPS = 3
+# The train steps compared, kernels against plain, run at this learning rate,
+# as tests/test_torch_train.py compares whole steps: at configs/rhd.yaml's
+# 2e-4 the loss of fresh weights swings eightfold between steps on one
+# batch, and Adam's sign-like first updates carry the BN sums' rounding into
+# the next step's loss (2.6 % at the third step on an H100).
+GLOW_COMPARE_LR = 1e-6
+GLOW_EVAL = {"d": 45, "h": 512, "c": 512, "b": EVAL_BATCH, "n": N_HYPO}  # 12,800 rows
+GLOW_METRIC_TOL = 2e-2  # kernels vs plain, relative, each eval metric
+# glow_f32_grads holds the f32 kernel path's gradients to a float64
+# evaluation of the plain path as the RLE phase does, with its own factor:
+# on an H100 (700 W) the kernel path lay 0.0552 (relative L2, the stem's
+# bn1 weight; lowest cosine 0.99850) from float64, the plain f32 path
+# 0.0290 (0.99960), and the planted faults of RLE_F32_FAULTS 0.130
+# (sum of squares, 1e-5), 0.178 (sum, 1e-5) and 1.95 (an image dropped).
+# The bound, 3 x the plain path's plus 1e-4 (0.087 there), lies between the
+# kernel path and the smallest fault; RLE_F32_GRAD_FACTOR's 2 left the
+# kernel path 5 % of room.
+GLOW_F32_GRAD_FACTOR = 3.0
+PROHMR_NLL_BATCH = 32
+GLOW_WINDOW_S = 0.5
+GLOW_PHASE_S = 90.0
+
+
+def phase_glow(torch, dev):
+    """The glow MHEnt (configs/rhd.yaml with network.regressor glow: resnet50
+    at 256 px, feature 512, ConditionalGlow(45, 512, 4, 2), built by the
+    Experiment): GLOW_TRAIN_STEPS train steps at B = 64, N = 10, one f32
+    forward and backward with each gradient held to the plain path's, and
+    one eval batch at B = 64, N = 200, kernels against plain from one copy
+    of the weights, with their launches and ms in alternating windows; the Glow
+    kernel alone at the eval batch's 12,800 rows (glow_case); ProHMR's
+    nll_loss forward and backward at B = 32, kernels on and off; run.py's
+    path twice in one model_dir (configs/smoke.yaml as a glow MHEnt, 1
+    epoch, then 2 with tpu.autoresume); the learning demo at its defaults.
+    Fails if any part fails or the phase takes more than GLOW_PHASE_S."""
+    import tempfile
+
+    from mhentropy_tpu_torch import train_synthetic_demo
+    from mhentropy_tpu_torch.core import smpl
+    from mhentropy_tpu_torch.flows import glow
+    from mhentropy_tpu_torch.models import prohmr
+    from mhentropy_tpu_torch.train import engine
+    from mhentropy_tpu_torch.utils.config import load_cfg
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = train_cfg(False, os.path.join(tmp, "rhd_glow"))
+        cfg.network.regressor = "glow"
+        with engine.Experiment(cfg, device=dev) as exp:
+            mc, net = exp.model_cfg, exp.net
+            check(mc.regressor == "glow" and mc.encoder.backbone == "resnet50"
+                  and mc.image_size == 256 and mc.feat_dim == 512
+                  and net.q_z_giv_i.cfg == glow.GlowConfig(45, 512, 4, 2, 512, 0.2)
+                  and net.packed_flow is not None,
+                  f"glow: not the full-width glow MHEnt: {mc}")
+            train_data, eval_data = exp.make_datasets()
+            out["train_step"] = glow_train_steps(torch, dev, exp, train_data)
+            out["eval_batch"] = glow_eval_batch(torch, dev, exp, eval_data)
+        out["kernel"] = glow_case(torch, dev, "mhent_glow_eval", GLOW_EVAL)
+        out["kernel"]["phase"] = "glow (the glow MHEnt's eval batch)"
+        out["prohmr_nll"] = prohmr_nll(torch, dev, smpl, prohmr)
+        out["autoresume"] = glow_autoresume(torch, dev, engine, load_cfg,
+                                            os.path.join(tmp, "resume"))
+    reset_launches()
+    demo = train_synthetic_demo.main(device=dev)
+    before = demo["before"]["eucLoss_3d_rgb_sample"] * 1000
+    after = demo["after"]["eucLoss_3d_rgb_sample"] * 1000
+    out["demo"] = {"bh_mpjpe_mm_before": before, "bh_mpjpe_mm_after": after,
+                   "int8_delta_mm": (demo["after_int8"]["eucLoss_3d_rgb_sample"] * 1000
+                                     - after),
+                   "int8_sampler_delta_mm": (demo["after_int8_sampler"]["eucLoss_3d_rgb_sample"]
+                                             * 1000 - after
+                                             if "after_int8_sampler" in demo else None),
+                   "launches": read_launches()}
+    check(after < before, f"glow demo: BH-MPJPE {after} mm after training, {before} before")
+    out["wall_s"] = time.perf_counter() - t0
+    f32 = out["train_step"]["f32_one_step"]
+    summary = {"train_loss_rel": out["train_step"]["loss_rel"],
+               "train_f32_vs_f64": {k: [v["max_grad_rel_l2"], v["min_grad_cosine"]]
+                                    for k, v in f32.items()},
+               "train_ms": {k: v["median"] for k, v in out["train_step"]["ms_per_step"].items()},
+               "eval_ms": {k: v["median"] for k, v in out["eval_batch"]["ms_per_batch"].items()},
+               "eval_metric_rel": out["eval_batch"]["metric_rel_max"],
+               "kernel_graph_ms": out["kernel"]["graph_ms"]["median"],
+               "kernel_bound_ms": out["kernel"]["bound_ms"],
+               "prohmr_nll_loss_rel": out["prohmr_nll"]["loss_rel"],
+               "resumed_at_epoch": out["autoresume"]["start_epoch"],
+               "steps": [out["autoresume"]["steps_first"], out["autoresume"]["steps_second"]],
+               "demo_bh_mpjpe_mm": [before, after], "demo_int8_delta_mm":
+               out["demo"]["int8_delta_mm"], "wall_s": out["wall_s"]}
+    print(f"glow phase: {json.dumps(summary)}", flush=True)
+    check(out["wall_s"] <= GLOW_PHASE_S, f"glow: the phase took {out['wall_s']:.1f} s")
+    return out
+
+
+def glow_train_steps(torch, dev, exp, train_data) -> dict:
+    """GLOW_TRAIN_STEPS make_train_step steps at B = 64 on one batch and lr
+    GLOW_COMPARE_LR, kernels and plain from one copy of the Experiment's
+    weights, the same noise and dropout masks: losses within
+    TRAIN_LOSS_TOL, launches a step BN stats sums 53 and nothing else (the
+    reverse-KL draw is the plain Glow); ms a step in alternating windows.
+    At that rate the three losses are close to three forwards of one set
+    of weights: the gradients are held by glow_f32_grads."""
+    from mhentropy_tpu_torch.data import synthetic
+    from mhentropy_tpu_torch.train import engine
+
+    bs, tr = TRAIN_BATCH, exp.cfg.training
+    image, target = engine._prep_batch(*next(synthetic.batches(train_data, bs, device=dev)))
+    g = torch.Generator(device=dev).manual_seed(30)
+    noises = [torch.randn((N_TRAIN_HYPO * bs, 45), generator=g, device=dev)
+              for _ in range(GLOW_TRAIN_STEPS)]
+    runs, steps = {}, {}
+    for name, kernels in (("kernels", True), ("plain", False)):
+        net = copy.deepcopy(exp.net).train()
+        net.set_kernels(kernels)
+        steps[name] = engine.make_train_step(
+            exp.model, net, engine.make_optimizer(net, GLOW_COMPARE_LR, tr.milestones, 1),
+            fold=exp.fold, generator=torch.Generator(device=dev).manual_seed(31))
+        losses, launches = [], []
+        for noise in noises:
+            reset_launches()
+            losses.append(steps[name](image, target, noise)["loss"].item())
+            launches.append(read_launches())
+        runs[name] = (losses, launches)
+    (losses, launches), (ref_losses, ref_launches) = runs["kernels"], runs["plain"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    print(f"glow train steps B={bs}: losses kernels {losses}, plain {ref_losses} (worst rel "
+          f"{loss_rel:.3g}, tol {TRAIN_LOSS_TOL}); launches a step {launches[0]}", flush=True)
+    check(all(math.isfinite(v) for v in losses) and loss_rel <= TRAIN_LOSS_TOL,
+          f"glow train: losses {losses} vs {ref_losses}")
+    check(all(c["bn_stats_sums"] == 53 and sum(c.values()) == 53 for c in launches)
+          and all(sum(c.values()) == 0 for c in ref_launches),
+          f"glow train: launches {launches}, plain {ref_launches}")
+    f32 = glow_f32_grads(torch, dev, exp, image, target, noises[0])
+    ms = windows_ms(torch, {k: (lambda f=f: f(image, target, noises[0]))
+                            for k, f in steps.items()}, GLOW_WINDOW_S)
+    return {"losses": losses, "ref_losses": ref_losses, "loss_rel": loss_rel,
+            "launches": launches[0], "ms_per_step": ms, "f32_one_step": f32}
+
+
+def glow_f32_grads(torch, dev, exp, image, target, noise) -> dict:
+    """The RLE phase's f32 gradient check on the glow MHEnt: one forward and
+    backward of the loss (no update) from one copy of the weights, with the
+    same noise and dropout masks, through the kernel path in f32, the plain
+    path in f32 and in float64, and the kernel path with each fault of
+    RLE_F32_FAULTS planted in the BN sums. The f32 kernel path's gradients
+    are held to the float64 plain path's: each parameter's relative L2
+    error at most GLOW_F32_GRAD_FACTOR x the plain f32 path's largest plus
+    1e-4 and its cosine at least RLE_F32_GRAD_COS; the loss to the plain
+    f32 path's within TRAIN_F32_LOSS_TOL. Every planted fault must fail the
+    gradient check. Launches:
+    BN stats sums 53 a kernel run, none on the plain path. Comparing the
+    two f32 paths with each other cannot tell a fault from the f32
+    rounding that both carry: they differed by a lowest cosine of 0.99869
+    on an H100, a BN weight's."""
+    from mhentropy_tpu_torch.core import mano
+    from mhentropy_tpu_torch.models import bn_cuda
+
+    model64 = mano.ManoModel(*(t.double() if t.is_floating_point() else t for t in exp.model))
+    args64 = (model64, mano.fold_keypoints(model64), image.double(),
+              {k: v.double() if v.is_floating_point() else v for k, v in target.items()},
+              noise.double())
+    stats_sums = bn_cuda.stats_sums
+    faults = [f"kernels_f32_fault_{f}" for f in RLE_F32_FAULTS]
+    runs = {}
+    for name, kernels, dtype in (("kernels_f32", True, torch.float32),
+                                 *((f, True, torch.float32) for f in faults),
+                                 ("plain_f32", False, torch.float32),
+                                 ("plain_f64", False, torch.float64)):
+        net = copy.deepcopy(exp.net)
+        net.set_kernels(kernels)
+        net.feat_extractor.res.dtype = dtype
+        args = (exp.model, exp.fold, image, target, noise)
+        if dtype == torch.float64:
+            net.double()
+            args = args64
+        if name in faults:
+            bn_cuda.stats_sums = RLE_F32_FAULTS[name[len("kernels_f32_fault_"):]](stats_sums)
+        reset_launches()
+        try:
+            runs[name] = one_step_grads(torch, net, *args,
+                                        generator=torch.Generator(device=dev).manual_seed(35))
+            torch.cuda.synchronize()
+        finally:
+            bn_cuda.stats_sums = stats_sums
+        runs[name] += (read_launches(),)
+        del net
+    ref_loss, ref_grads = runs["plain_f64"][:2]
+    ref_grads = {n: g.double() for n, g in ref_grads.items()}
+    agreement = {}
+    for name in ("kernels_f32", *faults, "plain_f32"):
+        loss, grads, _, launches = runs[name]
+        grads = {n: g.double() for n, g in grads.items()}
+        cos = cosines(torch, grads, ref_grads)
+        l2 = {n: float((grads[n] - ref_grads[n]).norm() / ref_grads[n].norm().clamp_min(1e-30))
+              for n in ref_grads}
+        lowest = sorted(cos, key=cos.get)[:4]
+        a = agreement[name] = {
+            "against": "plain_f64", "loss": loss, "ref_loss": ref_loss,
+            "loss_rel": abs(loss - ref_loss) / abs(ref_loss),
+            "min_grad_cosine": cos[lowest[0]], "min_grad_cosine_param": lowest[0],
+            "median_grad_cosine": statistics.median(cos.values()),
+            "max_grad_rel_l2": max(l2.values()), "max_grad_rel_l2_param": max(l2, key=l2.get),
+            "gradients": len(cos), "launches_per_step": launches}
+        print(f"glow train {name} vs plain_f64, one step: loss {loss:.6g} vs {ref_loss:.6g} "
+              f"(rel {a['loss_rel']:.3g}); lowest gradient cosines "
+              f"{[(n, round(cos[n], 6)) for n in lowest]}, largest relative L2 error "
+              f"{a['max_grad_rel_l2']:.3g} ({a['max_grad_rel_l2_param']}); launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    p32 = agreement["plain_f32"]
+
+    def f32_grads_ok(k32):
+        return (k32["max_grad_rel_l2"] <= GLOW_F32_GRAD_FACTOR * p32["max_grad_rel_l2"] + 1e-4
+                and k32["min_grad_cosine"] >= RLE_F32_GRAD_COS)
+
+    k32 = agreement["kernels_f32"]
+    flow_grads = [n for n in ref_grads if n.startswith("q_z_giv_i.")]
+    loss_rel = abs(k32["loss"] - p32["loss"]) / abs(p32["loss"])
+    print(f"glow train kernels_f32 vs plain_f32, one step: loss rel {loss_rel:.3g} (tol "
+          f"{TRAIN_F32_LOSS_TOL})", flush=True)
+    check(set(runs["kernels_f32"][1]) == set(ref_grads) and flow_grads and f32_grads_ok(k32)
+          and loss_rel <= TRAIN_F32_LOSS_TOL,
+          f"glow train f32 against float64, one step: kernels {k32}, plain {p32}, loss rel "
+          f"{loss_rel}")
+    for f in faults:
+        check(not f32_grads_ok(agreement[f]),
+              f"glow train f32: the gradient check passes the planted fault {f}: "
+              f"{agreement[f]}")
+    for name in ("kernels_f32", *faults):
+        launches = runs[name][3]
+        check(launches["bn_stats_sums"] == 53 and sum(launches.values()) == 53,
+              f"glow train {name}: launches {launches}")
+    for name in ("plain_f32", "plain_f64"):
+        check(sum(runs[name][3].values()) == 0, f"glow train {name}: launches {runs[name][3]}")
+    agreement["kernels_f32"]["loss_rel_plain_f32"] = loss_rel
+    return agreement
+
+
+def glow_eval_batch(torch, dev, exp, eval_data) -> dict:
+    """One eval batch at B = 64, N = 200 through make_eval_step, kernels and
+    plain on the same weights, noise and dropout masks: launches stem 1,
+    stage 1 3, Glow kernel 1 and nothing else; every metric finite and
+    within GLOW_METRIC_TOL of the plain path's; ms a batch in alternating
+    windows."""
+    from mhentropy_tpu_torch.data import synthetic
+    from mhentropy_tpu_torch.models import mhent
+    from mhentropy_tpu_torch.train import engine
+
+    bs, n, temp = EVAL_BATCH, N_HYPO, exp.cfg.training.eval_temp
+    net = exp.net.eval()
+    mhent.refresh_kernel_weights(net)
+    image, target = next(synthetic.batches(eval_data, bs, pad_remainder=True, device=dev))
+    g = torch.Generator(device=dev).manual_seed(32)
+    kld = torch.randn((N_TRAIN_HYPO * bs, 45), generator=g, device=dev)
+    hypo = torch.randn((n * bs, 45), generator=g, device=dev) * temp
+
+    def run(kernels):
+        net.set_kernels(kernels)
+        step = engine.make_eval_step(exp.model, net, n, temp, fold=exp.fold,
+                                     generator=torch.Generator(device=dev).manual_seed(33))
+        try:
+            return step(image, target, kld, hypo)
+        finally:
+            net.set_kernels(True)
+
+    res = {}
+    for name, kernels in (("kernels", True), ("plain", False)):
+        reset_launches()
+        mets = run(kernels)
+        torch.cuda.synchronize()
+        res[name] = ({k: float(v) for k, v in mets.items()}, read_launches())
+    (mets, launches), (ref, ref_launches) = res["kernels"], res["plain"]
+    rel = {k: abs(mets[k] - ref[k]) / max(abs(ref[k]), 1e-6) for k in ref}
+    worst = max(rel, key=rel.get)
+    print(f"glow eval batch B={bs}, N={n}: launches {launches}; eucLoss_3d_rgb_sample "
+          f"kernels {mets['eucLoss_3d_rgb_sample']:.6g}, plain "
+          f"{ref['eucLoss_3d_rgb_sample']:.6g}; worst metric {worst} rel {rel[worst]:.3g} "
+          f"(tol {GLOW_METRIC_TOL})", flush=True)
+    check(launches["stem"] == 1 and launches["stage1"] == 3 and launches["glow_sampler"] == 1
+          and sum(launches.values()) == 5 and sum(ref_launches.values()) == 0,
+          f"glow eval: launches {launches}, plain {ref_launches}")
+    check(all(math.isfinite(v) for v in mets.values()) and rel[worst] <= GLOW_METRIC_TOL,
+          f"glow eval: metrics {mets} vs {ref}")
+    ms = windows_ms(torch, {"kernels": lambda: run(True), "plain": lambda: run(False)},
+                    GLOW_WINDOW_S)
+    trace = trace_steps(torch, lambda: run(True), ms["kernels"]["median"], TRACED, 8,
+                        "glow eval batch kernels")
+    return {"launches": launches, "metrics": mets, "ref_metrics": ref,
+            "metric_rel_max": rel[worst], "worst_metric": worst, "ms_per_batch": ms,
+            "trace": trace}
+
+
+def prohmr_nll(torch, dev, smpl, prohmr) -> dict:
+    """ProHMR's nll_loss in train mode at B = PROHMR_NLL_BATCH (resnet50 at
+    224 px with f32 master weights computing in bf16, ConditionalGlow(144,
+    1024, 4, 2, context 2048), the 6,890-vertex SMPL fixture, every
+    target): forward and backward with kernels on and off from one copy of
+    the weights; every gradient finite, the losses within TRAIN_LOSS_TOL,
+    the BN stats sums 53 a forward."""
+    b = PROHMR_NLL_BATCH
+    model = smpl.synthetic_smpl_model(0, device=dev)
+    base = prohmr.init(prohmr.ProHMRConfig(), seed=0).to(dev)
+    base.encoder.res.place(torch.bfloat16, masters=True)
+    g = torch.Generator(device=dev).manual_seed(34)
+    image = torch.rand((b, 224, 224, 3), generator=g, device=dev)
+    target = {"pose_6d": torch.randn((b, 144), generator=g, device=dev) * 0.3,
+              "betas": torch.randn((b, 10), generator=g, device=dev) * 0.1,
+              "keypoints3d": torch.randn((b, 24, 3), generator=g, device=dev) * 0.2,
+              "keypoints2d": torch.randn((b, 24, 2), generator=g, device=dev) * 0.3}
+    noise = torch.randn((b, 144), generator=g, device=dev)
+    res = {}
+    for name, kernels in (("kernels", True), ("plain", False)):
+        net = copy.deepcopy(base).train()
+        net.set_kernels(kernels)
+        reset_launches()
+        t1 = time.perf_counter()
+        o = prohmr.nll_loss(model, net, image, target, noise=noise)
+        loss = (-o["log_p"].mean() + o["betas_l2"].mean() + o["kp3d_l1"].mean()
+                + o["kp2d_l1"].mean())
+        loss.backward()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+        finite = all(bool(torch.isfinite(p.grad).all()) for p in net.parameters()
+                     if p.grad is not None)
+        n_grads = sum(p.grad is not None for p in net.parameters())
+        res[name] = (loss.item(), read_launches(), finite, n_grads, wall)
+    (loss, launches, finite, n_grads, wall), ref = res["kernels"], res["plain"]
+    loss_rel = abs(loss - ref[0]) / abs(ref[0])
+    print(f"prohmr nll_loss B={b}: loss kernels {loss:.6g}, plain {ref[0]:.6g} (rel "
+          f"{loss_rel:.3g}); {n_grads} gradients, all finite {finite and ref[2]}; launches "
+          f"{launches}; first forward+backward {wall:.1f} ms", flush=True)
+    check(finite and ref[2] and n_grads > 0 and loss_rel <= TRAIN_LOSS_TOL,
+          f"prohmr nll: loss {loss} vs {ref[0]}, finite {finite}, {ref[2]}")
+    check(launches["bn_stats_sums"] == 53 and sum(launches.values()) == 53
+          and sum(ref[1].values()) == 0, f"prohmr nll: launches {launches}, plain {ref[1]}")
+    return {"loss": loss, "ref_loss": ref[0], "loss_rel": loss_rel, "launches": launches,
+            "gradients": n_grads, "first_call_ms": wall}
+
+
+def glow_autoresume(torch, dev, engine, load_cfg, model_dir: str) -> dict:
+    """run.py's path (Experiment.train_baseline, closed after) twice in one
+    model_dir: configs/smoke.yaml (resnet18 at 64 px, synthetic data) as a
+    glow MHEnt, 1 epoch, then 2 with tpu.autoresume. The second run resumes
+    at epoch 1 and ends at twice the first's step; both write their log
+    and scalars."""
+    records = []
+    for epochs in (1, 2):
+        cfg = load_cfg("configs/smoke.yaml")
+        cfg.network.regressor = "glow"
+        cfg.training.epochs = epochs
+        cfg.training.seed = 0
+        cfg.model_dir = model_dir + "/"
+        cfg.tpu.autoresume = True
+        with engine.Experiment(cfg, device=dev) as exp:
+            exp.train_baseline()
+        log = open(os.path.join(model_dir, f"info_{cfg.training.mode}.log")).read()
+        ckpt = torch.load(os.path.join(model_dir, "baseline_final.pth"), map_location="cpu")
+        with open(os.path.join(model_dir, "scalars.jsonl")) as f:
+            n_scalars = sum(1 for _ in f)
+        records.append((ckpt["step"], log, n_scalars))
+    (first, log1, n1), (second, log2, n2) = records
+    resumed = re.search(r"continuing at epoch (\d+)", log2)
+    start = int(resumed.group(1)) if resumed else 0
+    print(f"glow autoresume: steps {first} then {second}; the second run "
+          f"{'resumed at epoch ' + str(start) if resumed else 'did not resume'}; "
+          f"scalars {n1} then {n2}", flush=True)
+    check(resumed is not None and start == 1 and "autoresume: restored" not in log1
+          and "Epoch:0| eval_3d_rgb" not in log2 and first > 0 and second == 2 * first
+          and n2 > n1 > 0 and "Epoch:1| Step:0| Avg_Loss:" in log2,
+          f"glow autoresume: steps {first}, {second}; scalars {n1}, {n2}")
+    return {"steps_first": first, "steps_second": second, "start_epoch": start,
+            "scalars": [n1, n2]}
+
+
 # The loader phase (9e): the RHD tree's train / eval items (RHD's 320 x 320),
 # FreiHAND's items (the loader keeps the last 10 % for evaluation) and the
 # HO3D tree's train / eval frames; the loader throughput windows.
@@ -2823,6 +3240,24 @@ def main() -> int:
           f"{train['full']['dy_copies']}", flush=True)
     rle_res = phase_rle(torch, dev)
     det_res = phase_det(torch, dev)
+    glow_res = phase_glow(torch, dev)
+    glow_line = next(r for r in results if r["name"] == "glow_sampler")
+    glow_line.setdefault("other_shapes", []).append(side_line(glow_res["kernel"]))
+    for label, t in (("glow train step", glow_res["train_step"]["ms_per_step"]),
+                     ("glow eval batch", glow_res["eval_batch"]["ms_per_batch"])):
+        print(f"{label}: " + "; ".join(
+            f"{k} median {v['median']:.3f} ms [{v['min']:.3f}, {v['max']:.3f}]"
+            for k, v in t.items()) + f" over {RUNS} windows of >= {GLOW_WINDOW_S} s [{card}]",
+            flush=True)
+    k = glow_res["kernel"]
+    print(f"glow kernel at {k['shape']}: graph {k['graph_ms']['median']:.4f} ms, eager "
+          f"{k['ms']['median']:.4f}, plain graph {k['plain_graph_ms']['median']:.4f}, bound "
+          f"{k['bound_ms']:.4f} ({k['bound_by']}), torch.matmul on one hidden product "
+          f"{k['library_stage_graph_ms']:.4f} [{card}]", flush=True)
+    d = glow_res["demo"]
+    print(f"demo: BH-MPJPE {d['bh_mpjpe_mm_before']:.2f} -> {d['bh_mpjpe_mm_after']:.2f} mm, "
+          f"int8 delta {d['int8_delta_mm']:+.3f} mm, int8+sampler delta "
+          f"{d['int8_sampler_delta_mm']:+.3f} mm [{card}]", flush=True)
     for label, t in (("rle train step", rle_res["ms_per_train_step"]),
                      ("rle eval batch", rle_res["ms_per_eval_batch"]),
                      ("det sample_hypotheses", det_res["sample"]["ms_per_call"]),
@@ -2857,6 +3292,9 @@ def main() -> int:
                    "rle_eval_batch": rle_res["eval_batch"]["launches"],
                    "det_sample_hypotheses": det_res["sample"]["launches"],
                    "det_train_step": det_res["train_step"]["launches"],
+                   "glow_train_step": glow_res["train_step"]["launches"],
+                   "glow_eval_batch": glow_res["eval_batch"]["launches"],
+                   "prohmr_nll_loss": glow_res["prohmr_nll"]["launches"],
                    **{f"loader_{k}_train_baseline": r["launches"]
                       for k, r in loaders["runs"].items()},
                    "loader_train_step": loaders["kernels_vs_plain"]["launches_per_step"]}
@@ -2890,6 +3328,7 @@ def main() -> int:
                       "eval": evals, "verts": {"launches": verts_launches,
                                                "kernel_vs_plain_max_abs": verts_err},
                       "train": train, "prohmr": humans, "rle": rle_res, "det": det_res,
+                      "glow": {k: v for k, v in glow_res.items() if k != "kernel"},
                       "bench": bench_line, "loaders": loaders}),
           flush=True)
     print(card, flush=True)

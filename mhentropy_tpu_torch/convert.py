@@ -110,12 +110,15 @@ def _encoder(sd: dict, prefix: str, enc: dict, batch_stats: dict) -> None:
 
 def from_jax(params: dict, batch_stats: dict) -> dict:
     """JAX MHEnt params {'encoder', 'flow', 'det_head'} (no 'flow' for the
-    det regressor) + backbone batch stats -> state_dict for
-    models.mhent.MHEnt."""
+    det regressor; for the glow regressor a list of per-step dicts) +
+    backbone batch stats -> state_dict for models.mhent.MHEnt."""
     sd: dict = {}
     _encoder(sd, "feat_extractor.", params["encoder"], batch_stats)
-    if params.get("flow") is not None:
-        sd.update(realnvp_state_dict(params["flow"], "q_z_giv_i."))
+    flow = params.get("flow")
+    if isinstance(flow, list):  # the glow regressor's ConditionalGlow
+        sd.update(glow_from_jax(flow, "q_z_giv_i."))
+    elif flow is not None:
+        sd.update(realnvp_state_dict(flow, "q_z_giv_i."))
     _linear(sd, "det_head.0", params["det_head"]["l0"])
     _linear(sd, "det_head.2", params["det_head"]["l1"])
     return sd
@@ -129,6 +132,10 @@ def rle_from_jax(params: dict, batch_stats: dict) -> dict:
     enc: dict = {}
     _encoder(enc, "", params["encoder"], batch_stats)
     return {"encoderRGB": enc, "p_nf": realnvp_state_dict(params["p_nf"])}
+
+
+_NOT_PARAMETERS = ("num_batches_tracked", "q_z_giv_i.mask", "initialized", "identity_features",
+                   "transform_features", "running_mean", "running_var")
 
 
 def opt_state_from_jax(opt_state) -> dict:
@@ -151,9 +158,10 @@ def opt_state_from_jax(opt_state) -> dict:
     if adam is None:
         raise ValueError("no ScaleByAdamState (count, mu, nu) in the optax state")
     mu, nu = from_jax(adam.mu, {}), from_jax(adam.nu, {})
-    # The masks' moments (a buffer in the port) and the BN counters are no
-    # parameters.
-    names = [k for k in mu if not k.endswith(("num_batches_tracked", "q_z_giv_i.mask"))]
+    # Buffers in the port, parameters (or no leaf) in JAX: the RealNVP
+    # masks, the Glow's ActNorm flag and coupling indices, its BatchNorms'
+    # running statistics, the BN counters.
+    names = [k for k in mu if not k.endswith(_NOT_PARAMETERS)]
     return {"count": int(np.asarray(adam.count)),
             "state": {k: {"exp_avg": mu[k], "exp_avg_sq": nu[k]} for k in names}}
 
@@ -214,9 +222,10 @@ def flowq_from_jax(ftree, dim: int = 45, device="cpu"):
 
 def glow_from_jax(params: list, prefix: str = "") -> dict:
     """JAX ConditionalGlow params (a list of per-step {actnorm, linear,
-    coupling} dicts) -> the fork-named state_dict of
-    flows.glow.ConditionalGlow. ActNorm's `initialized` is True: the values
-    are final and a later train-mode forward must not re-initialise them."""
+    coupling} dicts, with "bn0" / "bn1" in each block of a use_batch_norm
+    flow) -> the fork-named state_dict of flows.glow.ConditionalGlow.
+    ActNorm's `initialized` is True, as the fork would store values it must
+    not initialise again; the port never reads it."""
     from mhentropy_tpu_torch.flows import glow
 
     d = np.asarray(params[0]["actnorm"]["log_scale"]).shape[0]
@@ -236,13 +245,16 @@ def glow_from_jax(params: list, prefix: str = "") -> dict:
         _linear(sd, f"{c}.transform_net.initial_layer", cpl["initial"])
         _linear(sd, f"{c}.transform_net.final_layer", cpl["final"])
         for k, blk in enumerate(cpl["blocks"]):
-            if "bn0" in blk:
-                raise NotImplementedError("Glow coupling nets with BatchNorm are not ported yet "
-                                          "(ROADMAP queue 1, \"ProHMR training\")")
             b = f"{c}.transform_net.blocks.{k}"
             _linear(sd, f"{b}.context_layer", blk["ctx"])
             _linear(sd, f"{b}.linear_layers.0", blk["l0"])
             _linear(sd, f"{b}.linear_layers.1", blk["l1"])
+            for j in range(2):
+                if f"bn{j}" in blk:
+                    bn, q = blk[f"bn{j}"], f"{b}.batch_norm_layers.{j}"
+                    sd[f"{q}.weight"], sd[f"{q}.bias"] = _t(bn["scale"]), _t(bn["bias"])
+                    sd[f"{q}.running_mean"], sd[f"{q}.running_var"] = _t(bn["mean"]), _t(bn["var"])
+                    sd[f"{q}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return sd
 
 

@@ -9,9 +9,11 @@ eval step's log p, with the entropy term and the chamfer branch) and
 `sample_hypotheses` :496 (with `quant=` and the top-N_quant filter :540),
 the det regressor (`det_dims` :94, no flow, `combine_z`'s det branch, zero
 log q in `sample_q_z` :221), `log_q_z` :327, `kld_weight` :566,
-`sample_p_z` :573, `evidence_from_target` :598 and `set_evidences` :613.
-The Glow regressor is not ported yet (ROADMAP queue 1, "ProHMR training"):
-its reverse-KL draw trains through the coupling nets' dropout.
+`sample_p_z` :573, `evidence_from_target` :598 and `set_evidences` :613,
+and the glow regressor (`init` :125-134, `sample_q_z` :293-321, `log_q_z`
+:332-335): a ConditionalGlow over theta45, whose eval draw on the card
+runs the Glow sampler kernel and whose reverse-KL draw runs the plain Glow
+in train mode, with the coupling nets' dropout.
 
 The module's parameter names are the reference's `encoderRGB` state_dict:
 `feat_extractor.res.*`, `feat_extractor.l1.0.*`, `q_z_giv_i.*`,
@@ -29,7 +31,8 @@ from torch import nn
 
 from mhentropy_tpu_torch.core import camera, mano, skeletons
 from mhentropy_tpu_torch.core.mano import ManoConfig, ManoModel
-from mhentropy_tpu_torch.flows import cuda_sampler, cuda_sampler_int8, priors, realnvp
+from mhentropy_tpu_torch.flows import (cuda_glow_sampler, cuda_sampler, cuda_sampler_int8, glow,
+                                       priors, realnvp)
 from mhentropy_tpu_torch.flows.realnvp import RealNVPConfig
 from mhentropy_tpu_torch.models import quant as quant_mod
 from mhentropy_tpu_torch.models.encoder import Encoder, EncoderConfig, init_weights_
@@ -59,6 +62,12 @@ class MHEntConfig(NamedTuple):
     kld_w: float = 1.0
     kld_w_annealing: tuple = (1.0, 24000)
     n_train_hypotheses: int = 10
+    # The glow regressor's ConditionalGlow(45, glow_hidden, glow_layers,
+    # glow_blocks, context=feat_dim) and its coupling nets' dropout.
+    glow_dropout: float = 0.2
+    glow_hidden: int = 512
+    glow_layers: int = 4
+    glow_blocks: int = 2
     use_chamfer_loss: bool = False
     w_chamfer: float = 10.0
 
@@ -71,16 +80,18 @@ class MHEntConfig(NamedTuple):
 class MHEnt(nn.Module):
     def __init__(self, cfg: MHEntConfig):
         super().__init__()
-        if cfg.regressor not in ("realnvp", "det"):
-            raise NotImplementedError(
-                f"regressor {cfg.regressor!r} is not ported yet (ROADMAP queue 1, \"ProHMR "
-                f"training\": the glow draw trains through its coupling nets' dropout); the "
-                f"port has realnvp and det")
+        if cfg.regressor not in ("realnvp", "glow", "det"):
+            raise ValueError(f"regressor {cfg.regressor!r}: expected realnvp, glow or det")
         self.cfg = cfg
         self.feat_extractor = Encoder(cfg.encoder)
         # The posterior over theta45; the det regressor has none (its det
         # head regresses theta45 too).
-        self.q_z_giv_i = realnvp.RealNVP(cfg.flow) if cfg.regressor == "realnvp" else None
+        if cfg.regressor == "realnvp":
+            self.q_z_giv_i = realnvp.RealNVP(cfg.flow)
+        elif cfg.regressor == "glow":
+            self.q_z_giv_i = glow.ConditionalGlow(glow_config(cfg))
+        else:
+            self.q_z_giv_i = None
         f = cfg.feat_dim
         self.det_head = nn.Sequential(nn.Linear(f, f), nn.ReLU(), nn.Linear(f, cfg.det_dims()))
         self.kernels = True
@@ -88,11 +99,20 @@ class MHEnt(nn.Module):
 
     def set_kernels(self, enabled: bool) -> None:
         """Route the float CUDA path through its kernels (stem, stage 1, the
-        train-mode BN sums, the bf16 and f32 samplers; the default) or
-        through their plain PyTorch versions, e.g. to compare the two. The
-        LBS blend and the int8 path route by device alone."""
+        train-mode BN sums, the bf16 and f32 samplers or the Glow sampler;
+        the default) or through their plain PyTorch versions, e.g. to
+        compare the two. The LBS blend and the int8 path route by device
+        alone."""
         self.feat_extractor.res.kernels = enabled
         self.kernels = enabled
+
+
+def glow_config(cfg: MHEntConfig) -> glow.GlowConfig:
+    """The glow regressor's flow: ConditionalGlow(45, 512, 4, 2, context
+    512, dropout 0.2) at the defaults, the reference's shape."""
+    return glow.GlowConfig(features=45, hidden=cfg.glow_hidden, num_layers=cfg.glow_layers,
+                           num_blocks=cfg.glow_blocks, context_features=cfg.feat_dim,
+                           dropout=cfg.glow_dropout)
 
 
 @torch.no_grad()
@@ -121,10 +141,18 @@ def prepare(net: MHEnt, device, masters: bool = False) -> MHEnt:
 
 @torch.no_grad()
 def refresh_kernel_weights(net: MHEnt) -> MHEnt:
-    """Fold the stem's and stage 1's eval BN and pack the flow (none for the
-    det regressor) for the eval kernels, from the module's current weights."""
+    """Fold the stem's and stage 1's eval BN and pack the flow for the eval
+    kernels (the RealNVP for the samplers, a Glow the Glow sampler takes
+    for it; none for the det regressor), from the module's current
+    weights."""
     net.feat_extractor.res.fold_kernel_weights()
-    net.packed_flow = None if net.q_z_giv_i is None else cuda_sampler.pack(net.q_z_giv_i)
+    flow = net.q_z_giv_i
+    if isinstance(flow, realnvp.RealNVP):
+        net.packed_flow = cuda_sampler.pack(flow)
+    elif flow is not None and cuda_glow_sampler.structural_ok(flow.cfg):
+        net.packed_flow = cuda_glow_sampler.pack(flow)
+    else:
+        net.packed_flow = None
     return net
 
 
@@ -189,6 +217,13 @@ def sample_q_z(net: MHEnt, feat: torch.Tensor, n: int, temp: float = 1.0,
     kernels always run, and `set_kernels(False)` is the A/B switch (PERF.md
     has the H100 A/B).
 
+    The glow regressor: on the card with kernels on, a non-differentiable
+    draw runs the Glow sampler kernel (`cuda_glow_sampler`), and raises
+    for a flow the kernel does not take (`structural_ok`: two blocks, no
+    BatchNorm); otherwise the plain Glow, in train mode when differentiable
+    (the coupling nets' dropout at glow_dropout, its masks from
+    `generator`), as JAX's draw.
+
     The det regressor draws nothing: its n rows repeat the det head's z,
     and log q is 0.
 
@@ -204,7 +239,18 @@ def sample_q_z(net: MHEnt, feat: torch.Tensor, n: int, temp: float = 1.0,
         base_noise = torch.randn((n * b, cfg.flow.dim), generator=generator,
                                  device=feat.device) * temp
     fused = feat.is_cuda and net.kernels
-    if flow_q is not None and not differentiable:
+    if isinstance(flow, glow.ConditionalGlow):
+        if fused and not differentiable:
+            if net.packed_flow is None:
+                raise RuntimeError("the Glow sampler kernel needs the packed flow "
+                                   "(mhent.prepare) and a flow it takes "
+                                   f"({flow.cfg}); set_kernels(False) runs the plain flow")
+            z_flow, log_q = cuda_glow_sampler.sample_and_log_prob_fused(
+                flow, net.packed_flow, feat, n, base_noise)
+        else:
+            z_flow, log_q = glow.sample_and_log_prob(flow, feat, n, noise=base_noise,
+                                                     generator=generator, train=differentiable)
+    elif flow_q is not None and not differentiable:
         z_flow, log_q = cuda_sampler_int8.sample_fused_q(flow, flow_q, feat, n, base_noise)
     elif fused and differentiable:
         z_flow, log_q = cuda_sampler.sample_fused_diff(flow, feat, n, base_noise)
@@ -221,10 +267,14 @@ def sample_q_z(net: MHEnt, feat: torch.Tensor, n: int, temp: float = 1.0,
 
 def log_q_z(net: MHEnt, z: torch.Tensor, feat_rows: torch.Tensor) -> torch.Tensor:
     """log q of the flow block (theta45) of z rows (R, 61), conditioned on
-    the (R, C) feature rows; zeros for the det regressor."""
-    if net.q_z_giv_i is None:
+    the (R, C) feature rows (the Glow in eval mode); zeros for the det
+    regressor."""
+    flow = net.q_z_giv_i
+    if flow is None:
         return z.new_zeros(z.shape[0])
-    return realnvp.log_prob(net.q_z_giv_i, z[:, 3:48], feat=feat_rows)
+    if isinstance(flow, glow.ConditionalGlow):
+        return glow.log_prob(flow, z[:, 3:48], feat_rows)
+    return realnvp.log_prob(flow, z[:, 3:48], feat=feat_rows)
 
 
 def decode(model: ManoModel, cfg: MHEntConfig, th_bt: torch.Tensor, logs_t: torch.Tensor,
@@ -291,15 +341,20 @@ def reverse_kld(model: ManoModel, net: MHEnt, y: dict, image: torch.Tensor,
     """-KL(q(z|I) || p(y|z) p~(z)) up to a constant, per image: the
     training objective and the eval step's log p. base_noise:
     (n_train_hypotheses * B, 45) standard normal (temperature 1), drawn from
-    `generator` when None. train: batch-statistics BN (the net in train
-    mode, its running statistics updated in place); differentiate the
-    result under autograd for the training step. feat: the conditioning
-    feature `extract_feat(net, image, train)` already computed (the eval
-    step shares one encoder pass with `sample_hypotheses`)."""
+    `generator` when None; the glow regressor's dropout masks come from
+    `generator` too. train: batch-statistics BN (the net in train mode, its
+    running statistics updated in place); differentiate the result under
+    autograd for the training step. feat: the conditioning feature
+    `extract_feat(net, image, train)` already computed (the eval step
+    shares one encoder pass with `sample_hypotheses`)."""
     cfg = net.cfg
     if feat is None:
         feat = extract_feat(net, image, train=train)
     n, b = cfg.n_train_hypotheses, feat.shape[0]
+    # Always the differentiable draw, in the eval step too, as JAX's
+    # reverse_kld (mhentropy_tpu/models/mhent.py:464-465): for the glow
+    # regressor that is the Glow in train mode, with its coupling nets'
+    # dropout (:314-321), whatever `train` says.
     z, log_q = sample_q_z(net, feat, n, temp=1.0, base_noise=base_noise, generator=generator,
                           differentiable=True)
     th_bt = z[:, :TH_BT]

@@ -1,13 +1,14 @@
 """ProHMR, the Humans variant: a conditional Glow over the SMPL pose.
 
-Port of mhentropy_tpu/models/prohmr.py, eval mode: `ProHMRConfig` :36,
-`init` :56, `_context_from_feats` :77, `context_features` :89, `heads` :98,
-`sample_hypotheses` :174 (with `quant=`) and `multi_hypothesis_metrics`
-:247. A resnet50 feature conditions a ConditionalGlow over the 144-dim 6D
-rotations of SMPL's 24 joints; linear heads give betas and a
-weak-perspective camera; every hypothesis decodes through SMPL and projects
-its joints. Training (`nll_loss` :109 with the flow's DDI, BN statistics
-and dropout) is not ported yet (ROADMAP queue 1, "ProHMR training").
+Port of mhentropy_tpu/models/prohmr.py: `ProHMRConfig` :36, `init` :56,
+`_context_from_feats` :77, `context_features` :89, `heads` :98, the
+training objective `nll_loss` :109, `sample_hypotheses` :174 (with
+`quant=`) and `multi_hypothesis_metrics` :247. A resnet50 feature
+conditions a ConditionalGlow over the 144-dim 6D rotations of SMPL's 24
+joints; linear heads give betas and a weak-perspective camera; every
+hypothesis decodes through SMPL and projects its joints. As in JAX, no
+trainer calls `nll_loss`: it is the objective a ProHMR trainer would
+differentiate.
 
 The module's parameter names: `encoder.res.*` (torchvision names),
 `encoder.l1.0.*` / `encoder.l2.0.*` (the unused 1-wide mu / sigma heads
@@ -49,6 +50,7 @@ class ProHMRConfig(NamedTuple):
     flow: GlowConfig = GlowConfig(features=POSE_DIM, hidden=1024, num_layers=4,
                                   num_blocks=2, context_features=2048)
     image_size: int = 224
+    n_train_hypotheses: int = 2  # nll_loss: the flow's mode + 1 draw
 
 
 class ProHMR(nn.Module):
@@ -110,17 +112,70 @@ def _context_from_feats(net: ProHMR, feats: torch.Tensor) -> torch.Tensor:
     return net.encoder.l1(feats)
 
 
-def context_features(net: ProHMR, image: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, 3) NHWC image -> the flow context (B, C), eval BN."""
-    if net.encoder.training:
-        raise NotImplementedError("train-mode ProHMR is not ported yet (ROADMAP queue 1, "
-                                  "\"ProHMR training\"); call net.eval()")
+def context_features(net: ProHMR, image: torch.Tensor, train: bool = False) -> torch.Tensor:
+    """(B, H, W, 3) NHWC image -> the flow context (B, C). train:
+    batch-statistics BN that updates the running statistics in place (the
+    encoder's cfg.fused_train_bn picks the structure around the card's BN
+    kernels); the encoder must be in that mode already (`net.train()` /
+    `net.eval()`)."""
+    if net.encoder.training != train:
+        raise ValueError(f"context_features(train={train}) on an encoder in "
+                         f"{'train' if net.encoder.training else 'eval'} mode: call "
+                         f"net.{'train' if train else 'eval'}() first")
     return _context_from_feats(net, backbone_features(net.encoder, image))
 
 
 def heads(net: ProHMR, feat: torch.Tensor):
     """betas (B, 10) and the camera (B, 3): log-scale, then the 2D shift."""
     return net.betas_head(feat), net.cam_head(feat)
+
+
+def nll_loss(model: smpl_lib.SmplModel, net: ProHMR, image: torch.Tensor, target: dict,
+             noise: torch.Tensor | None = None, generator: torch.Generator | None = None,
+             train: bool = True) -> dict:
+    """Pose NLL plus betas and keypoint supervision where the target has them.
+
+    target: pose_6d (B, 144) GT SMPL pose in 6D; optional betas (B, 10),
+    keypoints3d (B, 24, 3), keypoints2d (B, 24, 2). Returns log_p (B,) (the
+    flow's eval-mode log density of pose_6d), betas and cam, and with the
+    targets betas_l2 (B,), kp3d_l1 (B,) and kp2d_l1 (B,): the keypoint L1s
+    over the flow's mode (zero noise) and, in train mode,
+    n_train_hypotheses - 1 draws, decoded through SMPL (the 2-D keypoints
+    by the weak-perspective projection, the cam head's only gradient).
+    train: batch-statistics BN in the encoder (the net in train mode) and
+    the draws' Glow in train mode. noise: the ((n_train_hypotheses - 1) *
+    B, 144) standard-normal draws; from `generator` when None, which also
+    gives the Glow's dropout masks.
+    """
+    feat = context_features(net, image, train)
+    lp = glow.log_prob(net.flow, target["pose_6d"], feat)
+    betas, cam = heads(net, feat)
+    out = {"log_p": lp, "betas": betas, "cam": cam}
+    if "betas" in target:
+        out["betas_l2"] = torch.sum((betas - target["betas"]) ** 2, dim=1)
+    if "keypoints3d" in target or "keypoints2d" in target:
+        b = image.shape[0]
+        n_tr = max(1, int(net.cfg.n_train_hypotheses)) if train else 1
+        z = feat.new_zeros((b, POSE_DIM))
+        if n_tr > 1:
+            if noise is None:
+                noise = torch.randn(((n_tr - 1) * b, POSE_DIM), generator=generator,
+                                    device=feat.device)
+            z = torch.cat([z, noise])
+        pose_s, _ = glow.sample_and_log_prob(net.flow, feat, n_tr, noise=z, generator=generator,
+                                             train=train)
+        _, joints = smpl_lib.smpl_forward_6d(model, pose_s, betas.repeat(n_tr, 1),
+                                             with_mesh=False)
+        if "keypoints3d" in target:
+            gt3 = target["keypoints3d"].repeat(n_tr, 1, 1)
+            kp3 = torch.abs((joints - joints[:, 0:1]) - (gt3 - gt3[:, 0:1])).mean(dim=(1, 2))
+            out["kp3d_l1"] = kp3.reshape(n_tr, b).mean(0)
+        if "keypoints2d" in target:
+            uv = camera.orth_project(joints, torch.exp(cam[:, 0:1]).repeat(n_tr, 1),
+                                     cam[:, 1:3].repeat(n_tr, 1), inv_norm=False)
+            kp2 = torch.abs(uv - target["keypoints2d"].repeat(n_tr, 1, 1)).mean(dim=(1, 2))
+            out["kp2d_l1"] = kp2.reshape(n_tr, b).mean(0)
+    return out
 
 
 def sample_hypotheses(model: smpl_lib.SmplModel, net: ProHMR, image: torch.Tensor,

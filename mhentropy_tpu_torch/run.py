@@ -5,7 +5,10 @@ dispatches on training.mode. `baseline_VAE` runs the JAX `train_baseline`:
 the initial eval, then `training.epochs` epochs of train steps with their
 evals and .pth checkpoints under model_dir (`epochs: 0` stops after the
 initial eval); `eval` evaluates training.pth. Runs on the card unless
---device says otherwise (e.g. --device cpu).
+--device says otherwise (e.g. --device cpu). The log and the scalars go to
+model_dir (info_<mode>.log, scalars.jsonl); `tpu.autoresume: true`
+continues a run from the newest per-epoch checkpoint there. Returns the
+last eval's summary.
 """
 
 from __future__ import annotations
@@ -24,12 +27,12 @@ def main(argv=None) -> dict:
                     help="MANO asset dir (MANO_RIGHT.pkl); absent -> synthetic stand-in")
     args = ap.parse_args(argv)
     cfg = load_cfg(args.cfg)
-    exp = Experiment(cfg, device=args.device, mano_dir=args.mano)
-    if cfg.training.mode == "baseline_VAE":
-        return exp.train_baseline()
-    if cfg.training.mode == "eval":
-        return exp.eval(name=cfg.training.pth)
-    raise NotImplementedError(cfg.training.mode)
+    with Experiment(cfg, device=args.device, mano_dir=args.mano) as exp:
+        if cfg.training.mode == "baseline_VAE":
+            return exp.train_baseline()
+        if cfg.training.mode == "eval":
+            return exp.eval(name=cfg.training.pth)
+        raise NotImplementedError(cfg.training.mode)
 
 
 if __name__ == "__main__":

@@ -6,17 +6,20 @@ Port of mhentropy_tpu/train/engine.py: `_fused_bn_mode` :54,
 :308), `_prep_image` :197, `_prep_batch` :225, `make_optimizer` :338 with
 the TrainState :47 / `init_state` :349 it sits in (a module, an optimizer
 and a step count here), `make_train_step` :359, `make_eval_step` :426, and
-`_num_samples` :304, of `Experiment` `make_datasets` :587 (the RHD,
-FreiHAND, HO3D and mixed loaders from tpu.data_dir, the synthetic fixture
-without one), `_get_optimizer` :692, `_ensure_state` :718, `train_baseline`
-:841, `train_epoch` :876, `_quant_spec` :921, `eval_loop` :950, `eval`
-:1016 and `save_model` :1043; and the non-integrated RLE mode that a
-`network.enc_type` other than "MHEnt" selects (:505-518): `build_rle_config`
-:115, `make_rle_train_step` :249 and `make_rle_eval_step` :280, with
-`Experiment`'s branches for it (checkpoints in the reference's RLE schema,
-{'encoderRGB', 'p_nf'}). Not ported yet: autoresume and orbax checkpoints
-(ROADMAP queue 1, "What training still lacks"; checkpoints are the
-reference's .pth).
+`_num_samples` :304, of `Experiment` its sinks (`info_<mode>.log` and
+`scalars.jsonl` in model_dir, :539-545, with `close` :567, the context
+manager and the finaliser, `_close_sinks` :1096 and `close_all_experiments`
+:1110), `make_datasets` :587 (the RHD, FreiHAND, HO3D and mixed loaders
+from tpu.data_dir, the synthetic fixture without one), `_get_optimizer`
+:692, `_ensure_state` :718, `_latest_checkpoint` :822, `train_baseline`
+:841 (with tpu.autoresume), `train_epoch` :876, `_quant_spec` :921,
+`eval_loop` :950, `eval` :1016 and `save_model` :1043; and the
+non-integrated RLE mode that a `network.enc_type` other than "MHEnt"
+selects (:505-518): `build_rle_config` :115, `make_rle_train_step` :249
+and `make_rle_eval_step` :280, with `Experiment`'s branches for it
+(checkpoints in the reference's RLE schema, {'encoderRGB', 'p_nf'}).
+Checkpoints are the reference's .pth; orbax directories are not ported
+(ROADMAP queue 1, "What training still lacks": orbax imports JAX).
 
 Both loops feed their steps through `data.common.prefetch` over
 `data.common.batches(..., device=)`: a thread builds each batch and copies
@@ -25,13 +28,18 @@ it to the device while the step before it runs.
 The steps are plain functions of their batch and noise: torch cannot replay
 jax.random, so the reverse-KL draw's noise (temperature 1), the eval
 hypotheses' noise (times temp) and the RLE step's two draws come from the
-caller, as the JAX steps split their keys into independent streams.
+caller, as the JAX steps split their keys into independent streams; the
+glow regressor's dropout masks come from the generator the step is built
+with.
 """
 
 from __future__ import annotations
 
+import logging
 import os
+import re
 import time
+import weakref
 
 import torch
 
@@ -47,7 +55,7 @@ from mhentropy_tpu_torch.models.encoder import EncoderConfig
 from mhentropy_tpu_torch.models.mhent import MHEntConfig
 from mhentropy_tpu_torch.models.rle import RLEConfig
 from mhentropy_tpu_torch.train import metrics as metrics_lib
-from mhentropy_tpu_torch.utils.logging import AverageMeter
+from mhentropy_tpu_torch.utils.logging import AverageMeter, ScalarWriter, get_logger
 
 
 def _fused_bn_mode(cfg):
@@ -86,7 +94,12 @@ def build_model_config(cfg) -> MHEntConfig:
         bt_alpha=float(net.bt_alpha),
         temperature=float(net.T),
         entropy=bool(net.entropy),
+        kld_w=float(net.kld_w),
+        kld_w_annealing=tuple(net.kld_w_annealing),
         n_train_hypotheses=int(cfg.training.n_train_hypotheses),
+        glow_hidden=int(net.glow_hidden),
+        glow_layers=int(net.glow_layers),
+        glow_blocks=int(net.glow_blocks),
         use_chamfer_loss=bool(net.use_chamfer_loss),
         w_chamfer=float(net.w_chamfer),
     )
@@ -260,7 +273,8 @@ def make_optimizer(net: torch.nn.Module, lr: float, milestones, steps_per_epoch:
 
 
 def make_train_step(model: ManoModel, net: mhent.MHEnt, optimizer: Optimizer,
-                    fold: mano_lib.KeypointFold | None = None):
+                    fold: mano_lib.KeypointFold | None = None,
+                    generator: torch.Generator | None = None):
     """One optimisation step of the reverse-KL objective.
 
     Returns step_fn(image, target, noise) -> aux {loss, th_norm, bt_norm,
@@ -269,7 +283,7 @@ def make_train_step(model: ManoModel, net: mhent.MHEnt, optimizer: Optimizer,
     reverse-KL draw's base noise. The net must be in train mode: its BN
     running statistics are updated in place and its parameters by the
     optimizer. A padded tail batch (target["valid"]) is masked out of the
-    loss.
+    loss. generator: the glow regressor's dropout masks.
     """
     if fold is None:
         fold = mano_lib.fold_keypoints(model)
@@ -277,7 +291,7 @@ def make_train_step(model: ManoModel, net: mhent.MHEnt, optimizer: Optimizer,
     def step_fn(image, target, noise):
         image, target = _prep_batch(image, target)
         out = mhent.reverse_kld(model, net, target, image, base_noise=noise, train=True,
-                                fold=fold)
+                                generator=generator, fold=fold)
         loss = _masked_loss(out["log_p"], target)  # criteria.py:55,173
         optimizer.zero_grad()
         loss.backward()
@@ -294,7 +308,8 @@ def make_train_step(model: ManoModel, net: mhent.MHEnt, optimizer: Optimizer,
 
 def make_eval_step(model: ManoModel, net: mhent.MHEnt, n: int, temp: float,
                    n_quant: int | None = None, quant_spec=None,
-                   fold: mano_lib.KeypointFold | None = None):
+                   fold: mano_lib.KeypointFold | None = None,
+                   generator: torch.Generator | None = None):
     """The multi-hypothesis eval step: reverse-KL log p with its entropy
     term, n hypotheses per image (int8 encoder and sampler when quant_spec
     is given), and the BH / WH / diversity metrics.
@@ -303,6 +318,8 @@ def make_eval_step(model: ManoModel, net: mhent.MHEnt, n: int, temp: float,
     {metric: 0-d tensor}; kld_noise (n_train_hypotheses * B, 45) is standard
     normal, hypo_noise (n * B, 45) is already times temp. The hypotheses are
     drawn with mods ("xyz", "uv"): the metrics never read the mesh.
+    generator: the dropout masks of the glow regressor's reverse-KL draw,
+    which runs in train mode here too, as in JAX.
     """
     if fold is None:
         fold = mano_lib.fold_keypoints(model)
@@ -313,8 +330,8 @@ def make_eval_step(model: ManoModel, net: mhent.MHEnt, n: int, temp: float,
         # One float encoder pass feeds both terms; the int8 draw runs its
         # own int8 encoder, and the reverse-KL term keeps the float feature.
         feat = mhent.extract_feat(net, image)
-        out = mhent.reverse_kld(model, net, target, image, base_noise=kld_noise, fold=fold,
-                                feat=feat)
+        out = mhent.reverse_kld(model, net, target, image, base_noise=kld_noise,
+                                generator=generator, fold=fold, feat=feat)
         samples = mhent.sample_hypotheses(
             model, net, image, n=n, n_quant=n_quant if n_quant is not None else n, temp=temp,
             mods=("xyz", "uv"), base_noise=hypo_noise, fold=fold,
@@ -400,7 +417,16 @@ class Experiment:
     With training.epochs > 0 the backbone keeps f32 master parameters and
     computes in tpu.compute_dtype; the eval kernels' weights are folded and
     packed again from them before each eval.
+
+    It owns a file logger (`model_dir/info_<training.mode>.log`, also on
+    stdout) and a ScalarWriter (`model_dir/scalars.jsonl`: the train loss
+    as `loss_avg/loss_total` at each logged step, every eval metric as
+    `metric_eval/<name>`, against the train step count). close() (or a
+    `with` block) releases them; a finaliser does so when the instance is
+    collected, and close_all_experiments() for every live one.
     """
+
+    _live: "weakref.WeakSet" = None  # initialised below the class
 
     def __init__(self, cfg, device=None, mano_dir: str = "./mano/"):
         self.cfg = cfg
@@ -408,6 +434,14 @@ class Experiment:
         if not self.integrated and not cfg.network.p_nf:
             raise NotImplementedError("non-integrated mode requires network.p_nf (realnvp)")
         self.device = resolve_device(device)
+        os.makedirs(cfg.model_dir, exist_ok=True)
+        self.log = get_logger(os.path.join(cfg.model_dir, f"info_{cfg.training.mode}.log"),
+                              name=f"mhent_{id(self)}")
+        self.log.info(str(cfg))
+        self.writer = ScalarWriter(cfg.model_dir)
+        Experiment._live.add(self)
+        # The finaliser owns the sinks, not self, or it would never run.
+        self._finalizer = weakref.finalize(self, _close_sinks, self.writer, self.log)
         self.model_cfg = build_model_config(cfg) if self.integrated else build_rle_config(cfg)
         self.model = load_mano_model(mano_dir, device=self.device)
         self.fold = mano_lib.fold_keypoints(self.model)
@@ -430,6 +464,19 @@ class Experiment:
         self.quant_spec = None
         self.qtree = None
         self._train_step = None
+
+    def close(self) -> None:
+        """Close the log file and the scalar writer; idempotent. The
+        Experiment cannot train or evaluate after it (its scalar writer is
+        closed)."""
+        self._finalizer()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
     @staticmethod
     def _restore(net, path: str) -> dict:
@@ -494,8 +541,8 @@ class Experiment:
                 if cached.eval_deterministic(evald):
                     evald = cached.SampleCache(evald, tpu.sample_cache)
                 else:
-                    print("sample_cache skipped: eval items draw RNG (full target_fields with "
-                          "the RHD cloud?)", flush=True)
+                    self.log.info("sample_cache skipped: eval items draw RNG (full "
+                                  "target_fields with the RHD cloud?)")
             return train, evald
         img = self.model_cfg.image_size
         bs = self.cfg.training.batch_size
@@ -518,14 +565,14 @@ class Experiment:
         that the Adam moments and the schedule are kept, with a warning."""
         if self.optimizer is not None and steps_per_epoch != self.steps_per_epoch:
             if self.optimizer.count == 0:
-                print(f"rebuilding optimizer: steps_per_epoch {self.steps_per_epoch} -> "
-                      f"{steps_per_epoch}", flush=True)
+                self.log.info(f"rebuilding optimizer: steps_per_epoch {self.steps_per_epoch} -> "
+                              f"{steps_per_epoch}")
                 self.optimizer = None
             else:
-                print(f"WARNING: steps_per_epoch changed {self.steps_per_epoch} -> "
-                      f"{steps_per_epoch} on an already-trained state (step "
-                      f"{self.optimizer.count}); keeping the existing optimizer and schedule",
-                      flush=True)
+                self.log.warning(f"steps_per_epoch changed {self.steps_per_epoch} -> "
+                                 f"{steps_per_epoch} on an already-trained state (step "
+                                 f"{self.optimizer.count}); keeping the existing optimizer and "
+                                 f"schedule")
         if self.optimizer is None:
             self.steps_per_epoch = steps_per_epoch
             self.optimizer = self._get_optimizer(steps_per_epoch)
@@ -533,17 +580,38 @@ class Experiment:
                 self.optimizer.load_state_dict(self._pending_opt)
                 self._pending_opt = None
             self._train_step = (
-                make_train_step(self.model, self.net, self.optimizer, fold=self.fold)
+                make_train_step(self.model, self.net, self.optimizer, fold=self.fold,
+                                generator=self.gen)
                 if self.integrated else make_rle_train_step(self.net, self.optimizer))
+
+    def _latest_checkpoint(self):
+        """(epoch, path) of the newest per-epoch checkpoint that save_model
+        wrote in model_dir (`baseline_<decoder_type>_<epoch>.pth`), or None."""
+        tag = re.escape(f"baseline_{self.cfg.network.decoder_type}_")
+        model_dir = self.cfg.model_dir
+        best = None
+        for name in os.listdir(model_dir) if os.path.isdir(model_dir) else ():
+            m = re.fullmatch(tag + r"(\d+)\.pth", name)
+            path = os.path.join(model_dir, name)
+            if m and os.path.isfile(path) and (best is None or int(m.group(1)) > best[0]):
+                best = (int(m.group(1)), path)
+        return best
+
+    def _resume(self, path: str) -> None:
+        """The weights, the optimizer's moments and schedule position and
+        the step count of a checkpoint that save_model wrote."""
+        ckpt = self._restore(self.net, path)
+        if ckpt.get("optimizer") is not None:
+            self.optimizer.load_state_dict(ckpt["optimizer"])
+        self.step = int(ckpt.get("step", 0))
 
     def train_baseline(self):
         """The initial eval, then `training.epochs` epochs of train steps, an
         eval every eval_interval epochs and a checkpoint every save_interval
         (and a final one). Returns the last eval's summary; epochs 0 runs the
-        initial eval only."""
-        if self.cfg.tpu.autoresume:
-            raise NotImplementedError("tpu.autoresume is not ported yet (ROADMAP queue 1, "
-                                      "\"What training still lacks\")")
+        initial eval only. tpu.autoresume: the newest per-epoch checkpoint
+        in model_dir restores weights, Adam moments and step, and training
+        continues at its next epoch without the initial eval."""
         epochs = self.cfg.training.epochs
         if not epochs:
             _, eval_data = self.make_datasets(which=("eval",))
@@ -554,8 +622,17 @@ class Experiment:
         train_data, eval_data = self.make_datasets()
         bs = self.cfg.training.batch_size
         self._ensure_state(max(1, _num_samples(train_data) // bs))
-        summary = self.eval_loop(eval_data, epoch=0)
-        for epoch in range(epochs):
+        start_epoch, summary = 0, None
+        latest = self._latest_checkpoint() if self.cfg.tpu.autoresume else None
+        if latest:
+            epoch_done, path = latest
+            self._resume(path)
+            start_epoch = epoch_done + 1
+            self.log.info(f"autoresume: restored {path} (epoch {epoch_done}), continuing at "
+                          f"epoch {start_epoch}")
+        else:
+            summary = self.eval_loop(eval_data, epoch=0)
+        for epoch in range(start_epoch, epochs):
             self.train_epoch(train_data, epoch)
             if (epoch + 1) % self.cfg.eval_interval == 0:
                 summary = self.eval_loop(eval_data, epoch=epoch)
@@ -591,8 +668,9 @@ class Experiment:
                 names = [k for k in ("h_q", "q_log_p", "sigma_i") if k in aux]
                 extras = torch.stack([aux[k] for k in names]).tolist()
                 avg = sum(epoch_losses) / len(epoch_losses)
-                print(f"Epoch:{epoch}| Step:{idx}| Avg_Loss:{avg:.4f}|"
-                      + "".join(f" {k}:{v:.4f}|" for k, v in zip(names, extras)), flush=True)
+                self.log.info(f"Epoch:{epoch}| Step:{idx}| Avg_Loss:{avg:.4f}|"
+                              + "".join(f" {k}:{v:.4f}|" for k, v in zip(names, extras)))
+                self.writer.add_scalar("loss_avg/loss_total", avg, global_step=self.step)
         drain()
         self.losses.extend(epoch_losses)
         return sum(epoch_losses) / max(1, len(epoch_losses))
@@ -609,7 +687,7 @@ class Experiment:
         torch.save({**modules,
                     "optimizer": self.optimizer.state_dict() if self.optimizer else None,
                     "step": self.step}, path)
-        print(f"save model in {path}", flush=True)
+        self.log.info(f"save model in {path}")
         return path
 
     def eval(self, name: str | None = None):
@@ -654,7 +732,7 @@ class Experiment:
         spec = self.quant_spec = self._quant_spec(bs)
         if self.integrated:
             step = make_eval_step(self.model, self.net, n, temp, n_quant=min(tr.test_quant or n, n),
-                                  quant_spec=spec, fold=self.fold)
+                                  quant_spec=spec, fold=self.fold, generator=self.gen)
         else:
             step = make_rle_eval_step(self.net)
         qtree = None
@@ -692,5 +770,27 @@ class Experiment:
         line = f"Epoch:{epoch}|"
         if "eucLoss_3d_rgb_sample" in summary:
             line += f" eval_3d_rgb:{summary['eucLoss_3d_rgb_sample'] * 1000:.4f}|"
-        print(line + " " + str({k: round(v, 4) for k, v in summary.items()}), flush=True)
+        for k in sorted(summary):
+            self.writer.add_scalar(f"metric_eval/{k}", summary[k], self.step)
+        self.log.info(line + " " + str({k: round(v, 4) for k, v in summary.items()}))
         return summary
+
+
+Experiment._live = weakref.WeakSet()
+
+
+def _close_sinks(writer: ScalarWriter, log) -> None:
+    """Close the writer and the log's handlers, and drop the per-instance
+    logger from logging's registry so that it does not outlive the
+    Experiment."""
+    writer.close()
+    for h in list(log.handlers):
+        h.close()
+        log.removeHandler(h)
+    logging.Logger.manager.loggerDict.pop(log.name, None)
+
+
+def close_all_experiments() -> None:
+    """Close every live Experiment's log and scalar sinks."""
+    for exp in list(Experiment._live):
+        exp.close()

@@ -43,6 +43,9 @@ DEFAULTS = {
                 "w_reg_th": 50, "b_2d": 0.03, "b_3d": 0.03, "entropy": True, "T": 1.0,
                 "th3_ref_alpha": 5.0, "bt_alpha": 50.0, "use_chamfer_loss": False,
                 "w_chamfer": 10.0, "use_mask_loss": False,
+                # The glow regressor's flow size and the KLD-weight schedule.
+                "glow_hidden": 512, "glow_layers": 4, "glow_blocks": 2,
+                "kld_w": 1.0, "kld_w_annealing": [1.0, 24000],
                 # The non-integrated RLE mode (engine.build_rle_config).
                 "p_nf": None, "p_nf_dim": 3, "tsfm_on": None, "cond_mapping_dims": None,
                 "kemb": False, "nf_res": None},

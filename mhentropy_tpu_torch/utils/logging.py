@@ -1,13 +1,21 @@
-"""The eval summary's running average.
+"""The experiment's meters, logger and scalar writer.
 
-Port of mhentropy_tpu/utils/logging.py's `AverageMeter` (:23-49), the
+Port of mhentropy_tpu/utils/logging.py: `AverageMeter` (:23-49), the
 reference's meter (utils.py:75-91) with its quirk of dropping zero-valued
-updates, on by default for log parity. The port keeps its own copy so that
-it imports nothing of the JAX package. `get_logger` and `ScalarWriter` are
-not ported yet (ROADMAP queue 1, "What training still lacks").
+updates, on by default for log parity; `get_logger` (:52), python logging
+to a file and stdout; `ScalarWriter` (:79), TensorBoard scalars through
+tensorboardX where it imports (a lazy, optional import) and always a JSONL
+record, `scalars.jsonl`. The port keeps its own copy so that it imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
+
+import json
+import logging
+import os
+import sys
+import time
 
 
 class AverageMeter:
@@ -37,3 +45,56 @@ class AverageMeter:
         self.sum += val * n
         self.count += n
         self.avg = self.sum / self.count if self.count else 0.0
+
+
+def get_logger(filename: str, verbosity: int = 1, name: str | None = None) -> logging.Logger:
+    """A logger named `name` (default: the file name) that writes to
+    `filename` (truncated) and to stdout; called again, it closes and
+    replaces the handlers it had."""
+    level = {0: logging.DEBUG, 1: logging.INFO, 2: logging.WARNING}[verbosity]
+    fmt = logging.Formatter(
+        "[%(asctime)s][%(filename)s][line:%(lineno)d][%(levelname)s] %(message)s")
+    logger = logging.getLogger(name or filename)
+    logger.setLevel(level)
+    logger.propagate = False
+    for h in logger.handlers:
+        h.close()
+    logger.handlers.clear()
+    os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
+    fh = logging.FileHandler(filename, "w")
+    fh.setFormatter(fmt)
+    logger.addHandler(fh)
+    sh = logging.StreamHandler(sys.stdout)
+    sh.setFormatter(fmt)
+    logger.addHandler(sh)
+    return logger
+
+
+class ScalarWriter:
+    """TensorBoard scalar writer with a JSONL record: every scalar is
+    appended to `<logdir>/scalars.jsonl` as {"tag", "value", "step", "ts"},
+    and also to a tensorboardX event file where tensorboardX imports."""
+
+    def __init__(self, logdir: str):
+        os.makedirs(logdir, exist_ok=True)
+        self._tb = None
+        try:
+            from tensorboardX import SummaryWriter
+
+            self._tb = SummaryWriter(logdir)
+        except ImportError:
+            pass
+        self._jsonl = open(os.path.join(logdir, "scalars.jsonl"), "a")
+
+    def add_scalar(self, tag: str, value: float, global_step: int = 0) -> None:
+        value = float(value)
+        if self._tb is not None:
+            self._tb.add_scalar(tag, value, global_step=global_step)
+        self._jsonl.write(json.dumps({"tag": tag, "value": value, "step": int(global_step),
+                                      "ts": time.time()}) + "\n")
+        self._jsonl.flush()
+
+    def close(self) -> None:
+        if self._tb is not None:
+            self._tb.close()
+        self._jsonl.close()

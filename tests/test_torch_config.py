@@ -55,6 +55,7 @@ def test_experiment_refuses_the_non_integrated_mode(name, tmp_path):
         with pytest.raises(NotImplementedError, match="p_nf"):
             jengine.Experiment(jcfg)
         return
+    cfg.model_dir = str(tmp_path / "torch") + "/"
     exp = engine.Experiment(cfg, device="cpu")
     assert not exp.integrated and isinstance(exp.net, rle.RLE)
     jexp = jengine.Experiment(jcfg)
@@ -72,9 +73,10 @@ def test_experiment_refuses_the_non_integrated_mode(name, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["smoke.yaml", "ho3d.yaml", "rhd.yaml"])
-def test_experiment_builds_an_mhent_for_enc_type_mhent(name):
+def test_experiment_builds_an_mhent_for_enc_type_mhent(name, tmp_path):
     cfg = load_cfg(_config(name))
     assert cfg.network.enc_type == "MHEnt"
+    cfg.model_dir = str(tmp_path) + "/"
     exp = engine.Experiment(cfg, device="cpu")
     assert isinstance(exp.net, mhent.MHEnt)
     assert exp.model_cfg.encoder.backbone == cfg.network.backbone
@@ -110,7 +112,9 @@ def test_eval_summary_drops_zero_batches_as_jax_does(tmp_path, monkeypatch):
     calls = iter(batches)
     monkeypatch.setattr(engine, "make_eval_step",
                         lambda *a, **k: lambda *args: dict(next(calls)))
-    exp = engine.Experiment(load_cfg(str(path)), device="cpu")
+    cfg = load_cfg(str(path))
+    cfg.model_dir = str(tmp_path / "model") + "/"
+    exp = engine.Experiment(cfg, device="cpu")
     _, data = exp.make_datasets(which=("eval",))
     summary = exp.eval_loop(data)
     want = {}
@@ -122,3 +126,30 @@ def test_eval_summary_drops_zero_batches_as_jax_does(tmp_path, monkeypatch):
     assert summary == {k: m.avg for k, m in want.items()}
     assert summary["eucLoss_3d_rgb_invis"] == 12.0
     assert summary["loss_total"] == pytest.approx((3.0 * 16 + 5.0 * 8) / 24)
+
+
+@pytest.mark.parametrize("extra", ["", "  regressor: glow\n  glow_hidden: 64\n  glow_layers: 3\n"
+                                   "  glow_blocks: 1\n  kld_w: 0.5\n"
+                                   "  kld_w_annealing: [0.1, 500]\n"])
+def test_build_model_config_reads_every_key_jax_reads(extra, tmp_path):
+    """build_model_config gives JAX's MHEntConfig field for field (the port's
+    fields, encoder, flow and MANO config as dicts), with the schema's
+    defaults and with the glow sizes and the KLD-weight schedule set: keys
+    the port ignored before (a YAML's kld_w reached JAX's kld_weight, not
+    the port's)."""
+    path = tmp_path / "c.yaml"
+    path.write_text("dataset: {dataset_name: ho3d, image_size: [64, 64]}\n"
+                    "network:\n  enc_type: MHEnt\n  backbone: resnet18\n" + extra
+                    + "training: {n_train_hypotheses: 4}\n")
+    ours = engine.build_model_config(load_cfg(str(path)))
+    theirs = jengine.build_model_config(jconfig.update_cfg(str(path)))
+    for k in ours._fields:
+        a, b = getattr(ours, k), getattr(theirs, k)
+        if hasattr(a, "_asdict"):
+            b = b._asdict()
+            a = {f: v for f, v in a._asdict().items() if f in b}
+            b = {f: b[f] for f in a}
+        assert a == b, k
+    if extra:
+        assert ours.regressor == "glow" and ours.kld_w == 0.5 and ours.glow_blocks == 1
+        assert mhent.kld_weight(ours, 250).item() == pytest.approx(0.3)

@@ -586,14 +586,16 @@ def _o1_glow(cfg, seed, dev):
 @pytest.mark.parametrize("d,h,c,b,n", [(144, 1024, 2048, 4, 100), (45, 512, 512, 8, 200),
                                        (12, 64, 8, 3, 37), (144, 1024, 2048, 7, 93),
                                        (45, 512, 512, 2, 20), (250, 128, 16, 2, 33),
-                                       (12, 192, 8, 3, 37), (45, 512, 512, 64, 100)])
+                                       (12, 192, 8, 3, 37), (45, 512, 512, 64, 100),
+                                       (45, 512, 512, 64, 200)])
 def test_glow_sampler_kernel_matches_plain(dev, d, h, c, b, n):
     """The ProHMR widths, the MHEnt Glow shape, a ragged small one (3 x 37
     rows, D = 12 padded to 16), ProHMR's widths at ragged rows (7 x 93), 40
     rows (below one 64-row tile) at H = 512 with Dp = 48, the widest Dp
     (256: three coupling stages, eight chunks a warpgroup), an H that is no
-    multiple of the GEMM's 128 columns, and 6,400 rows (400 tiles: the
-    persistent CTAs walk more than one)."""
+    multiple of the GEMM's 128 columns, 6,400 rows (400 tiles: the
+    persistent CTAs walk more than one) and the glow MHEnt's eval batch,
+    12,800 rows (B = 64, N = 200)."""
     flow = _o1_glow(glow.GlowConfig(d, h, 4, 2, c), 5, dev)
     with torch.inference_mode():
         packed = cuda_glow_sampler.pack(flow)
@@ -639,6 +641,157 @@ def test_prohmr_path_launches_each_kernel_and_matches_plain_path(dev):
     # bf16 Glow operands against the f32 flow: chip_smoke.PROHMR_TOL's bound.
     assert (kern["joints3d"] - plain["joints3d"]).abs().max() <= 0.12
     assert prohmr.multi_hypothesis_metrics(plain, {"joints3d": gt})["mpjpe_bh"].isfinite().all()
+
+
+def _glow_mhent(dev, masters=False, dtype="bfloat16", blocks=2):
+    from mhentropy_tpu_torch.models import mhent
+    from mhentropy_tpu_torch.models.encoder import EncoderConfig
+
+    cfg = mhent.MHEntConfig(encoder=EncoderConfig(backbone="resnet50", n_latent=(64, 64),
+                                                  dtype=dtype),
+                            regressor="glow", glow_hidden=64, glow_layers=2,
+                            glow_blocks=blocks, feat_dim=64, image_size=64,
+                            n_train_hypotheses=2)
+    return mhent.prepare(mhent.init(cfg, seed=0), dev, masters=masters)
+
+
+def test_glow_mhent_eval_step_launches_the_glow_kernel_and_matches_plain(dev):
+    """The glow MHEnt's eval step: stem 1, stage 1 3 and the Glow kernel 1
+    (the hypotheses' draw; the reverse-KL draw is the plain Glow in train
+    mode, with dropout), no RealNVP sampler; its hypotheses against the
+    plain path's (bf16 Glow operands: 1e-2, as the RealNVP model path)."""
+    from mhentropy_tpu_torch.core import mano
+    from mhentropy_tpu_torch.models import mhent
+    from mhentropy_tpu_torch.train import engine
+
+    net = _glow_mhent(dev)
+    model = mano.synthetic_mano_model(0, device=dev)
+    image = torch.from_numpy(np.random.RandomState(0).randn(2, 64, 64, 3).astype(np.float32))
+    image = image.to(dev)
+    noise = torch.randn(8, 45, device=dev) * 0.8
+    counters = (stem_cuda, stage1_cuda, cuda_glow_sampler, cuda_sampler)
+    counts = [m.launches for m in counters]
+    with torch.inference_mode():
+        kern = mhent.sample_hypotheses(model, net, image, n=4, mods=("xyz", "uv"),
+                                       base_noise=noise)
+        assert [m.launches for m in counters] == [counts[0] + 1, counts[1] + 3, counts[2] + 1,
+                                                   counts[3]]
+        net.set_kernels(False)
+        plain = mhent.sample_hypotheses(model, net, image, n=4, mods=("xyz", "uv"),
+                                        base_noise=noise)
+        net.set_kernels(True)
+    assert (kern["xyz"] - plain["xyz"]).abs().max() <= 1e-2
+    from mhentropy_tpu_torch.data import synthetic
+
+    data = synthetic.make_dataset(mano.synthetic_mano_model(0), n=2, image_size=64, seed=0)
+    img, target = next(synthetic.batches(data, 2, device=dev))
+    step = engine.make_eval_step(model, net, 4, 0.8,
+                                 generator=torch.Generator(device=dev).manual_seed(0))
+    f32 = cuda_sampler.launches_f32
+    counts = [m.launches for m in counters]
+    mets = step(img, target, torch.randn(4, 45, device=dev), noise)
+    assert [m.launches for m in counters] == [counts[0] + 1, counts[1] + 3, counts[2] + 1,
+                                               counts[3]]
+    assert cuda_sampler.launches_f32 == f32
+    assert all(bool(torch.isfinite(v)) for v in mets.values())
+
+
+@pytest.mark.parametrize("blocks", [1, 3])
+def test_glow_mhent_raises_for_a_glow_the_kernel_does_not_take(dev, blocks):
+    """A glow MHEnt whose Glow the kernel does not take (glow_blocks != 2)
+    raises on the card with kernels on, naming set_kernels(False), and
+    draws through the plain Glow with them off."""
+    from mhentropy_tpu_torch.core import mano
+    from mhentropy_tpu_torch.models import mhent
+
+    net = _glow_mhent(dev, blocks=blocks)
+    assert net.packed_flow is None
+    model = mano.synthetic_mano_model(0, device=dev)
+    image = torch.rand(2, 64, 64, 3, device=dev)
+    launches = cuda_glow_sampler.launches
+    with torch.inference_mode():
+        with pytest.raises(RuntimeError, match="set_kernels"):
+            mhent.sample_hypotheses(model, net, image, n=4, mods=("xyz",))
+        net.set_kernels(False)
+        out = mhent.sample_hypotheses(model, net, image, n=4, mods=("xyz",))
+    assert cuda_glow_sampler.launches == launches
+    assert bool(torch.isfinite(out["xyz"]).all())
+
+
+def test_glow_mhent_train_step_runs_the_bn_sums_and_a_plain_glow(dev, monkeypatch):
+    """A glow MHEnt train step on the card: the BN-sum kernels (53 a
+    resnet50 forward), no sampler kernel of any kind; from the same weights,
+    noise and dropout masks, in f32 with TF32 off, the loss and the running
+    statistics the step leaves against the plain path's (1e-3 and 1e-4 of
+    each tensor's largest value: the sums' order only). With TF32
+    convolutions the sums' rounding flips TF32 roundings downstream, as
+    bf16's do: the statistics then came out 1.3e-4 of the largest apart and
+    the loss 1.2 % (8 % in bf16), which chip_smoke.py's B = 64 step bounds
+    at 1e-2."""
+    import copy
+
+    from mhentropy_tpu_torch.core import mano
+    from mhentropy_tpu_torch.data import synthetic
+    from mhentropy_tpu_torch.train import engine
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    base = _glow_mhent(dev, masters=True, dtype="float32")
+    model = mano.synthetic_mano_model(0, device=dev)
+    data = synthetic.make_dataset(mano.synthetic_mano_model(0), n=4, image_size=64, seed=0)
+    image, target = next(synthetic.batches(data, 4, device=dev))
+    noise = torch.randn(8, 45, device=dev)
+    losses, stats = {}, {}
+    for kernels in (True, False):
+        net = copy.deepcopy(base).train()
+        net.set_kernels(kernels)
+        step = engine.make_train_step(model, net, engine.make_optimizer(net, 1e-4, [10], 1),
+                                      generator=torch.Generator(device=dev).manual_seed(1))
+        counts = (bn_cuda.stats_launches, cuda_glow_sampler.launches, cuda_sampler.launches,
+                  cuda_sampler.launches_f32)
+        losses[kernels] = step(image, target, noise)["loss"].item()
+        after = (bn_cuda.stats_launches, cuda_glow_sampler.launches, cuda_sampler.launches,
+                 cuda_sampler.launches_f32)
+        assert after == ((counts[0] + 53) if kernels else counts[0],) + counts[1:]
+        stats[kernels] = {k: v for k, v in net.state_dict().items() if "running" in k}
+    for k, v in stats[False].items():
+        assert (stats[True][k] - v).abs().max() <= 1e-4 * v.abs().max(), k
+    assert math.isfinite(losses[True])
+    assert abs(losses[True] - losses[False]) <= 1e-3 * abs(losses[False])
+
+
+def test_prohmr_nll_loss_backward_on_the_card(dev):
+    """ProHMR's nll_loss in train mode (the mode plus one draw), forward and
+    backward at a small geometry: finite gradients everywhere, the BN-sum
+    kernels in the encoder, and the loss against the plain path's."""
+    from mhentropy_tpu_torch import eval_prohmr
+    from mhentropy_tpu_torch.core import smpl
+    from mhentropy_tpu_torch.models import prohmr
+
+    model = smpl.synthetic_smpl_model(0, n_verts=256, device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    target = {"pose_6d": torch.randn(2, 144, generator=g, device=dev) * 0.3,
+              "betas": torch.zeros(2, 10, device=dev),
+              "keypoints3d": torch.randn(2, 24, 3, generator=g, device=dev) * 0.2,
+              "keypoints2d": torch.randn(2, 24, 2, generator=g, device=dev) * 0.3}
+    image = torch.rand(2, 32, 32, 3, generator=g, device=dev)
+    noise = torch.randn(2, 144, generator=g, device=dev)
+    losses = {}
+    for kernels in (True, False):
+        net = prohmr.init(eval_prohmr.tiny_config(), seed=0).to(dev)
+        net.encoder.res.place(torch.float32, masters=True)
+        net.train()
+        net.set_kernels(kernels)
+        before = bn_cuda.stats_launches
+        out = prohmr.nll_loss(model, net, image, target, noise=noise)
+        loss = (-out["log_p"].mean() + out["betas_l2"].mean() + out["kp3d_l1"].mean()
+                + out["kp2d_l1"].mean())
+        loss.backward()
+        assert (bn_cuda.stats_launches > before) == kernels
+        assert all(bool(torch.isfinite(p.grad).all()) for p in net.parameters()
+                   if p.grad is not None)
+        losses[kernels] = loss.item()
+    assert abs(losses[True] - losses[False]) <= 1e-2 * abs(losses[False])
 
 
 def _within_bf16(out, ref):

@@ -295,12 +295,13 @@ def test_run_cli_evaluates_tiny_config_on_cpu(tmp_path, capsys):
         "          num_steps: 1}\n"
         "training: {mode: baseline_VAE, batch_size: 4, epochs: 0, test_samples: 3, seed: 1,\n"
         "           n_train_hypotheses: 2}\n"
-        "tpu: {compute_dtype: float32, quantize_encoder: true}\n")
+        "tpu: {compute_dtype: float32, quantize_encoder: true}\n"
+        f"model_dir: {tmp_path / 'eval'}/\n")
     summary = run.main(["--cfg", str(path), "--device", "cpu"])
     assert np.isfinite(summary["eucLoss_3d_rgb_sample"]) and "loss_total" in summary
     assert "Epoch:0| eval_3d_rgb:" in capsys.readouterr().out
     path.write_text(path.read_text().replace("epochs: 0", "epochs: 1")
-                    + f"model_dir: {tmp_path / 'ckpt'}/\n")
+                    .replace(f"{tmp_path / 'eval'}/", f"{tmp_path / 'ckpt'}/"))
     summary = run.main(["--cfg", str(path), "--device", "cpu"])
     assert np.isfinite(summary["eucLoss_3d_rgb_sample"])
     assert "Epoch:0| Step:0| Avg_Loss:" in capsys.readouterr().out
@@ -312,7 +313,8 @@ def test_experiment_refuses_what_is_not_ported(tmp_path, monkeypatch):
                 "network: {enc_type: MHEnt, num_latent: 16, h_dims: [32, 32],\n"
                 "          num_steps: 1}\n"
                 "training: {mode: eval, batch_size: 2, seed: 1, pth: some/orbax/dir}\n"
-                "tpu: {compute_dtype: float32}\n")
+                "tpu: {compute_dtype: float32}\n"
+                f"model_dir: {tmp_path / 'model'}/\n")
     path = tmp_path / "c.yaml"
     path.write_text(cfg_text)
     with pytest.raises(NotImplementedError, match="orbax"):

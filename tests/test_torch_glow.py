@@ -171,14 +171,25 @@ def test_load_prohmr_smpl_flow_round_trips(tmp_path):
 
 
 def test_training_parts_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        glow.ConditionalGlow(glow.GlowConfig(use_batch_norm=True))
+    """The training parts these refusals once named are ported
+    (tests/test_torch_glow_train.py holds them to JAX): a use_batch_norm
+    Glow builds with the fork's BatchNorm names, and a module in train mode
+    samples as in eval mode unless the call says train=True. What the
+    sampler kernel does not take still raises: one block, or BatchNorm."""
+    bn = glow.ConditionalGlow(glow.GlowConfig(features=12, hidden=16, num_layers=2,
+                                              context_features=4, use_batch_norm=True))
+    assert "_transform._transforms.2.transform_net.blocks.1.batch_norm_layers.1.running_var" \
+        in bn.state_dict()
     flow = glow.ConditionalGlow(glow.GlowConfig(features=12, hidden=16, num_layers=2,
                                                 context_features=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        glow.sample_and_log_prob(flow.train(), torch.zeros(2, 4), 3)
-    with pytest.raises(ValueError, match="num_blocks"):
-        cuda_glow_sampler.pack(glow.ConditionalGlow(flow.cfg._replace(num_blocks=1)))
+    noise = torch.randn(6, 12, generator=torch.Generator().manual_seed(0))
+    ctx = torch.randn(2, 4, generator=torch.Generator().manual_seed(1))
+    want = glow.sample_and_log_prob(flow.eval(), ctx, 3, noise=noise)
+    got = glow.sample_and_log_prob(flow.train(), ctx, 3, noise=noise)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for cfg in (flow.cfg._replace(num_blocks=1), bn.cfg):
+        with pytest.raises(ValueError, match="num_blocks"):
+            cuda_glow_sampler.pack(glow.ConditionalGlow(cfg))
 
 
 def test_pack_kmajor_copies_hold_jaxs_weights():

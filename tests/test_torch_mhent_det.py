@@ -73,11 +73,12 @@ def _port_net(cfg, params, stats):
 def test_det_regressor_matches_jax(setup):
     """No flow parameters in either package; reverse_kld (eval BN, entropy
     on: log q is 0), sample_hypotheses (its n rows repeat the det head's z)
-    and log_q_z against JAX. The glow regressor stays refused."""
+    and log_q_z against JAX. The glow regressor, refused here once, builds
+    its ConditionalGlow (tests/test_torch_mhent_glow.py holds it to JAX)."""
     jcfg, cfg, params, stats, jmodel, data = setup
     assert "flow" not in params and cfg.det_dims() == 61
-    with pytest.raises(NotImplementedError, match="ProHMR training"):
-        mhent.MHEnt(cfg._replace(regressor="glow"))
+    glow_net = mhent.MHEnt(cfg._replace(regressor="glow"))
+    assert glow_net.q_z_giv_i.cfg == mhent.glow_config(cfg) and glow_net.cfg.det_dims() == 16
     net = mhent.prepare(_port_net(cfg, params, stats), "cpu")
     assert not any(k.startswith("q_z_giv_i") for k in net.state_dict())
     assert net.q_z_giv_i is None and net.packed_flow is None
