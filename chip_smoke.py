@@ -69,6 +69,15 @@
    both in alternating windows of BENCH_QUANT_STEPS steps, hypotheses/s,
    with a torch.profiler trace of the int8, int8 + mid and int8 + int8
    stem steps.
+5c. Export (mhentropy_tpu_torch/export.py): configs/ho3d.yaml at full width,
+   B=8, N=200, mods xyz, uv and verts, as four artifacts: float, int8
+   (encoder and int8 sampler, calibrated as serve.py does), the two opt-ins
+   (int8_stem, pallas_mid, q_from 0) and the glow MHEnt; each exported,
+   saved to bytes, loaded and called: its launches equal the live
+   sampler's (and the counted numbers, none 0), its outputs equal the live
+   sampler's within SLICE_TOL, and both are timed in alternating windows
+   with a trace of each (busy share); a CUDA artifact called with CPU
+   inputs raises; the phase within EXPORT_PHASE_S.
 6. Eval: the port's run.py path (Experiment.train_baseline with epochs 0)
    on configs/ho3d.yaml: the synthetic eval split of 128 at 256 px, B=64,
    N=200, float and with tpu.quantize_encoder; every metric finite; the
@@ -300,6 +309,14 @@ BENCH_BATCH = 32  # the port's bench batch: the stem and stage 1 are also timed 
 # differed by 3.3e-3 (xyz), 0.63 px (uv), 3.1e-3 (verts) and 4.2e-4 (train
 # loss, relative): xyz and verts bone-normalised, uv in pixels, bounds about
 # three times that; the train step's loss to TRAIN_LOSS_TOL.
+# The export phase (mhentropy_tpu_torch/export.py): each artifact, loaded,
+# against the live sampler on the same inputs. Both launch the same kernels
+# on the same operands, so the outputs are expected equal; they are held to
+# the kernel-vs-plain bounds of the slice (SLICE_TOL) and the det phase's
+# verts bound. The phase must finish within EXPORT_PHASE_S.
+EXPORT_MODS = ("xyz", "uv", "verts")
+EXPORT_WINDOW_S = 0.2
+EXPORT_PHASE_S = 60.0
 RLE_STEPS = 3
 RLE_TOL = {"loss": 1e-2, "log_p": 1.5e-2, "xyz": 1.2e-2, "metrics": 4e-4}
 RLE_F32_GRAD_FACTOR = 2.0
@@ -1293,6 +1310,125 @@ def phase_int8_opt_in(torch, dev):
                                            "mean_abs": mean}
     return results
 
+
+def export_variant(torch, export, model, net, quant, images, noise, want: dict) -> dict:
+    """One artifact at B = BATCH, N = N_HYPO with EXPORT_MODS: export, save
+    and load; its launches against the live sampler's (each as `want`, no
+    others), its outputs against the live sampler's, both timed in turns
+    with a trace of each (busy share)."""
+    live = export.make_sample_fn(model, net, N_HYPO, 0.8, EXPORT_MODS, quant=quant)
+    t0 = time.perf_counter()
+    blob = export.export_sampler(model, net, BATCH, n=N_HYPO, temp=0.8, mods=EXPORT_MODS,
+                                 quant=quant)
+    t1 = time.perf_counter()
+    sampler = export.load_sampler(blob)
+    t2 = time.perf_counter()
+    check(sampler.device == "cuda", f"export: artifact recorded {sampler.device!r}")
+    outs, launches = {}, {}
+    with torch.no_grad():
+        for side, fn in (("live", live), ("loaded", sampler.call)):
+            fn(images, noise)
+            torch.cuda.synchronize()
+            reset_launches()
+            outs[side] = fn(images, noise)
+            torch.cuda.synchronize()
+            launches[side] = read_launches()
+    check(launches["loaded"] == launches["live"]
+          and all(v == want.get(k, 0) for k, v in launches["loaded"].items()),
+          f"export: launches loaded {launches['loaded']}, live {launches['live']}, expected "
+          f"{want} and no others")
+    tol = {**SLICE_TOL, "verts": DET_TOL["verts"]}
+    err = {}
+    for k in EXPORT_MODS:
+        a, b = outs["loaded"][k].float(), outs["live"][k].float()
+        check(a.shape == b.shape and bool(a.isfinite().all()),
+              f"export: {k} {tuple(a.shape)} against {tuple(b.shape)}, or non-finite")
+        err[k] = (a - b).abs().max().item()
+        check(err[k] <= tol[k], f"export: the loaded program's {k} differs by {err[k]}")
+    t3 = time.perf_counter()
+    with torch.no_grad():
+        ms = windows_ms(torch, {"live": lambda: live(images, noise),
+                                "loaded": lambda: sampler.call(images, noise)}, EXPORT_WINDOW_S)
+        busy = {side: {k: v for k, v in trace_steps(
+            torch, fn, ms[side]["median"], n=1, top=0).items()
+            if k in ("device_ms_per_step", "device_ops_per_step", "busy_share")}
+            for side, fn in (("live", lambda: live(images, noise)),
+                             ("loaded", lambda: sampler.call(images, noise)))}
+    return {"bytes": len(blob), "export_s": t1 - t0, "load_s": t2 - t1,
+            "check_s": t3 - t2, "timing_s": time.perf_counter() - t3,
+            "launches": launches["loaded"], "max_abs_loaded_vs_live": err, "ms": ms,
+            "trace": busy, "sampler": sampler}
+
+
+def phase_export(torch, dev):
+    """mhentropy_tpu_torch/export.py on configs/ho3d.yaml at full width
+    (resnet50 at 256 px, 12 x 512 RealNVP, O(1) flow, synthetic MANO, fresh
+    seeded weights), B = 8, N = 200, mods xyz, uv and verts: the float
+    sampler, int8 (encoder and int8 sampler, calibrated as serve.py does),
+    the two opt-ins (int8_stem, pallas_mid; q_from 0) and the glow MHEnt
+    (network.regressor glow), each exported, saved to bytes, loaded and
+    called (export_variant); a CUDA artifact called with CPU inputs must
+    raise. Fails if any part fails or the phase takes more than
+    EXPORT_PHASE_S."""
+    from mhentropy_tpu_torch import bench_quant, export
+    from mhentropy_tpu_torch.models import mhent, quant
+    from mhentropy_tpu_torch.train import engine
+    from mhentropy_tpu_torch.utils.config import load_cfg
+
+    t0 = time.perf_counter()
+    cfg = load_cfg("configs/ho3d.yaml")
+    model = engine.load_mano_model(device=dev)
+    g = torch.Generator(device=dev).manual_seed(23)
+    images = torch.rand((BATCH, 256, 256, 3), generator=g, device=dev) * 2 - 1
+    noise = torch.randn((N_HYPO * BATCH, 45), generator=g, device=dev) * 0.8
+    net = mhent.init(engine.build_model_config(cfg), seed=0)
+    o1_flow(torch, net, 23)
+    mhent.prepare(net, dev)
+    with torch.no_grad():
+        spec, qtree = quant.quantize_encoder(net.feat_extractor, images,
+                                             q_from=cfg.tpu.quantize_q_from)
+        default = quant.quantize_sampler_into(spec, qtree, net, images, temp=max(1.0, 0.8))
+        spec, qtree = bench_quant.quantize(net, images, 0, int8_stem=True, pallas_mid=True)
+    opt_in = (spec._replace(int8_sampler=True), {**qtree, "flow": default[1]["flow"]})
+    cfg.network.regressor = "glow"
+    glow_net = mhent.prepare(mhent.init(engine.build_model_config(cfg), seed=0), dev)
+    check(default[0].q_from == 0 and glow_net.packed_flow is not None,
+          f"export: int8 q_from {default[0].q_from}; glow packed {glow_net.packed_flow is not None}")
+    print(f"export: set-up (two nets, three calibrations) {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    lbs = {"lbs_blend": 1}
+    variants = {
+        "float": (net, None, {"stem": 1, "stage1": 3, "realnvp_sampler": 1, **lbs}),
+        "int8": (net, default, {"stem": 1, "stage1_int8": 3, "realnvp_sampler_int8": 1, **lbs}),
+        "int8_opt_in": (net, opt_in, {"stem_int8": 1, "stage1_int8": 3, "stage2_int8": 10,
+                                      "realnvp_sampler_int8": 1, **lbs}),
+        "glow": (glow_net, None, {"stem": 1, "stage1": 3, "glow_sampler": 1, **lbs})}
+    out = {}
+    for label, (n_, q, want) in variants.items():
+        r = export_variant(torch, export, model, n_, q, images, noise, want)
+        sampler = r.pop("sampler")
+        out[label] = r
+        ms = r["ms"]
+        print(f"export {label}: {r['bytes']} bytes, export {r['export_s']:.1f} s, load "
+              f"{r['load_s']:.1f} s, checks {r['check_s']:.1f} s, timing {r['timing_s']:.1f} s; "
+              f"launches {r['launches']} (the live call's); loaded vs live "
+              f"max-abs {r['max_abs_loaded_vs_live']}; ms a call (B={BATCH}, N={N_HYPO}) loaded "
+              f"{ms['loaded']['median']:.3f} [{ms['loaded']['min']:.3f}, "
+              f"{ms['loaded']['max']:.3f}], live {ms['live']['median']:.3f} "
+              f"[{ms['live']['min']:.3f}, {ms['live']['max']:.3f}]; busy loaded "
+              f"{r['trace']['loaded']['busy_share']:.3f}, live "
+              f"{r['trace']['live']['busy_share']:.3f}", flush=True)
+    try:
+        sampler.call(images.cpu(), noise.cpu())
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    check(raised is not None, "export: a CUDA artifact served CPU inputs")
+    print(f"export: a CUDA artifact called with CPU inputs raises: {raised}", flush=True)
+    wall = time.perf_counter() - t0
+    print(f"export phase: {wall:.1f} s", flush=True)
+    check(wall <= EXPORT_PHASE_S, f"export: the phase took {wall:.1f} s")
+    return {"variants": out, "cpu_inputs_raise": raised, "wall_s": wall}
 
 def phase_bench_quant(torch, dev):
     """bench_quant's steps at N=100, B=32 (q_from = 1, its default): the
@@ -3213,6 +3349,7 @@ def main() -> int:
                   f"the f32 kernel), same windows alternating: median {old['median']:.3f} "
                   f"ms/batch [{old['min']:.3f}, {old['max']:.3f}] [{card}]", flush=True)
     opt_in = phase_int8_opt_in(torch, dev)
+    exported = phase_export(torch, dev)
     bench_q = phase_bench_quant(torch, dev)
     for side, t in bench_q.items():
         print(f"bench_quant {side}: median {t['ms_per_step']:.3f} ms/step of B={BENCH_QUANT[0]}, "
@@ -3297,7 +3434,8 @@ def main() -> int:
                    "prohmr_nll_loss": glow_res["prohmr_nll"]["launches"],
                    **{f"loader_{k}_train_baseline": r["launches"]
                       for k, r in loaders["runs"].items()},
-                   "loader_train_step": loaders["kernels_vs_plain"]["launches_per_step"]}
+                   "loader_train_step": loaders["kernels_vs_plain"]["launches_per_step"],
+                   **{f"export_{k}": r["launches"] for k, r in exported["variants"].items()}}
     kernels = [{"name": r["name"], "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": path_launches[r["name"]][r["name"]],
                 "launches_by_path": {p: c[r["name"]] for p, c in slice_paths.items()
@@ -3324,7 +3462,7 @@ def main() -> int:
                                 "kernel_vs_plain_max_abs": agree},
                       "int8_serving": {"launches": int8_launches, "timing": int8_timing,
                                        "int8_vs_float": int8_diff},
-                      "int8_opt_in": opt_in, "bench_quant": bench_q,
+                      "int8_opt_in": opt_in, "export": exported, "bench_quant": bench_q,
                       "eval": evals, "verts": {"launches": verts_launches,
                                                "kernel_vs_plain_max_abs": verts_err},
                       "train": train, "prohmr": humans, "rle": rle_res, "det": det_res,

@@ -4,7 +4,8 @@ Replaces mhentropy_tpu/core/lbs_pallas.py::lbs_blend (:56; Pallas `_kernel`
 :33). The kernel is `csrc/lbs_blend.cu`; its header says what bounds it on
 the H100 and how its design answers that. `lbs_blend` takes batch-last
 planes, as the JAX function does: W (V, J), R (3, 3, J, rows),
-t (3, J, rows), v_posed (3, V, rows) -> verts (3, V, rows), all f32. CPU
+t (3, J, rows), v_posed (3, V, rows) -> verts (3, V, rows), all f32,
+through the operator `mhent::lbs_blend` (mhentropy_tpu_torch/ops.py): CPU
 tensors take `lbs_blend_plain`; CUDA tensors launch the kernel, and
 anything it does not take raises. The kernel tiles the vertices (up to
 256 a block), so it takes any V and row count, MANO's 778 and SMPL's 6,890
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from mhentropy_tpu_torch import ext
+from mhentropy_tpu_torch import ext, ops
 
 # Kernel launches since the count was last reset; nothing else touches it.
 launches = 0
@@ -25,9 +26,7 @@ launches = 0
 
 def lbs_blend(lbs_weights: torch.Tensor, chain_r_nl: torch.Tensor, skin_t_nl: torch.Tensor,
               v_posed_nl: torch.Tensor) -> torch.Tensor:
-    if v_posed_nl.device.type == "cpu":
-        return lbs_blend_plain(lbs_weights, chain_r_nl, skin_t_nl, v_posed_nl)
-    return _lbs_kernel(lbs_weights, chain_r_nl, skin_t_nl, v_posed_nl)
+    return _op(lbs_weights, chain_r_nl, skin_t_nl, v_posed_nl)
 
 
 def lbs_blend_plain(lbs_weights, chain_r_nl, skin_t_nl, v_posed_nl) -> torch.Tensor:
@@ -38,9 +37,8 @@ def lbs_blend_plain(lbs_weights, chain_r_nl, skin_t_nl, v_posed_nl) -> torch.Ten
     return torch.einsum("rcvb,cvb->rvb", per_vert_r_nl, v_posed_nl) + per_vert_t_nl
 
 
-def _lbs_kernel(w, rot, trans, vposed) -> torch.Tensor:
-    global launches
-    ext.require(vposed.is_cuda, f"lbs blend: unsupported device {vposed.device}")
+def check_shapes(w, rot, trans, vposed) -> None:
+    """The kernel's shape and dtype checks (the fake implementation's too)."""
     v, j = w.shape
     rows = vposed.shape[-1]
     ext.require(rot.shape == (3, 3, j, rows) and trans.shape == (3, j, rows)
@@ -50,6 +48,14 @@ def _lbs_kernel(w, rot, trans, vposed) -> torch.Tensor:
     for name, t in (("W", w), ("R", rot), ("t", trans), ("v_posed", vposed)):
         ext.require(t.dtype == torch.float32 and t.device == vposed.device,
                     f"lbs blend: {name} must be float32 on {vposed.device}")
+
+
+def _lbs_kernel(w, rot, trans, vposed) -> torch.Tensor:
+    global launches
+    ext.require(vposed.is_cuda, f"lbs blend: unsupported device {vposed.device}")
+    check_shapes(w, rot, trans, vposed)
+    v, j = w.shape
+    rows = vposed.shape[-1]
     w, rot, trans, vposed = (t.contiguous() for t in (w, rot, trans, vposed))
     lib = ext.load()
     ext.require(lib.mhent_lbs_vertex_tile(v, j) >= 1,
@@ -62,3 +68,16 @@ def _lbs_kernel(w, rot, trans, vposed) -> torch.Tensor:
     ext.check(err, "mhent_lbs_blend")
     launches += 1
     return out
+
+
+def _lbs_fake(w, rot, trans, vposed) -> torch.Tensor:
+    ops.require_device(vposed, "lbs blend")
+    if vposed.is_cuda:
+        check_shapes(w, rot, trans, vposed)
+    return vposed.new_empty(vposed.shape)
+
+
+_op = ops.define(
+    "lbs_blend(Tensor lbs_weights, Tensor chain_r_nl, Tensor skin_t_nl, Tensor v_posed_nl) "
+    "-> Tensor",
+    cpu=lambda *args: lbs_blend_plain(*args).contiguous(), cuda=_lbs_kernel, fake=_lbs_fake)

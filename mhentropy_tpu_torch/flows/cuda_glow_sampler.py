@@ -18,7 +18,10 @@ how its design answers that. Here:
   projections, plain matmuls outside the kernel as in JAX, as
   (L, 3, B, H) [initial, block-0 gate, block-1 gate] per reversed layer.
 * `transform` is the wrapper: image-major base samples (B, N, D) -> (x
-  (B, N, D), sum of log scale (B, N)). CPU tensors take `transform_plain`;
+  (B, N, D), sum of log scale (B, N)), through the operator
+  `mhent::glow_sample` (mhentropy_tpu_torch/ops.py) on the kernel's
+  operands (`KERNEL_FIELDS`): CPU tensors take `transform_plain` (on the
+  (in, out) weights, transposed back from the K-major copies);
   CUDA tensors launch the kernel, and anything it does not take raises.
 * `sample_and_log_prob_fused` is the drop-in for `glow.sample_and_log_prob`:
   hypothesis-major rows in and out, log q = std_normal_logp(z0) + sum log
@@ -37,7 +40,7 @@ from typing import NamedTuple
 import torch
 from torch.nn import functional as F
 
-from mhentropy_tpu_torch import ext
+from mhentropy_tpu_torch import ext, ops
 from mhentropy_tpu_torch.flows import glow
 from mhentropy_tpu_torch.flows.priors import std_normal_logp
 
@@ -148,9 +151,9 @@ def transform(packed: Packed, z0: torch.Tensor, ctx: torch.Tensor):
     ctx: pack_context's (L, 3, B, H). Returns (x (B, N, D), the sum of log
     scale over the layers (B, N)), f32.
     """
-    if z0.device.type == "cpu":
-        return transform_plain(packed, z0, ctx)
-    return _transform_kernel(packed, z0, ctx)
+    ext.require(z0.shape[-1] == packed.dim,
+                f"glow sampler: z0 has D={z0.shape[-1]}, the flow {packed.dim}")
+    return _op(z0, ctx, *(getattr(packed, name) for name in KERNEL_FIELDS))
 
 
 def transform_plain(packed: Packed, z0: torch.Tensor, ctx: torch.Tensor):
@@ -188,11 +191,11 @@ def transform_plain(packed: Packed, z0: torch.Tensor, ctx: torch.Tensor):
     return x.reshape(b, n, dp)[..., :d], ld.reshape(b, n)
 
 
-def _transform_kernel(packed: Packed, z0: torch.Tensor, ctx: torch.Tensor):
-    global launches
-    ext.require(z0.is_cuda, f"glow sampler: unsupported device {z0.device}")
+def check_shapes(packed: Packed, z0: torch.Tensor, ctx: torch.Tensor) -> None:
+    """The kernel's shape, dtype and layout checks on its operands (the fake
+    implementation's too)."""
     b, n, d = z0.shape
-    n_layers, _, h, _ = packed.big.shape
+    n_layers, _, h, _ = packed.big_t.shape
     dp = packed.mask_tr.shape[1]
     ext.require(z0.dtype == torch.float32 and z0.is_contiguous(),
                 "glow sampler: z0 must be contiguous float32 (B, N, D)")
@@ -214,11 +217,18 @@ def _transform_kernel(packed: Packed, z0: torch.Tensor, ctx: torch.Tensor):
         t = getattr(packed, name)
         ext.require(t.dtype == torch.float32 and t.is_contiguous(),
                     f"glow sampler: packed {name} must be contiguous float32")
-    args = (packed.big_t, packed.b_big, packed.w_in_t, packed.b_in, packed.w_ss_t,
-            packed.b_shift, packed.b_scale, packed.lu_inv_t, packed.lu_bias, packed.an_shift,
-            packed.an_scale, packed.mask_tr)
-    for t in (ctx, *args):
+    for t in (ctx, *(getattr(packed, name) for name in KERNEL_FIELDS)):
         ext.require(t.device == z0.device, "glow sampler: tensors on different devices")
+
+
+def _transform_kernel(packed: Packed, z0: torch.Tensor, ctx: torch.Tensor):
+    global launches
+    ext.require(z0.is_cuda, f"glow sampler: unsupported device {z0.device}")
+    check_shapes(packed, z0, ctx)
+    b, n, d = z0.shape
+    n_layers, _, h, _ = packed.big_t.shape
+    dp = packed.mask_tr.shape[1]
+    args = tuple(getattr(packed, name) for name in KERNEL_FIELDS)
     rows = b * n
     x = torch.empty_like(z0)
     ld = torch.empty((b, n), dtype=torch.float32, device=z0.device)
@@ -239,6 +249,49 @@ def _transform_kernel(packed: Packed, z0: torch.Tensor, ctx: torch.Tensor):
     launches += 1
     return x, ld
 
+
+
+# The kernel's operands: the K-major copies, the biases, the LU inverse, the
+# actnorm and the mask (the op's tensors after z0 and ctx).
+KERNEL_FIELDS = ("big_t", "b_big", "w_in_t", "b_in", "w_ss_t", "b_shift", "b_scale",
+                 "lu_inv_t", "lu_bias", "an_shift", "an_scale", "mask_tr")
+
+
+def _from_kernel_fields(z0: torch.Tensor, fields, plain: bool = False) -> Packed:
+    """A Packed of the op's operands; with `plain`, also the (in, out)
+    weights that `transform_plain` reads, transposed back (exactly `pack`'s:
+    the same values, contiguous). `ld_const` is not among them."""
+    k = dict(zip(KERNEL_FIELDS, fields))
+    big = w_in = w_shift = w_scale = None
+    if plain:
+        dp = k["mask_tr"].shape[1]
+        big = k["big_t"].transpose(-1, -2).contiguous()
+        w_in = k["w_in_t"].transpose(-1, -2).contiguous()
+        w_ss = k["w_ss_t"].transpose(-1, -2)
+        w_shift, w_scale = w_ss[..., :dp].contiguous(), w_ss[..., dp:].contiguous()
+    return Packed(big=big, w_in=w_in, w_shift=w_shift, w_scale=w_scale, **k, ld_const=None,
+                  dim=z0.shape[-1])
+
+
+def _transform_cpu(z0, ctx, *fields):
+    x, ld = transform_plain(_from_kernel_fields(z0, fields, plain=True), z0, ctx)
+    return x.contiguous(), ld
+
+
+def _transform_fake(z0, ctx, *fields):
+    ops.require_device(z0, "glow sampler")
+    if z0.is_cuda:
+        check_shapes(_from_kernel_fields(z0, fields), z0, ctx)
+    return z0.new_empty(z0.shape, dtype=torch.float32), z0.new_empty(z0.shape[:2],
+                                                                        dtype=torch.float32)
+
+
+_op = ops.define(
+    "glow_sample(Tensor z0, Tensor ctx, " + ", ".join(f"Tensor {f}" for f in KERNEL_FIELDS)
+    + ") -> (Tensor, Tensor)",
+    cpu=_transform_cpu,
+    cuda=lambda z0, ctx, *fields: _transform_kernel(_from_kernel_fields(z0, fields), z0, ctx),
+    fake=_transform_fake)
 
 def sample_and_log_prob_fused(flow: glow.ConditionalGlow, packed: Packed,
                               context: torch.Tensor, n: int, noise: torch.Tensor):

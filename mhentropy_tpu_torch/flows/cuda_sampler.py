@@ -13,7 +13,10 @@ bounds its kernel on the H100 and how its design answers that. Here:
 * `transform` is the wrapper: image-major base samples (B, R, D) and the
   per-image conditioning cache (L, 4, B, H) -> (x (B, R, D), logdet (B, R)).
   CPU tensors take `transform_plain`; CUDA tensors launch the kernel of the
-  packed weights' dtype, and anything it does not take raises.
+  packed weights' dtype, and anything it does not take raises. The bf16
+  draw goes through the operator `mhent::realnvp_sample`
+  (mhentropy_tpu_torch/ops.py), so that `torch.export` can trace it; the
+  f32 one, the training side's, stays a plain call.
 * `plan` picks each launch's tile rows and cluster size from the row count,
   H, Dp, the card's occupancy and the kernel's shared-memory layout, which
   it is given (CPU-testable); `launch_plan` gives it the card's, once a
@@ -42,7 +45,7 @@ from typing import NamedTuple
 import torch
 from torch.nn import functional as F
 
-from mhentropy_tpu_torch import ext
+from mhentropy_tpu_torch import ext, ops
 from mhentropy_tpu_torch.flows import realnvp
 from mhentropy_tpu_torch.flows.priors import std_normal_logp
 
@@ -182,6 +185,10 @@ def transform(packed: Packed, z0: torch.Tensor, cproj: torch.Tensor):
     cproj: (L, 4, B, H) per-image conditioning projections.
     Returns (x (B, R, D), logdet (B, R)), f32 (f64 for f64 inputs on the CPU).
     """
+    if packed.w1.dtype == torch.bfloat16:
+        ext.require(z0.shape[-1] == packed.dim,
+                    f"fused sampler: z0 has D={z0.shape[-1]}, flow has {packed.dim}")
+        return _op(z0, cproj, *packed[:7])
     if z0.device.type == "cpu":
         return transform_plain(packed, z0, cproj)
     return _transform_kernel(packed, z0, cproj)
@@ -204,9 +211,9 @@ def transform_plain(packed: Packed, z0: torch.Tensor, cproj: torch.Tensor):
     return x.reshape(b, r, dp)[..., :d], logdet.reshape(b, r)
 
 
-def _transform_kernel(packed: Packed, z0: torch.Tensor, cproj: torch.Tensor):
-    global launches, launches_f32
-    ext.require(z0.is_cuda, f"fused sampler: unsupported device {z0.device}")
+def check_shapes(packed: Packed, z0: torch.Tensor, cproj: torch.Tensor) -> None:
+    """The kernels' shape, dtype and layout checks (the fake
+    implementation's too); `_transform_kernel` adds the alignment."""
     b, r, d = z0.shape
     n_layers, dp = packed.masks.shape
     h = packed.w1.shape[-1]
@@ -222,14 +229,27 @@ def _transform_kernel(packed: Packed, z0: torch.Tensor, cproj: torch.Tensor):
                 f"got {tuple(cproj.shape)} {cproj.dtype}")
     for name in ("w0", "w1", "w2"):
         t = getattr(packed, name)
-        ext.require(t.dtype == wdtype and t.is_contiguous() and t.data_ptr() % 16 == 0,
-                    f"fused sampler: packed {name} must be contiguous 16-byte-aligned {wdtype}")
+        ext.require(t.dtype == wdtype and t.is_contiguous(),
+                    f"fused sampler: packed {name} must be contiguous {wdtype}")
     for name in ("masks", "b0", "b1", "b2"):
         t = getattr(packed, name)
         ext.require(t.dtype == torch.float32 and t.is_contiguous(),
                     f"fused sampler: packed {name} must be contiguous float32")
     for t in (cproj, *packed[:7]):
         ext.require(t.device == z0.device, "fused sampler: tensors on different devices")
+
+
+def _transform_kernel(packed: Packed, z0: torch.Tensor, cproj: torch.Tensor):
+    global launches, launches_f32
+    ext.require(z0.is_cuda, f"fused sampler: unsupported device {z0.device}")
+    check_shapes(packed, z0, cproj)
+    b, r, d = z0.shape
+    n_layers, dp = packed.masks.shape
+    h = packed.w1.shape[-1]
+    wdtype = packed.w1.dtype
+    for name in ("w0", "w1", "w2"):
+        ext.require(getattr(packed, name).data_ptr() % 16 == 0,
+                    f"fused sampler: packed {name} must be 16-byte aligned")
     f32 = wdtype == torch.float32
     pl = launch_plan(z0.device.index, b * r, h, dp, f32)
     x = torch.empty_like(z0)
@@ -249,6 +269,34 @@ def _transform_kernel(packed: Packed, z0: torch.Tensor, cproj: torch.Tensor):
         launches += 1
     return x, logdet
 
+
+
+def _packed(z0: torch.Tensor, fields) -> Packed:
+    return Packed(*fields, dim=z0.shape[-1])
+
+
+def _sample_cpu(z0, cproj, *fields):
+    x, logdet = transform_plain(_packed(z0, fields), z0, cproj)
+    return x.contiguous(), logdet
+
+
+def _sample_fake(z0, cproj, *fields):
+    ops.require_device(z0, "fused sampler")
+    packed = _packed(z0, fields)
+    if z0.is_cuda:
+        check_shapes(packed, z0, cproj)
+    dt = torch.promote_types(z0.dtype, torch.float32)
+    return z0.new_empty(z0.shape, dtype=dt), z0.new_empty(z0.shape[:2], dtype=dt)
+
+
+# The bf16 draw (the eval and serving paths'): the packed weights' seven
+# tensors, `Packed`'s fields but `dim`, which is z0's last extent.
+_op = ops.define(
+    "realnvp_sample(Tensor z0, Tensor cproj, Tensor masks, Tensor w0, Tensor w1, Tensor w2, "
+    "Tensor b0, Tensor b1, Tensor b2) -> (Tensor, Tensor)",
+    cpu=_sample_cpu, cuda=lambda z0, cproj, *fields: _transform_kernel(
+        _packed(z0, fields), z0, cproj),
+    fake=_sample_fake)
 
 def sample_fused(flow: realnvp.RealNVP, packed: Packed, feat: torch.Tensor,
                  n: int, z0_rows: torch.Tensor):

@@ -30,7 +30,7 @@ from typing import NamedTuple
 import torch
 from torch.nn import functional as F
 
-from mhentropy_tpu_torch import ext
+from mhentropy_tpu_torch import ext, ops
 from mhentropy_tpu_torch.flows import cuda_sampler, realnvp
 from mhentropy_tpu_torch.flows.priors import std_normal_logp
 
@@ -230,13 +230,46 @@ def xla_forward_q(tree: FlowQTree, z: torch.Tensor, cprojq: torch.Tensor):
 
 def transform_q(tree: FlowQTree, z0: torch.Tensor, cprojq: torch.Tensor):
     """(B, R, D) image-major base samples through the quantised coupling
-    stack -> (x (B, R, D), logdet (B, R)). CPU tensors take `xla_forward_q`;
-    CUDA tensors launch the kernel."""
-    if z0.device.type == "cpu":
-        d, dp = z0.shape[-1], tree.masks.shape[-1]
-        x, logdet = xla_forward_q(tree, F.pad(z0, (0, dp - d)), cprojq)
-        return x[..., :d], logdet
-    return _transform_kernel(tree, z0, cprojq)
+    stack -> (x (B, R, D), logdet (B, R)), through the operator
+    `mhent::realnvp_sample_q` (mhentropy_tpu_torch/ops.py) on the tree's
+    kernel layout: CPU tensors take `xla_forward_q` (on the same weights laid
+    out as the tree's, `plain_tree`); CUDA tensors launch the kernel."""
+    ext.require(tree.kernel is not None,
+                "int8 sampler: the tree has no kernel layout (with_kernel_layout)")
+    return _op(z0, cprojq, *tree.kernel)
+
+
+def plain_tree(k: Kernel) -> FlowQTree:
+    """The tree's fields that `xla_forward_q` reads, as views of the kernel
+    layout (the conditioning rescale, which it does not read, left None)."""
+    def unpair(name, transpose=False):
+        s, t = getattr(k, name).unbind(1)
+        return (s.transpose(1, 2), t.transpose(1, 2)) if transpose else (s, t)
+
+    def vec(name):
+        return tuple(v[:, None] for v in unpair(name))
+
+    nets = {}
+    for name in ("w0", "w1", "w2"):
+        nets[f"s_{name}"], nets[f"t_{name}"] = unpair(name, transpose=True)
+    for name in ("e0", "e1", "e2", "b2"):
+        nets[f"s_{name}"], nets[f"t_{name}"] = vec(name)
+    return FlowQTree(masks=k.masks[:, None], qm=k.qm[:, None], **nets, cond_scale=None,
+                     cond_bias=None, kernel=k)
+
+
+def _transform_cpu(z0, cprojq, *kernel):
+    d, dp = z0.shape[-1], kernel[0].shape[-1]
+    x, logdet = xla_forward_q(plain_tree(Kernel(*kernel)), F.pad(z0, (0, dp - d)), cprojq)
+    return x[..., :d].contiguous(), logdet
+
+
+def _transform_fake(z0, cprojq, *kernel):
+    ops.require_device(z0, "int8 sampler")
+    if z0.is_cuda:
+        check_shapes(Kernel(*kernel), z0, cprojq)
+    dt = torch.promote_types(z0.dtype, torch.float32)
+    return z0.new_empty(z0.shape, dtype=dt), z0.new_empty(z0.shape[:2], dtype=dt)
 
 
 @functools.lru_cache(maxsize=256)
@@ -256,12 +289,9 @@ def launch_plan(device_index: int, rows: int, h: int, dp: int) -> cuda_sampler.P
     return cuda_sampler.plan(rows, h, dp, n, smem, D_ALIGN)
 
 
-def _transform_kernel(tree: FlowQTree, z0: torch.Tensor, cprojq: torch.Tensor):
-    global launches
-    ext.require(z0.is_cuda, f"int8 sampler: unsupported device {z0.device}")
-    ext.require(tree.kernel is not None,
-                "int8 sampler: the tree has no kernel layout (with_kernel_layout)")
-    k = tree.kernel
+def check_shapes(k: Kernel, z0: torch.Tensor, cprojq: torch.Tensor) -> None:
+    """The kernel's shape, dtype and layout checks (the fake
+    implementation's too); `_transform_kernel` adds the alignment."""
     b, r, d = z0.shape
     n_layers, dp = k.masks.shape
     h = k.w1.shape[-1]
@@ -273,9 +303,20 @@ def _transform_kernel(tree: FlowQTree, z0: torch.Tensor, cprojq: torch.Tensor):
                 f"got {tuple(cprojq.shape)} {cprojq.dtype}")
     ext.require(d <= dp, f"int8 sampler: z0 has D={d}, the tree Dp={dp}")
     for name, t in k._asdict().items():
-        ext.require(t.device == z0.device and t.is_contiguous() and t.data_ptr() % 16 == 0,
-                    f"int8 sampler: kernel operand {name} must be contiguous 16-byte-aligned "
-                    f"on {z0.device}")
+        ext.require(t.device == z0.device and t.is_contiguous(),
+                    f"int8 sampler: kernel operand {name} must be contiguous on {z0.device}")
+
+
+def _transform_kernel(k: Kernel, z0: torch.Tensor, cprojq: torch.Tensor):
+    global launches
+    ext.require(z0.is_cuda, f"int8 sampler: unsupported device {z0.device}")
+    check_shapes(k, z0, cprojq)
+    for name, t in k._asdict().items():
+        ext.require(t.data_ptr() % 16 == 0,
+                    f"int8 sampler: kernel operand {name} must be 16-byte aligned")
+    b, r, d = z0.shape
+    n_layers, dp = k.masks.shape
+    h = k.w1.shape[-1]
     pl = launch_plan(z0.device.index, b * r, h, dp)
     x = torch.empty_like(z0)
     logdet = torch.empty((b, r), dtype=torch.float32, device=z0.device)
@@ -289,6 +330,13 @@ def _transform_kernel(tree: FlowQTree, z0: torch.Tensor, cprojq: torch.Tensor):
     launches += 1
     return x, logdet
 
+
+_op = ops.define(
+    "realnvp_sample_q(Tensor z0, Tensor cprojq, Tensor masks, Tensor qm, Tensor w0, Tensor w1, "
+    "Tensor w2, Tensor e0, Tensor e1, Tensor e2, Tensor b2) -> (Tensor, Tensor)",
+    cpu=_transform_cpu,
+    cuda=lambda z0, cprojq, *kernel: _transform_kernel(Kernel(*kernel), z0, cprojq),
+    fake=_transform_fake)
 
 def cond_q(flow: realnvp.RealNVP, tree: FlowQTree, feat: torch.Tensor) -> torch.Tensor:
     """(B, C) features -> the pre-scaled (L, B, 4, H) cond cache."""

@@ -9,8 +9,9 @@ answers that.
 `fold` puts each block's eval BN into its GEMM weights once (the JAX
 `_fold` :152), and block 0's downsample bias into its conv3 bias, since the
 kernel sums both products in one accumulator. `stage1_forward` runs the
-folded stage on NHWC activations. CPU tensors take `stage1_plain`; CUDA
-tensors launch the kernel, and anything it does not take raises. Unlike the
+folded stage on NHWC activations through the operator `mhent::stage1`
+(mhentropy_tpu_torch/ops.py): CPU tensors take `stage1_plain`; CUDA tensors
+launch the kernel, and anything it does not take raises. Unlike the
 TPU gates (hw >= 3136, w <= 126), any H and W are accepted.
 """
 
@@ -22,7 +23,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from mhentropy_tpu_torch import ext
+from mhentropy_tpu_torch import ext, ops
 
 F1 = 64  # bottleneck mid width
 FOUT = 256  # block output channels
@@ -73,9 +74,7 @@ def fold(blocks: Sequence[nn.Module], dtype=torch.bfloat16) -> list[FoldedBlock]
 
 def stage1_forward(x: torch.Tensor, folded: Sequence[FoldedBlock]) -> torch.Tensor:
     """(B, H, W, 64) NHWC -> (B, H, W, 256) NHWC through the folded blocks."""
-    if x.device.type == "cpu":
-        return stage1_plain(x, folded)
-    return _stage1_kernel(x, folded)
+    return _op(x, ops.flatten(folded))
 
 
 def _conv1x1(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -102,10 +101,20 @@ def check_args(x: torch.Tensor, folded: Sequence[FoldedBlock]) -> None:
     (cin 64), every later block without one (cin 256); bf16 weights and f32
     biases, contiguous, on x's device; x and the weights 16-byte aligned
     (the kernel copies them 16 bytes at a time)."""
+    check_shapes(x, folded)
+    ext.require(x.data_ptr() % 16 == 0, "stage 1: x must be 16-byte aligned")
+    for blk in folded:
+        ext.require(all(t.data_ptr() % 16 == 0 for t in (blk.w1, blk.w2, blk.w3, blk.wd)
+                        if t is not None),
+                    "stage 1: folded weights must be 16-byte aligned")
+
+
+def check_shapes(x: torch.Tensor, folded: Sequence[FoldedBlock]) -> None:
+    """`check_args` but the alignment: what the fake implementation checks."""
     ext.require(x.dim() == 4 and x.shape[3] == F1,
                 f"stage 1: x must be (B, H, W, 64), got {tuple(x.shape)}")
-    ext.require(x.dtype == torch.bfloat16 and x.is_contiguous() and x.data_ptr() % 16 == 0,
-                f"stage 1: x must be contiguous, 16-byte aligned bfloat16 NHWC, got {x.dtype}")
+    ext.require(x.dtype == torch.bfloat16 and x.is_contiguous(),
+                f"stage 1: x must be contiguous bfloat16 NHWC, got {x.dtype}")
     cin = F1
     for blk in folded:
         ext.require(blk.w1.shape == (cin, F1) and blk.w2.shape == (9, F1, F1)
@@ -115,10 +124,8 @@ def check_args(x: torch.Tensor, folded: Sequence[FoldedBlock]) -> None:
                     or (cin == FOUT and blk.wd is None),
                     "stage 1: the kernel takes cin 64 with a downsample or cin 256 without")
         for t in (blk.w1, blk.w2, blk.w3, *(() if blk.wd is None else (blk.wd,))):
-            ext.require(t.dtype == torch.bfloat16 and t.is_contiguous() and t.device == x.device
-                        and t.data_ptr() % 16 == 0,
-                        "stage 1: folded weights must be contiguous, 16-byte aligned bfloat16 "
-                        "on x's device")
+            ext.require(t.dtype == torch.bfloat16 and t.is_contiguous() and t.device == x.device,
+                        "stage 1: folded weights must be contiguous bfloat16 on x's device")
         for t in (blk.b1, blk.b2, blk.b3):
             ext.require(t.dtype == torch.float32 and t.is_contiguous() and t.device == x.device,
                         "stage 1: folded biases must be contiguous float32 on x's device")
@@ -144,3 +151,17 @@ def _stage1_kernel(x: torch.Tensor, folded: Sequence[FoldedBlock]) -> torch.Tens
         launches += 1
         x = out
     return x
+
+
+def _stage1_fake(x: torch.Tensor, flat: list) -> torch.Tensor:
+    ops.require_device(x, "stage 1")
+    folded = ops.unflatten(flat, FoldedBlock)
+    if x.is_cuda:
+        check_shapes(x, folded)
+    return x.new_empty((*x.shape[:3], FOUT))
+
+
+_op = ops.define(
+    "stage1(Tensor x, Tensor?[] folded) -> Tensor",
+    cpu=lambda x, flat: stage1_plain(x, ops.unflatten(flat, FoldedBlock)).contiguous(),
+    cuda=lambda x, flat: _stage1_kernel(x, ops.unflatten(flat, FoldedBlock)), fake=_stage1_fake)

@@ -12,9 +12,10 @@ copy for its convolutions and the f32 one for its residual.
 weights, f32 `scale`, `bias`, `inv_sa`) into the kernel's operands, folding
 each requantise into the epilogue before it as the TPU kernel does
 (`_sb(site, fold=inv)` :190). `stage1_forward_q` runs the packed stage on
-(B, H, W, 64) NHWC activations and returns (B, H, W, 256) bf16. CPU tensors
-take `stage1_plain`; CUDA tensors launch the kernel, and anything it does
-not take raises.
+(B, H, W, 64) NHWC activations and returns (B, H, W, 256) bf16, through the
+operator `mhent::stage1_int8` (mhentropy_tpu_torch/ops.py): CPU tensors take
+`stage1_plain`; CUDA tensors launch the kernel, and anything it does not
+take raises.
 
 The plain version repeats the kernel's arithmetic in the same order: the
 integer products as f32 products of integer-valued tensors (exact: K <= 576
@@ -29,7 +30,7 @@ from typing import NamedTuple
 import torch
 from torch.nn import functional as F
 
-from mhentropy_tpu_torch import ext
+from mhentropy_tpu_torch import ext, ops
 
 F1 = 64
 FOUT = 256
@@ -116,9 +117,7 @@ def pack_stage(sites: dict, stage: int, n_blocks: int) -> list[Int8Block]:
 
 def stage1_forward_q(x: torch.Tensor, packed: list[Int8Block]) -> torch.Tensor:
     """(B, H, W, 64) NHWC post-stem activations -> (B, H, W, 256) bf16."""
-    if x.device.type == "cpu":
-        return stage1_plain(x, packed).to(torch.bfloat16)
-    return _stage1_kernel(x, packed)
+    return _op(x, ops.flatten(packed))
 
 
 def _quant(v: torch.Tensor) -> torch.Tensor:
@@ -148,22 +147,15 @@ def stage1_plain(x: torch.Tensor, packed: list[Int8Block]) -> torch.Tensor:
     return prev
 
 
-def _stage1_kernel(x: torch.Tensor, packed: list[Int8Block]) -> torch.Tensor:
-    global launches
-    ext.require(x.is_cuda, f"int8 stage 1: unsupported device {x.device}")
+def check_shapes(x: torch.Tensor, packed: list[Int8Block]) -> None:
+    """The kernel's shape, dtype and layout checks (the fake
+    implementation's too)."""
     ext.require(x.dim() == 4 and x.shape[3] == F1,
                 f"int8 stage 1: x must be (B, H, W, 64), got {tuple(x.shape)}")
     ext.require(x.dtype == torch.bfloat16 and x.is_contiguous(),
                 f"int8 stage 1: x must be contiguous bfloat16 NHWC, got {x.dtype}")
     ext.require(len(packed) == 3 and packed[0].wd is not None,
                 "int8 stage 1: needs the three packed blocks of `pack`")
-    b, h, w, _ = x.shape
-    lib = ext.load()
-    stream = ext.stream_of(x)
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    xq = None  # the block input quantised (blocks 1-2), written by the block before
     for j, blk in enumerate(packed):
         cin = F1 if j == 0 else FOUT
         ext.require(blk.w1.shape == (F1, cin) and blk.w2.shape == (F1, 9 * F1)
@@ -176,6 +168,20 @@ def _stage1_kernel(x: torch.Tensor, packed: list[Int8Block]) -> torch.Tensor:
                   *((blk.sd, blk.bd) if j == 0 else ())):
             ext.require(t.dtype == torch.float32 and t.is_contiguous() and t.device == x.device,
                         "int8 stage 1: packed scales must be contiguous float32 on x's device")
+
+
+def _stage1_kernel(x: torch.Tensor, packed: list[Int8Block]) -> torch.Tensor:
+    global launches
+    ext.require(x.is_cuda, f"int8 stage 1: unsupported device {x.device}")
+    check_shapes(x, packed)
+    b, h, w, _ = x.shape
+    lib = ext.load()
+    stream = ext.stream_of(x)
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    xq = None  # the block input quantised (blocks 1-2), written by the block before
+    for j, blk in enumerate(packed):
         last = j == len(packed) - 1
         out = torch.empty((b, h, w, FOUT), device=x.device,
                           dtype=torch.bfloat16 if last else torch.float32)
@@ -193,3 +199,17 @@ def _stage1_kernel(x: torch.Tensor, packed: list[Int8Block]) -> torch.Tensor:
         launches += 1
         x, xq = out, out_q
     return x
+
+
+def _stage1_fake(x: torch.Tensor, flat: list) -> torch.Tensor:
+    ops.require_device(x, "int8 stage 1")
+    if x.is_cuda:
+        check_shapes(x, ops.unflatten(flat, Int8Block))
+    return x.new_empty((*x.shape[:3], FOUT), dtype=torch.bfloat16)
+
+
+_op = ops.define(
+    "stage1_int8(Tensor x, Tensor?[] packed) -> Tensor",
+    cpu=lambda x, flat: stage1_plain(x, ops.unflatten(flat, Int8Block)).to(torch.bfloat16)
+    .contiguous(),
+    cuda=lambda x, flat: _stage1_kernel(x, ops.unflatten(flat, Int8Block)), fake=_stage1_fake)

@@ -9,9 +9,10 @@ header says what bounds it on the H100 and how its design answers that.
 kernel's operands once per calibration, the int8 stage-1 kernel's
 `Int8Block`s: conv2's `inv_sa` folded into conv1's scale and bias and
 conv3's into conv2's, as the TPU kernel does (`_sb(site, fold=)` :203). `stage_forward_q` runs a packed stage on a
-(B, H, W, Cin) float NHWC map and returns (B, H/2, W/2, Cout): CPU tensors
-take `stage_plain`, CUDA tensors launch the kernel, and anything it does not
-take raises. `supported` and `sites_ok` are the JAX gates (:327, :335),
+(B, H, W, Cin) float NHWC map and returns (B, H/2, W/2, Cout) through the
+operator `mhent::stage2_int8` (mhentropy_tpu_torch/ops.py): CPU tensors take
+`stage_plain`, CUDA tensors launch the kernel, and anything it does not take
+raises. `supported` and `sites_ok` are the JAX gates (:327, :335),
 without the backend clause.
 
 The plain version repeats the kernel's arithmetic in the TPU kernel's
@@ -30,7 +31,7 @@ from typing import NamedTuple
 import torch
 from torch.nn import functional as F
 
-from mhentropy_tpu_torch import ext
+from mhentropy_tpu_torch import ext, ops
 from mhentropy_tpu_torch.models import stage1_int8_cuda
 from mhentropy_tpu_torch.models.stage1_int8_cuda import TAPS, Int8Block, _quant
 
@@ -75,9 +76,9 @@ def stage_forward_q(x: torch.Tensor, packed: list[Int8Block], stage: int,
                     out_dtype=torch.bfloat16) -> torch.Tensor:
     """(B, H, W, Cin) float NHWC -> (B, H/2, W/2, Cout) in out_dtype
     (bfloat16 or float32)."""
-    if x.device.type == "cpu":
-        return stage_plain(x, packed).to(out_dtype)
-    return _stage_kernel(x, packed, stage, out_dtype)
+    ext.require(out_dtype in (torch.bfloat16, torch.float32),
+                f"int8 stage {stage}: out_dtype {out_dtype} is neither bfloat16 nor float32")
+    return _op(x, ops.flatten(packed), stage, out_dtype == torch.bfloat16)
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -114,12 +115,11 @@ def stage_plain(x: torch.Tensor, packed: list[Int8Block]) -> torch.Tensor:
     return prev
 
 
-def _stage_kernel(x: torch.Tensor, packed: list[Int8Block], stage: int,
-                  out_dtype) -> torch.Tensor:
-    global launches
+def check_shapes(x: torch.Tensor, packed: list[Int8Block], stage: int, out_dtype) -> None:
+    """The kernel's shape, dtype and layout checks (the fake
+    implementation's too)."""
     ext.require(stage in GEOMS, f"int8 stage kernel: no stage {stage} (GEOMS has {list(GEOMS)})")
     g = GEOMS[stage]
-    ext.require(x.is_cuda, f"int8 stage {stage}: unsupported device {x.device}")
     ext.require(x.dim() == 4 and x.shape[1:] == (g.w_in, g.w_in, g.cin),
                 f"int8 stage {stage}: x must be (B, {g.w_in}, {g.w_in}, {g.cin}), "
                 f"got {tuple(x.shape)}")
@@ -145,6 +145,14 @@ def _stage_kernel(x: torch.Tensor, packed: list[Int8Block], stage: int,
             ext.require(t.dtype == torch.float32 and t.is_contiguous() and t.device == x.device,
                         f"int8 stage {stage}: packed scales must be contiguous float32 on "
                         "x's device")
+
+
+def _stage_kernel(x: torch.Tensor, packed: list[Int8Block], stage: int,
+                  out_dtype) -> torch.Tensor:
+    global launches
+    ext.require(x.is_cuda, f"int8 stage {stage}: unsupported device {x.device}")
+    check_shapes(x, packed, stage, out_dtype)
+    g = GEOMS[stage]
     b, h, w, _ = x.shape
     ho, wo = h // 2, w // 2
     dev = x.device
@@ -177,3 +185,24 @@ def _stage_kernel(x: torch.Tensor, packed: list[Int8Block], stage: int,
         launches += 1
         xq = xq_next
     return out
+
+
+def _stage_fake(x, flat, stage: int, bf16_out: bool):
+    ops.require_device(x, f"int8 stage {stage}")
+    out_dtype = torch.bfloat16 if bf16_out else torch.float32
+    packed = ops.unflatten(flat, Int8Block)
+    if x.is_cuda:
+        check_shapes(x, packed, stage, out_dtype)
+    b, h, w, _ = x.shape
+    return x.new_empty((b, (h - 1) // 2 + 1, (w - 1) // 2 + 1, packed[-1].w3.shape[0]),
+                       dtype=out_dtype)
+
+
+_op = ops.define(
+    "stage2_int8(Tensor x, Tensor?[] packed, int stage, bool bf16_out) -> Tensor",
+    cpu=lambda x, flat, stage, bf16_out: stage_plain(x, ops.unflatten(flat, Int8Block)).to(
+        torch.bfloat16 if bf16_out else torch.float32).contiguous(),
+    cuda=lambda x, flat, stage, bf16_out: _stage_kernel(
+        x, ops.unflatten(flat, Int8Block), stage,
+        torch.bfloat16 if bf16_out else torch.float32),
+    fake=_stage_fake)

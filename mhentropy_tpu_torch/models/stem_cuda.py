@@ -7,7 +7,8 @@ bounds it on the H100 and how its design answers that.
 
 `fold` puts eval BN into the conv weights once (w' = w g, b' = beta - mean g,
 g = gamma / sqrt(var + eps), as stem_pallas.py:162-166); `stem_forward` runs
-the folded stem on an NHWC image. CPU tensors take `stem_plain`; CUDA tensors
+the folded stem on an NHWC image through the operator `mhent::stem`
+(mhentropy_tpu_torch/ops.py): CPU tensors take `stem_plain`; CUDA tensors
 launch the kernel, and anything it does not take raises.
 """
 
@@ -16,7 +17,7 @@ from __future__ import annotations
 import torch
 from torch.nn import functional as F
 
-from mhentropy_tpu_torch import ext
+from mhentropy_tpu_torch import ext, ops
 
 F_OUT = 64  # stem filters
 TAPS = 7 * 7 * 3
@@ -45,9 +46,7 @@ def out_hw(h: int, w: int) -> tuple[int, int]:
 
 def stem_forward(image: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 3) NHWC image, folded (w, bias) -> (B, Hp, Wp, 64) NHWC."""
-    if image.device.type == "cpu":
-        return stem_plain(image, w, bias)
-    return _stem_kernel(image, w, bias)
+    return _op(image, w, bias)
 
 
 def stem_plain(image: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -63,16 +62,20 @@ def check_args(image: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> None
     (B, H, W, 3) image with B <= 65535 (the grid's z extent), fold's bf16
     (147, 64) weights (16-byte aligned: the kernel copies their rows 16
     bytes at a time) and f32 (64,) bias, contiguous, on the image's device."""
+    check_shapes(image, w, bias)
+    ext.require(w.data_ptr() % 16 == 0, "stem: folded weights must be 16-byte aligned")
+
+
+def check_shapes(image: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> None:
+    """`check_args` but the alignment: what the fake implementation checks."""
     ext.require(image.dim() == 4 and image.shape[3] == 3,
                 f"stem: image must be (B, H, W, 3), got {tuple(image.shape)}")
     ext.require(image.dtype == torch.bfloat16 and image.is_contiguous(),
                 f"stem: image must be contiguous bfloat16 NHWC, got {image.dtype}")
     ext.require(1 <= image.shape[0] <= MAX_BATCH and image.shape[1] >= 1 and image.shape[2] >= 1,
                 f"stem: the kernel takes 1 to {MAX_BATCH} images, got {tuple(image.shape)}")
-    ext.require(w.shape == (TAPS, F_OUT) and w.dtype == torch.bfloat16 and w.is_contiguous()
-                and w.data_ptr() % 16 == 0,
-                "stem: folded weights must be contiguous, 16-byte aligned bfloat16 "
-                f"{(TAPS, F_OUT)}")
+    ext.require(w.shape == (TAPS, F_OUT) and w.dtype == torch.bfloat16 and w.is_contiguous(),
+                f"stem: folded weights must be contiguous bfloat16 {(TAPS, F_OUT)}")
     ext.require(bias.shape == (F_OUT,) and bias.dtype == torch.float32 and bias.is_contiguous(),
                 "stem: bias must be contiguous float32 (64,)")
     ext.require(w.device == image.device and bias.device == image.device,
@@ -92,3 +95,17 @@ def _stem_kernel(image: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> to
     ext.check(err, "mhent_stem_forward")
     launches += 1
     return out
+
+
+def _stem_fake(image: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    ops.require_device(image, "stem")
+    if image.is_cuda:
+        check_shapes(image, w, bias)
+    b, h, wd, _ = image.shape
+    hp, wp = out_hw(h, wd)
+    return image.new_empty((b, hp, wp, F_OUT))
+
+
+_op = ops.define("stem(Tensor image, Tensor w, Tensor bias) -> Tensor",
+                 cpu=lambda image, w, bias: stem_plain(image, w, bias).contiguous(),
+                 cuda=_stem_kernel, fake=_stem_fake)

@@ -15,8 +15,11 @@ the weights before their per-output-channel quantisation (the contraction
 mixes channels of different scales), and eval BN into the epilogue affine;
 the pool follows the affine because BN's gamma may be negative. `pack`
 lays a site out for the kernel: `wq`, the weights as the K-major s8 operand
-of its products. `stem_forward_q` runs it: CPU tensors take `stem_plain`;
-CUDA tensors launch the kernel, and anything it does not take raises. The
+of its products. `stem_forward_q` runs it through the operator
+`mhent::stem_int8` (mhentropy_tpu_torch/ops.py) on the kernel's operands:
+CPU tensors take `stem_plain` (on `w8`, which `unpack` recovers from `wq`
+exactly); CUDA tensors launch the kernel, and anything it does not take
+raises. The
 kernel gives each block a band of conv rows (`plan_band`) and takes the
 bulk-copy path where the image's rows allow it. `supported` is the JAX
 package's geometry gate (:255) without its backend clause: it decides
@@ -31,7 +34,7 @@ import functools
 import torch
 from torch.nn import functional as F
 
-from mhentropy_tpu_torch import ext
+from mhentropy_tpu_torch import ext, ops
 from mhentropy_tpu_torch.models.stem_cuda import F_OUT, TAPS, out_hw
 
 EPS = 1e-5
@@ -106,9 +109,18 @@ def stem_forward_q(image: torch.Tensor, packed: dict,
                    out_dtype=torch.bfloat16) -> torch.Tensor:
     """(B, H, W, 3) normalised float image -> (B, Hp, Wp, 64) NHWC in out_dtype
     (bfloat16 or float32)."""
-    if image.device.type == "cpu":
-        return stem_plain(image, packed).to(out_dtype)
-    return _stem_kernel(image, packed, out_dtype)
+    ext.require(out_dtype in (torch.bfloat16, torch.float32),
+                f"int8 stem: out_dtype {out_dtype} is neither bfloat16 nor float32")
+    return _op(image, packed["wq"], packed["inv_a"], packed["scale"], packed["bias"],
+               out_dtype == torch.bfloat16)
+
+
+def unpack(wq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """`pack`'s inverse on the weights: wq and the scale's signs -> w8
+    (7, 7, 3, 64) int8 HWIO, exactly."""
+    sign = torch.where(scale < 0, -1, 1).to(torch.int8)
+    w = wq.view(F_OUT, 7, ROW_TAPS)[:, :, :21] * sign[:, None, None]
+    return w.reshape(F_OUT, 7, 7, 3).permute(1, 2, 3, 0)
 
 
 def stem_plain(image: torch.Tensor, site: dict) -> torch.Tensor:
@@ -126,13 +138,9 @@ def stem_plain(image: torch.Tensor, site: dict) -> torch.Tensor:
     return F.max_pool2d(y.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
 
 
-def _stem_kernel(image: torch.Tensor, packed: dict, out_dtype,
-                 bulk: bool | None = None) -> torch.Tensor:
-    """The kernel launch. `bulk` picks its path: bulk copies of the input rows
-    (W <= 256, W a multiple of 4, a 16-byte aligned image; the default where
-    those hold) or loads by the quantising threads (any shape)."""
-    global launches
-    ext.require(image.is_cuda, f"int8 stem: unsupported device {image.device}")
+def check_shapes(image: torch.Tensor, packed: dict, out_dtype) -> None:
+    """The kernel's shape, dtype and layout checks (the fake
+    implementation's too); `_stem_kernel` adds those of its paths."""
     ext.require(image.dim() == 4 and image.shape[3] == 3,
                 f"int8 stem: image must be (B, H, W, 3), got {tuple(image.shape)}")
     ext.require(image.dtype == torch.float32 and image.is_contiguous(),
@@ -148,8 +156,20 @@ def _stem_kernel(image: torch.Tensor, packed: dict, out_dtype,
                     f"int8 stem: scales must be contiguous float32, got {tuple(t.shape)}")
     ext.require(all(t.device == image.device for t in (wq, inv_a, scale, bias)),
                 "int8 stem: tensors on different devices")
+    ext.require(image.shape[0] <= 65535,
+                f"int8 stem: at most 65,535 images a call, got {image.shape[0]}")
+
+
+def _stem_kernel(image: torch.Tensor, packed: dict, out_dtype,
+                 bulk: bool | None = None) -> torch.Tensor:
+    """The kernel launch. `bulk` picks its path: bulk copies of the input rows
+    (W <= 256, W a multiple of 4, a 16-byte aligned image; the default where
+    those hold) or loads by the quantising threads (any shape)."""
+    global launches
+    ext.require(image.is_cuda, f"int8 stem: unsupported device {image.device}")
+    check_shapes(image, packed, out_dtype)
+    wq, inv_a, scale, bias = packed["wq"], packed["inv_a"], packed["scale"], packed["bias"]
     b, h, w, _ = image.shape
-    ext.require(b <= 65535, f"int8 stem: at most 65,535 images a call, got {b}")
     can_bulk = w % 4 == 0 and w <= 2 * CONV_COLS and image.data_ptr() % 16 == 0
     bulk = can_bulk if bulk is None else bulk
     ext.require(can_bulk or not bulk, f"int8 stem: the bulk path takes W <= {2 * CONV_COLS}, "
@@ -165,3 +185,32 @@ def _stem_kernel(image: torch.Tensor, packed: dict, out_dtype,
     ext.check(err, "mhent_stem_int8_forward")
     launches += 1
     return out
+
+
+def _operands(wq, inv_a, scale, bias) -> dict:
+    return {"wq": wq, "inv_a": inv_a, "scale": scale, "bias": bias}
+
+
+def _stem_cpu(image, wq, inv_a, scale, bias, bf16_out: bool):
+    site = {**_operands(wq, inv_a, scale, bias), "w8": unpack(wq, scale)}
+    return stem_plain(image, site).to(torch.bfloat16 if bf16_out else torch.float32).contiguous()
+
+
+def _stem_fake(image, wq, inv_a, scale, bias, bf16_out: bool):
+    ops.require_device(image, "int8 stem")
+    out_dtype = torch.bfloat16 if bf16_out else torch.float32
+    if image.is_cuda:
+        check_shapes(image, _operands(wq, inv_a, scale, bias), out_dtype)
+    b, h, w, _ = image.shape
+    hp, wp = out_hw(h, w)
+    return image.new_empty((b, hp, wp, F_OUT), dtype=out_dtype)
+
+
+_op = ops.define(
+    "stem_int8(Tensor image, Tensor wq, Tensor inv_a, Tensor scale, Tensor bias, "
+    "bool bf16_out) -> Tensor",
+    cpu=_stem_cpu,
+    cuda=lambda image, wq, inv_a, scale, bias, bf16_out: _stem_kernel(
+        image, _operands(wq, inv_a, scale, bias),
+        torch.bfloat16 if bf16_out else torch.float32),
+    fake=_stem_fake)

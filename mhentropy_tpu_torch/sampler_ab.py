@@ -5,7 +5,7 @@ probes') shapes, so that two trees can be compared on one card in turns.
 
     python mhentropy_tpu_torch/sampler_ab.py [--root DIR] [--label NAME] [--out FILE]
         [--tiles] [--kinds realnvp,stage1,glow,lbs,gemm_probe,stage1_probe,stem_probe,stem_int8,
-        stage2_int8]
+        stage2_int8,request]
 
 `--root` is the checkout whose `mhentropy_tpu_torch` is imported (default:
 the one holding this file), so the same script times an older tree's
@@ -47,7 +47,11 @@ random BN on random 256 px images, bf16 in and out, stage 2's input that
 of the float stem and stage-1 kernels, with the same stage's `torch._int_mm`
 walk (`quant.walk_stage`, the route pallas_mid=False runs) beside each and,
 at B = 8, the device kernels of one forward of each stage (a trace).
-`--kinds` picks the
+`request` times the float request through the tree's `serve.InferenceServer`
+on configs/ho3d.yaml (fresh seeded weights, N = 200, u8 images) at B = 1 and
+8: ms a request host to host (`predict`, the results copied back), RUNS
+windows of REQUEST_WINDOW_S, the card's busy share not traced (the cost of
+the wrappers' dispatch shows here, not in a kernel's time). `--kinds` picks the
 families (default: all). Runs only on a CUDA card. It times with the tree's own
 `profile_step` helpers (`cuda_ms`, `graphed`, `card_line`), so both trees
 need that module. `--tiles` (this tree only)
@@ -76,7 +80,9 @@ GLOW_SHAPES = {"prohmr": {"d": 144, "h": 1024, "c": 2048, "b": 32, "n": 100},
 LBS_SHAPES = {"mano": {"v": 778, "j": 16, "rows": 12800},  # eval: N = 200, B = 64
               "smpl": {"v": 6890, "j": 24, "rows": 3200}}  # ProHMR: N = 100, B = 32
 KINDS = ("realnvp", "stage1", "glow", "lbs", "gemm_probe", "stage1_probe", "stem_probe",
-         "stem_int8", "stage2_int8")
+         "stem_int8", "stage2_int8", "request")
+REQUEST_BATCHES = (1, 8)
+REQUEST_WINDOW_S = 1.0
 STEM_INT8_BATCHES = (8, 32)  # chip_smoke.py's MID_BATCHES
 RUNS = 3
 WINDOW_S = 0.5
@@ -433,6 +439,33 @@ def stage2_int8_cases(torch, timed, dev, label):
             del images, qtree
 
 
+def request_cases(torch, dev, root: str, emit) -> None:
+    """The tree's float InferenceServer on configs/ho3d.yaml: ms a request
+    (host to host) at each of REQUEST_BATCHES."""
+    import numpy as np
+
+    from mhentropy_tpu_torch import serve
+    from mhentropy_tpu_torch.utils.config import load_cfg
+
+    server = serve.InferenceServer(load_cfg(os.path.join(root, "configs", "ho3d.yaml")),
+                                   max_batch=max(REQUEST_BATCHES), device=dev, seed=0)
+    server.warmup()
+    rng = np.random.RandomState(0)
+    for b in REQUEST_BATCHES:
+        imgs = rng.randint(0, 256, (b, server.image_size, server.image_size, 3)).astype(np.uint8)
+        server.predict(imgs)
+        runs, count = [], 0
+        for _ in range(RUNS):
+            n, t0 = 0, time.perf_counter()
+            while time.perf_counter() - t0 < REQUEST_WINDOW_S:
+                server.predict(imgs)
+                n += 1
+            runs.append((time.perf_counter() - t0) * 1e3 / n)
+            count += n
+        emit({"dtype": "request", "shape": [b, server.n_hypo], "rows": b * server.n_hypo,
+              "ms": statistics.median(runs), "ms_min_max": [min(runs), max(runs)],
+              "requests": count})
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -495,6 +528,14 @@ def main(argv=None) -> int:
         stem_int8_cases(torch, timed, dev)
     if "stage2_int8" in kinds:
         stage2_int8_cases(torch, timed, dev, args.label)
+    if "request" in kinds:
+        def emit(fields):
+            line = {"label": args.label, "root": os.path.abspath(args.root), **fields,
+                    "build_s": build_s, "card": card}
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+
+        request_cases(torch, dev, args.root, emit)
 
     if args.out:
         with open(args.out, "a") as f:

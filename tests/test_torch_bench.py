@@ -138,7 +138,7 @@ def test_sampler_ab_times_the_smokes_glow_and_lbs_shapes():
     assert sampler_ab.LBS_SHAPES["smpl"] == {
         "v": smpl.N_VERTS, "j": 24, "rows": chip_smoke.PROHMR_BENCH[0] * chip_smoke.PROHMR_BENCH[1]}
     assert set(sampler_ab.KINDS) == {"realnvp", "stage1", "glow", "lbs", "gemm_probe",
-                                     "stage1_probe", "stem_probe", "stem_int8", "stage2_int8"}
+                                     "stage1_probe", "stem_probe", "stem_int8", "stage2_int8", "request"}
     assert sampler_ab.STEM_INT8_BATCHES == chip_smoke.MID_BATCHES
 
 

@@ -1223,3 +1223,124 @@ def test_loader_fed_train_step_launches_the_training_kernels_and_matches_plain(d
     assert out[True][1:] == (n_bn, 1) and out[False][1:] == (0, 0)
     assert math.isfinite(out[True][0])
     assert abs(out[True][0] - out[False][0]) <= 1e-2 * abs(out[False][0]), out
+
+
+# The serving kernels as operators (mhentropy_tpu_torch/ops.py): each at a
+# main-path shape (configs/ho3d.yaml's B = 8, N = 200 request, 256 px).
+OPS = ["stem", "stage1", "realnvp_sample", "lbs_blend", "stage1_int8", "realnvp_sample_q",
+       "glow_sample", "stem_int8", "stage2_int8"]
+
+
+def _op_args(name, dev):
+    from mhentropy_tpu_torch import ops
+
+    g = torch.Generator().manual_seed(31)
+    if name == "stem":
+        conv = torch.randn(64, 3, 7, 7, generator=g) * math.sqrt(2 / 147)
+        bn = torch.nn.BatchNorm2d(64)
+        _rand_bn(bn, g)
+        w, b = (t.to(dev) for t in stem_cuda.fold(conv, bn.weight, bn.bias, bn.running_mean,
+                                                   bn.running_var))
+        return (torch.randn(8, 256, 256, 3, generator=g).to(dev, torch.bfloat16), w, b)
+    if name == "stage1":
+        layer1 = resnet.resnet50().layer1.eval()
+        for m in layer1.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                _rand_bn(m, g)
+        folded = stage1_cuda.fold(layer1.to(dev))
+        return (torch.randn(8, 64, 64, 64, generator=g).to(dev, torch.bfloat16),
+                ops.flatten(folded))
+    if name == "realnvp_sample":
+        torch.manual_seed(31)
+        flow = realnvp.RealNVP(realnvp.RealNVPConfig(dim=45, cond_dim=512, h_dim=512,
+                                                     num_steps=6)).to(dev).eval()
+        with torch.no_grad():
+            cproj = realnvp.cond_cache(flow, realnvp.make_cond(
+                flow, torch.randn(8, 512, device=dev))).float().contiguous()
+            packed = cuda_sampler.pack(flow)
+        return (torch.randn(8, 200, 45, device=dev) * 0.8, cproj, *packed[:7])
+    if name == "lbs_blend":
+        w = torch.rand(778, 16, generator=g)
+        return tuple(t.to(dev) for t in (w / w.sum(1, keepdim=True),
+                                         torch.randn(3, 3, 16, 1600, generator=g),
+                                         torch.randn(3, 16, 1600, generator=g),
+                                         torch.randn(3, 778, 1600, generator=g)))
+    if name == "stage1_int8":
+        return (torch.randn(8, 64, 64, 64, generator=g).to(dev, torch.bfloat16),
+                ops.flatten(stage1_int8_cuda.pack(_int8_sites(g, dev))))
+    if name == "realnvp_sample_q":
+        with torch.no_grad():
+            tree, cq = _int8_flow(8, 512, 6, dev)
+        return (torch.randn(8, 200, 45, device=dev) * 0.8, cq, *tree.kernel)
+    if name == "glow_sample":
+        flow = _o1_glow(glow.GlowConfig(45, 512, 4, 2, 512), 31, dev)
+        with torch.no_grad():
+            packed = cuda_glow_sampler.pack(flow)
+            ctx = cuda_glow_sampler.pack_context(flow, torch.randn(8, 512, device=dev))
+        return (torch.randn(8, 200, 45, device=dev) * 0.8, ctx,
+                *(getattr(packed, f) for f in cuda_glow_sampler.KERNEL_FIELDS))
+    if name == "stem_int8":
+        image = torch.rand(8, 256, 256, 3, generator=g).to(dev) * 2 - 1
+        packed = stem_int8_cuda.pack(_stem_int8_site(g, dev, image))
+        return (image, packed["wq"], packed["inv_a"], packed["scale"], packed["bias"], True)
+    if name == "stage2_int8":
+        packed = stage2_int8_cuda.pack(_stage_sites(g, 2, dev), 2)
+        return (torch.randn(8, 64, 64, 256, generator=g).to(dev, torch.bfloat16),
+                ops.flatten(packed), 2, True)
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_operator_passes_opcheck_on_the_card(dev, name):
+    """Schema, fake implementation (shapes, dtypes, strides against the
+    kernel's outputs) and AOT dispatch, on the CUDA implementation."""
+    torch.library.opcheck(getattr(torch.ops.mhent, name).default, _op_args(name, dev))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_exported_sampler_launches_the_kernels_and_matches_live(dev, int8):
+    """The loaded artifact launches the live call's kernels as often as the
+    live call (float: stem 1, stage 1 3, sampler 1, LBS 1; int8 at q_from 0:
+    int8 stage 1 3 and the int8 sampler in their place) and gives its
+    outputs; it refuses CPU inputs."""
+    from mhentropy_tpu_torch import export
+    from mhentropy_tpu_torch.core import mano
+    from mhentropy_tpu_torch.models import mhent, quant
+    from mhentropy_tpu_torch.models.encoder import EncoderConfig
+
+    cfg = mhent.MHEntConfig(
+        encoder=EncoderConfig(backbone="resnet50", n_latent=(64, 64)),
+        flow=realnvp.RealNVPConfig(dim=45, cond_dim=64, h_dim=64, num_steps=1),
+        feat_dim=64, image_size=64)
+    net = mhent.prepare(mhent.init(cfg, seed=0), dev)
+    model = mano.synthetic_mano_model(0, device=dev)
+    image = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(0)).to(dev) * 2 - 1
+    noise = torch.randn(8, 45, device=dev) * 0.8
+    mods = ("xyz", "uv", "verts")
+    q = None
+    if int8:
+        with torch.no_grad():
+            q = quant.quantize_sampler_into(*quant.quantize_encoder(net.feat_extractor, image,
+                                                                    q_from=0),
+                                            net, image, temp=1.0)
+    live = export.make_sample_fn(model, net, 4, 0.8, mods, quant=q)
+    sampler = export.load_sampler(export.export_sampler(model, net, 2, n=4, temp=0.8, mods=mods,
+                                                        quant=q))
+    assert sampler.device == "cuda"
+    counters = {"stem": stem_cuda, "stage1": stage1_cuda, "sampler": cuda_sampler,
+                "lbs": lbs_cuda, "stage1_int8": stage1_int8_cuda, "sampler_int8": cuda_sampler_int8}
+    outs, counts = {}, {}
+    with torch.no_grad():
+        for side, fn in (("live", live), ("loaded", sampler.call)):
+            before = {k: m.launches for k, m in counters.items()}
+            outs[side] = fn(image, noise)
+            torch.cuda.synchronize()
+            counts[side] = {k: m.launches - before[k] for k, m in counters.items()}
+    want = ({"stem": 1, "stage1": 0, "sampler": 0, "lbs": 1, "stage1_int8": 3, "sampler_int8": 1}
+            if int8 else
+            {"stem": 1, "stage1": 3, "sampler": 1, "lbs": 1, "stage1_int8": 0, "sampler_int8": 0})
+    assert counts["live"] == want and counts["loaded"] == want, counts
+    for m in mods:
+        assert _within(outs["loaded"][m], outs["live"][m].float(), 1e-3), m
+    with pytest.raises(ValueError, match="exported for cuda"):
+        sampler.call(image.cpu(), noise.cpu())

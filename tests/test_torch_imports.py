@@ -43,7 +43,7 @@ def test_port_imports_no_jax():
         "import mhentropy_tpu_torch.data.freihand, mhentropy_tpu_torch.data.ho3d\n"
         "import mhentropy_tpu_torch.data.mixed, mhentropy_tpu_torch.core.camera\n"
         "import mhentropy_tpu_torch.core.rotations, mhentropy_tpu_torch.data.fixtures\n"
-        "import mhentropy_tpu_torch.train_synthetic_demo\n"
+        "import mhentropy_tpu_torch.train_synthetic_demo, mhentropy_tpu_torch.export\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'mhentropy_tpu', 'tools'))\n"
         "print(bad)\n"
