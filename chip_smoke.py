@@ -162,6 +162,23 @@
    tpu.autoresume: resumed at epoch 1, twice the steps, both runs' log and
    scalars); the learning demo at its defaults (BH-MPJPE must fall); the
    phase within 90 s.
+9g. Render and mask likelihood: configs/ho3d.yaml's sample_hypotheses at
+   B=64, N=200, then decode with the "m" and "depth" mods of its 12,800
+   rows (launches stem 1, stage 1 3, bf16 sampler 1, LBS 1): the masks in
+   [0, 1] and covering their projected vertices, the render against a
+   float64 evaluation on the CPU (RENDER_TOL), what it allocates at 12,800
+   rows and, forward and backward, at a train step's 640 (RENDER_MEM_GB),
+   its ms eager and as a CUDA graph beside its bound; then run.py's path
+   with network.use_mask_loss on 9e's RHD tree (configs/rhd.yaml, one epoch)
+   and, where cv2 imports, its HO3D tree (configs/ho3d.yaml, hand_mask at
+   256 px): every objective's log p(m | z) present, finite and not 0, the
+   launches of 9e and no LBS, the checkpoint reloads; one mask train step
+   kernels against plain (bf16 loss, f32 gradient cosines; BN stats sums
+   53, f32 sampler 1, LBS 0 a step) and with the term off (the flow's
+   gradients move); one mask eval batch (stem 1, stage 1 3, bf16 sampler 1,
+   f32 sampler 1); ms a train step with and without the term in
+   alternating windows, a trace of each (busy share, the term's share of
+   device time); the phase within 90 s.
 10. Prints the kernels' JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
@@ -3251,6 +3268,347 @@ def phase_loaders(torch, dev):
     return out
 
 
+# 9g: the renderer and the mask likelihood. At 12,800 rows (the eval batch,
+# B = 64, N = 200) each (rows, V, S) f32 splat factor is 12,800 x 778 x 64 x
+# 4 B = 2.55 GB; the render holds the two factors and up to two temporaries
+# of that size, about 10 GB: RENDER_MEM_GB bounds what a render allocates
+# beyond what was allocated before it. At a train step's 640 rows each factor
+# is 127 MB, and the mask's forward and backward keep a few: 2 GB (the
+# (rows, S, S, V) product a three-operand einsum would form is 8.2 GB there).
+RENDER_MEM_GB = {"eval": 16.0, "train": 2.0}
+# The render on the card (f32, TF32 off) against a float64 evaluation on the
+# CPU of the same vertices, over RENDER_CHECK_ROWS rows: the sums over 778
+# vertices in another precision. Depth is compared where the float64
+# silhouette is outside RENDER_COVER_BAND of the 0.5 cover test, whose side
+# a rounding may flip there.
+RENDER_TOL = {"mask": 1e-5, "depth": 1e-4}
+RENDER_CHECK_ROWS = 64
+RENDER_COVER_BAND = 1e-4
+# The mask term moves the flow's gradients: their relative L2 change with and
+# without use_mask_loss, from the same weights, batch and noise, is at least
+# MASK_GRAD_MOVE.
+MASK_GRAD_MOVE = 1e-4
+MASK_WINDOW_S = 0.5
+MASK_PHASE_S = 90.0
+
+
+def render_bound(rows: int, s: int = 64, v: int = 778, products: int = 4) -> dict:
+    """The render's least time: its inputs (vertices and camera) read and its
+    outputs (mask and depth) written once, or its f32 products (`products`
+    batched (S, V) x (V, S) contractions a row: the mask's one, the depth's
+    three) at the f32 peak, whichever is larger."""
+    n_bytes = rows * (v * 3 + 3) * 4 + 2 * rows * s * s * 4
+    return roofline(n_bytes, 2.0 * rows * s * s * v * products, "f32")
+
+
+def mask_render(torch, dev) -> dict:
+    """configs/ho3d.yaml (resnet50 at 256 px, 12 x 512 RealNVP, seeded weights
+    with an O(1) flow): sample_hypotheses at B = 64, N = 200 (xyz, uv), then
+    decode(mods=("uv", "m", "depth")) of its 12,800 rows; launches, the
+    masks' range and cover of their projected vertices, the render against a
+    float64 evaluation, its memory at 12,800 rows and, forward and backward,
+    at a train step's 640, and its ms (eager and as a CUDA graph)."""
+    from mhentropy_tpu_torch.core import camera, mano, render
+    from mhentropy_tpu_torch.models import mhent
+    from mhentropy_tpu_torch.train import engine
+    from mhentropy_tpu_torch.utils.config import load_cfg
+
+    model_cfg = engine.build_model_config(load_cfg("configs/ho3d.yaml"))
+    net = mhent.prepare(mhent.init(model_cfg, seed=0), dev)
+    o1_flow(torch, net, 20)
+    mhent.prepare(net, dev)
+    model = engine.load_mano_model(device=dev)
+    fold = mano.fold_keypoints(model)
+    g = torch.Generator(device=dev).manual_seed(20)
+    images = torch.randn((EVAL_BATCH, 256, 256, 3), generator=g, device=dev)
+    noise = torch.randn((N_HYPO * EVAL_BATCH, 45), generator=g, device=dev) * 0.8
+    rows = N_HYPO * EVAL_BATCH
+    out = {"rows": rows}
+    with torch.inference_mode():
+        reset_launches()
+        hyp = mhent.sample_hypotheses(model, net, images, n=N_HYPO, temp=0.8, mods=("xyz", "uv"),
+                                      base_noise=noise, fold=fold)
+        th_bt, logs_t = hyp["th_bt"].reshape(rows, -1), hyp["logs_t"].reshape(rows, -1)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dec = mhent.decode(model, net.cfg, th_bt, logs_t, mods=("uv", "m", "depth"), fold=fold)
+        torch.cuda.synchronize()
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["render_gb"] = out["peak_gb"] - before / 1e9
+        out["launches"] = launches = read_launches()
+        want = dict.fromkeys(launches, 0)
+        want.update(stem=1, stage1=3, realnvp_sampler=1, lbs_blend=1)
+        check(launches == want, f"render: launches {launches}, expected {want}")
+        mask, depth, verts = dec["mask"], dec["depth"], dec["verts"]
+        check(mask.shape == depth.shape == (rows, 64, 64)
+              and bool(torch.isfinite(mask).all()) and bool(torch.isfinite(depth).all())
+              and float(mask.min()) >= 0.0 and float(mask.max()) <= 1.0,
+              f"render: mask {tuple(mask.shape)} in [{float(mask.min())}, "
+              f"{float(mask.max())}], depth finite {bool(torch.isfinite(depth).all())}")
+        # Each row's mask covers the pixels of its projected vertices.
+        uv = camera.orth_project(verts, torch.exp(logs_t[:, :1]), logs_t[:, 1:3], inv_norm=False)
+        px = torch.floor((uv + 1.0) / 2.0 * 64).long()
+        inb = ((px >= 0) & (px < 64)).all(-1)
+        flat = (px[..., 1].clamp(0, 63) * 64 + px[..., 0].clamp(0, 63))
+        at_verts = torch.gather(mask.reshape(rows, -1), 1, flat)
+        out["in_bounds_vertex_share"] = float(inb.float().mean())
+        check(bool(inb.any()), "render: no sampled vertex falls on the mask grid")
+        out["min_mask_at_vertices"] = float(at_verts[inb].min())
+        check(out["min_mask_at_vertices"] > 0.5,
+              f"render: the masks do not cover their vertices: {out}")
+        k = RENDER_CHECK_ROWS
+        ref = render.render_mods(verts[:k].double().cpu(), logs_t[:k].double().cpu(),
+                                 mods=("m", "depth"))
+        err_mask = float((mask[:k].cpu().double() - ref["mask"]).abs().max())
+        sure = (ref["mask"] - 0.5).abs() > RENDER_COVER_BAND
+        err_depth = float(((depth[:k].cpu().double() - ref["depth"]).abs() * sure).max())
+        out["max_abs_err"] = {"mask": err_mask, "depth": err_depth,
+                              "depth_pixels_in_cover_band": int((~sure).sum())}
+        check(err_mask <= RENDER_TOL["mask"] and err_depth <= RENDER_TOL["depth"],
+              f"render against float64: {out['max_abs_err']} (tolerance {RENDER_TOL})")
+        del dec, mask, depth, ref, uv, px, at_verts
+        timings = {}
+        for label, mods in (("m", ("m",)), ("m_depth", ("m", "depth"))):
+            fn = lambda mods=mods: render.render_mods(verts, logs_t, mods=mods)  # noqa: E731
+            timings[label] = {"ms": cuda_ms(torch, fn, MASK_WINDOW_S),
+                              "graph_ms": cuda_ms(torch, graphed(torch, fn), MASK_WINDOW_S),
+                              **render_bound(rows, products=1 if label == "m" else 4)}
+        out["ms"] = timings
+    # A train step's 640 rows, forward and backward of the mask.
+    n = N_TRAIN_HYPO * TRAIN_BATCH
+    v640 = verts[:n].clone().requires_grad_()
+    lt640 = logs_t[:n].clone()
+    del verts, hyp, th_bt, logs_t, net, images, noise
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def fwd_bwd():
+        render.render_mods(v640, lt640, mods=("m",))["mask"].sum().backward()
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    out["train_rows"] = n
+    out["train_render_gb"] = torch.cuda.max_memory_allocated() / 1e9 - before / 1e9
+    check(bool(torch.isfinite(v640.grad).all()), "render: non-finite mask gradient at 640 rows")
+    out["train_ms_fwd_bwd"] = cuda_ms(torch, fwd_bwd, MASK_WINDOW_S)
+    check(out["render_gb"] <= RENDER_MEM_GB["eval"]
+          and out["train_render_gb"] <= RENDER_MEM_GB["train"],
+          f"render: {out['render_gb']:.2f} GB at {rows} rows, {out['train_render_gb']:.3f} GB "
+          f"at {n} rows forward and backward (bounds {RENDER_MEM_GB})")
+    return out
+
+
+def mask_train_run(torch, dev, label: str, cfg) -> dict:
+    """loader_run (run.py's path: every kernel's launches, none of the LBS
+    blend, finite losses and metrics, the checkpoint reloads) with every
+    forward_log_p's log p(m | z) kept: each present, finite and not 0."""
+    from mhentropy_tpu_torch.models import mhent
+
+    seen = []
+    flp = mhent.forward_log_p
+
+    def spy(*args, **kwargs):  # keeps each call's log p(m | z), read after the run
+        res = flp(*args, **kwargs)
+        seen.append(res.get("log_p_m_giv_z"))
+        return res
+
+    mhent.forward_log_p = spy
+    try:
+        run = loader_run(torch, dev, f"mask {label}", cfg)
+    finally:
+        mhent.forward_log_p = flp
+    # One objective a train step and a reverse-KL term an eval batch (the
+    # initial eval only: eval_interval 2 and one epoch).
+    want = run["steps"] + run["eval_batches"]
+    check(len(seen) == want
+          and all(t is not None and bool(torch.isfinite(t).all()) and bool((t != 0).all())
+                  for t in seen),
+          f"mask {label}: log p(m | z) in {len(seen)} objectives, expected {want}, each "
+          f"present, finite and not 0")
+    run["log_p_m_giv_z"] = [float(t.detach().mean()) for t in seen]
+    return run
+
+
+def mask_step(torch, dev, exp, train) -> dict:
+    """The first train batch (with its 64 x 64 masks) through one step from
+    the same weights and noise: the kernels against the plain path in bf16
+    (loss within TRAIN_LOSS_TOL) and in f32 (each gradient's cosine at least
+    TRAIN_GRAD_COS, loss within TRAIN_F32_LOSS_TOL), launches a step BN stats
+    sums 53, f32 sampler 1, LBS 0; the mask term moves the flow's gradients;
+    ms a step with and without the term in alternating windows, and a trace
+    of each (busy share, the term's share of device time)."""
+    from mhentropy_tpu_torch.data import common
+    from mhentropy_tpu_torch.train import engine
+
+    train.set_epoch(0)
+    batches = common.batches(train, TRAIN_BATCH, shuffle=True, seed=exp.seed, pad_remainder=True,
+                             device=dev)
+    image, target = engine._prep_batch(*next(batches))
+    batches.close()
+    check(target["mask"].shape == (TRAIN_BATCH, 64, 64),
+          f"mask step: the batch's mask {tuple(target['mask'].shape)}")
+    g = torch.Generator(device=dev).manual_seed(13)
+    noise = torch.randn((N_TRAIN_HYPO * TRAIN_BATCH, 45), generator=g, device=dev)
+    mask_cfg = exp.net.cfg
+    variants = {"kernels": (True, None, True), "plain": (False, None, True),
+                "kernels_f32": (True, torch.float32, True), "plain_f32": (False, torch.float32, True),
+                "kernels_f32_no_mask": (True, torch.float32, False)}
+    steps = {}
+    for name, (kernels, dtype, use_mask) in variants.items():
+        net = copy.deepcopy(exp.net)
+        net.set_kernels(kernels)
+        net.cfg = mask_cfg._replace(use_mask_loss=use_mask)
+        if dtype is not None:
+            net.feat_extractor.res.dtype = dtype
+        reset_launches()
+        steps[name] = one_step_grads(torch, net, exp.model, exp.fold, image, target, noise)
+        torch.cuda.synchronize()
+        steps[name] += (read_launches(),)
+        del net
+    want = dict.fromkeys(steps["kernels"][3], 0)
+    want.update(bn_stats_sums=53, realnvp_sampler_f32=1)
+    for name in ("kernels", "kernels_f32"):
+        check(steps[name][3] == want, f"mask step {name}: launches {steps[name][3]}, "
+                                      f"expected {want}")
+    for name in ("plain", "plain_f32"):
+        check(not any(steps[name][3].values()), f"mask step {name}: launches {steps[name][3]}")
+    out = {"launches_per_step": steps["kernels"][3]}
+    for name, ref in (("kernels", "plain"), ("kernels_f32", "plain_f32")):
+        loss, grads, _, _ = steps[name]
+        ref_loss, ref_grads, _, _ = steps[ref]
+        cos = cosines(torch, grads, ref_grads)
+        lowest = min(cos, key=cos.get)
+        out[name] = {"loss": loss, "ref_loss": ref_loss,
+                     "loss_rel": abs(loss - ref_loss) / abs(ref_loss),
+                     "min_grad_cosine": cos[lowest], "min_grad_cosine_param": lowest,
+                     "median_grad_cosine": statistics.median(cos.values())}
+        print(f"mask step {name} vs {ref}: {json.dumps(out[name])}", flush=True)
+    check(out["kernels"]["loss_rel"] <= TRAIN_LOSS_TOL, f"mask step kernels: {out['kernels']}")
+    f32 = out["kernels_f32"]
+    check(f32["min_grad_cosine"] >= TRAIN_GRAD_COS and f32["loss_rel"] <= TRAIN_F32_LOSS_TOL,
+          f"mask step kernels_f32: {f32}")
+    with_m, without = steps["kernels_f32"][1], steps["kernels_f32_no_mask"][1]
+    flow = [k for k in with_m if k.startswith("q_z_giv_i.")]
+    moved = max(float((with_m[k] - without[k]).norm() / without[k].norm().clamp_min(1e-30))
+                for k in flow)
+    out["flow_grad_rel_change_from_mask"] = moved
+    check(moved >= MASK_GRAD_MOVE, f"mask step: the mask term moves the flow's gradients by "
+                                   f"{moved} (at least {MASK_GRAD_MOVE})")
+    del steps
+
+    # ms a step with and without the term, alternating, and a trace of each.
+    net, step = exp.net.train(), exp._train_step
+
+    def run(use_mask):
+        net.cfg = mask_cfg._replace(use_mask_loss=use_mask)
+        return step(image, target, noise)
+
+    fns = {"mask": lambda: run(True), "no_mask": lambda: run(False)}
+    try:
+        out["ms_per_step"] = windows_ms(torch, fns, MASK_WINDOW_S)
+        traces = {k: trace_steps(torch, fn, out["ms_per_step"][k]["median"], n=TRACED,
+                                 label=f"mask train step ({k})") for k, fn in fns.items()}
+    finally:
+        net.cfg = mask_cfg
+    out["traces"] = {k: {key: t[key] for key in ("device_ms_per_step", "busy_share",
+                                                  "device_ops_per_step", "layer_ms_per_step")}
+                     for k, t in traces.items()}
+    dm, dn = traces["mask"]["device_ms_per_step"], traces["no_mask"]["device_ms_per_step"]
+    out["mask_term_device_share"] = (dm - dn) / dm
+    return out
+
+
+def mask_eval_batch(torch, dev, exp, evald) -> dict:
+    """One eval batch with its masks through the Experiment's eval step
+    (N = training.test_samples): launches stem 1, stage 1 3, the bf16 draw 1,
+    the reverse-KL f32 draw 1 and no other (the likelihood's mesh on the
+    plain blend); every metric finite."""
+    from mhentropy_tpu_torch.data import common
+    from mhentropy_tpu_torch.models import mhent
+    from mhentropy_tpu_torch.train import engine
+
+    tr = exp.cfg.training
+    exp.net.eval()
+    mhent.refresh_kernel_weights(exp.net)
+    step = engine.make_eval_step(exp.model, exp.net, tr.test_samples, tr.eval_temp, fold=exp.fold,
+                                 generator=exp.gen)
+    batches = common.batches(evald, TRAIN_BATCH, pad_remainder=True, device=dev)
+    image, target = next(batches)
+    batches.close()
+    check("mask" in target, f"mask eval: the batch has no mask: {sorted(target)}")
+    draws = exp._draws(target, TRAIN_BATCH)
+    hypo = torch.randn((tr.test_samples * TRAIN_BATCH, 45), generator=exp.gen, device=dev)
+    reset_launches()
+    mets = step(image, target, *draws, hypo * tr.eval_temp)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = dict.fromkeys(launches, 0)
+    want.update(stem=1, stage1=3, realnvp_sampler=1, realnvp_sampler_f32=1)
+    check(launches == want, f"mask eval batch: launches {launches}, expected {want}")
+    mets = {k: float(v) for k, v in mets.items()}
+    check(all(math.isfinite(v) for v in mets.values()), f"mask eval batch: metrics {mets}")
+    return {"launches": launches, "metrics": mets}
+
+
+def phase_mask(torch, dev):
+    """9g: the render of sampled hypotheses at the eval batch's 12,800 rows
+    (mask_render); run.py's path with network.use_mask_loss on the RHD tree
+    that 9e writes (configs/rhd.yaml, one epoch) and, where cv2 imports, on
+    its HO3D tree (configs/ho3d.yaml, hand_mask at 256 px pooled onto the
+    64 x 64 render); one mask train step kernels against plain (mask_step)
+    and one eval batch (mask_eval_batch). Fails if any part fails or the
+    phase takes more than MASK_PHASE_S."""
+    import tempfile
+
+    from mhentropy_tpu_torch.data import fixtures
+
+    t0 = time.perf_counter()
+    out = {"render": mask_render(torch, dev)}
+    libs = {name: importable(name) for name in ("PIL", "cv2")}
+    check(libs["PIL"], "mask: RHD's train mode jitters hue through Pillow, which does not import")
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        fixtures.write_rhd(data, *LOADER_RHD)
+        plan = [("rhd", "configs/rhd.yaml")]
+        if libs["cv2"]:
+            fixtures.write_ho3d(data, *LOADER_HO3D)
+            plan.append(("ho3d", "configs/ho3d.yaml"))
+        out["not_run"] = {} if libs["cv2"] else {"ho3d": "cv2 absent"}
+        runs = {}
+        for name, yaml in plan:
+            cfg = loader_cfg(yaml, data, os.path.join(tmp, "model", name), 1, None)
+            cfg.network.use_mask_loss = True
+            runs[name] = mask_train_run(torch, dev, name, cfg)
+        exp = runs["rhd"]["exp"]
+        out["train_step"] = mask_step(torch, dev, exp, runs["rhd"]["train"])
+        out["eval_batch"] = mask_eval_batch(torch, dev, exp, runs["rhd"]["eval"])
+        out["runs"] = {k: {key: r[key] for key in ("launches", "run_s", "losses", "eval_summary",
+                                                   "steps", "eval_batches", "log_p_m_giv_z")}
+                       for k, r in runs.items()}
+        for r in runs.values():
+            r["exp"].close()
+        del runs, exp
+    out["wall_s"] = time.perf_counter() - t0
+    r, s = out["render"], out["train_step"]
+    summary = {"render_ms": {k: [v["ms"], v["graph_ms"], v["bound_ms"]]
+                             for k, v in r["ms"].items()},
+               "render_gb": [r["render_gb"], r["train_render_gb"]],
+               "render_err": r["max_abs_err"],
+               "train_ms": {k: v["median"] for k, v in s["ms_per_step"].items()},
+               "busy": {k: v["busy_share"] for k, v in s["traces"].items()},
+               "mask_term_device_share": s["mask_term_device_share"],
+               "kernels_vs_plain": {k: s[k]["loss_rel"] for k in ("kernels", "kernels_f32")},
+               "f32_min_cos": s["kernels_f32"]["min_grad_cosine"],
+               "flow_grad_change": s["flow_grad_rel_change_from_mask"],
+               "ran": sorted(out["runs"]), "not_run": out["not_run"], "wall_s": out["wall_s"]}
+    print(f"mask phase: {json.dumps(summary)}", flush=True)
+    check(out["wall_s"] <= MASK_PHASE_S, f"mask: the phase took {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3409,6 +3767,19 @@ def main() -> int:
     loaders = phase_loaders(torch, dev)
     print(f"loaders: ran {sorted(loaders['runs'])}, not run {loaders['not_run']} [{card}]",
           flush=True)
+    mask = phase_mask(torch, dev)
+    for label, t in mask["render"]["ms"].items():
+        print(f"render ({label}) at {mask['render']['rows']} rows: {t['ms']:.3f} ms eager, "
+              f"{t['graph_ms']:.3f} graph, bound {t['bound_ms']:.3f} ({t['bound_by']}) [{card}]",
+              flush=True)
+    print(f"render: {mask['render']['render_gb']:.2f} GB at {mask['render']['rows']} rows, "
+          f"{mask['render']['train_render_gb']:.3f} GB forward and backward at "
+          f"{mask['render']['train_rows']} ({mask['render']['train_ms_fwd_bwd']:.3f} ms) [{card}]",
+          flush=True)
+    t = mask["train_step"]["ms_per_step"]
+    print("mask train step: " + "; ".join(
+        f"{k} median {v['median']:.3f} ms [{v['min']:.3f}, {v['max']:.3f}]" for k, v in t.items())
+        + f" over {RUNS} windows of >= {MASK_WINDOW_S} s [{card}]", flush=True)
 
     path_launches = {"stem": launches, "stage1": launches, "realnvp_sampler": launches,
                      "lbs_blend": verts_launches, "stage1_int8": int8_launches[f"b{BATCH}"],
@@ -3435,7 +3806,11 @@ def main() -> int:
                    **{f"loader_{k}_train_baseline": r["launches"]
                       for k, r in loaders["runs"].items()},
                    "loader_train_step": loaders["kernels_vs_plain"]["launches_per_step"],
-                   **{f"export_{k}": r["launches"] for k, r in exported["variants"].items()}}
+                   **{f"export_{k}": r["launches"] for k, r in exported["variants"].items()},
+                   "render": mask["render"]["launches"],
+                   "mask_train": mask["train_step"]["launches_per_step"],
+                   "mask_eval": mask["eval_batch"]["launches"],
+                   **{f"mask_{k}_train_baseline": r["launches"] for k, r in mask["runs"].items()}}
     kernels = [{"name": r["name"], "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": path_launches[r["name"]][r["name"]],
                 "launches_by_path": {p: c[r["name"]] for p, c in slice_paths.items()
@@ -3467,7 +3842,7 @@ def main() -> int:
                                                "kernel_vs_plain_max_abs": verts_err},
                       "train": train, "prohmr": humans, "rle": rle_res, "det": det_res,
                       "glow": {k: v for k, v in glow_res.items() if k != "kernel"},
-                      "bench": bench_line, "loaders": loaders}),
+                      "bench": bench_line, "loaders": loaders, "mask": mask}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

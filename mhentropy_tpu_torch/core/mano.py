@@ -4,7 +4,9 @@ Port of mhentropy_tpu/core/mano.py: `ManoModel` :88, `load_mano_pkl` :151
 (with the chumpy stub :112), `find_mano_assets` :173, `synthetic_mano_model`
 :184, `_chain_nl` :227, `_lbs_blend_nl` :313, `mano_forward` :366,
 `_folded_kp26_nl` :404 and `mano_decode` :449. The blend runs the port's
-`lbs_blend` kernel on CUDA tensors (core/lbs_cuda.py).
+`lbs_blend` kernel on CUDA tensors (core/lbs_cuda.py), unless the caller
+asks for the plain einsums (`mano_decode(lbs_kernel=False)`, JAX's
+`pallas_lbs=False`), as the training objective does.
 
 Tensors keep the reference's batch-last layout ((3, 16, B) joints, (3, 778, B)
 mesh planes), so each step reads like its JAX counterpart. Keypoints come from
@@ -297,18 +299,23 @@ def _folded_kp26_nl(fold: KeypointFold, chain_r_nl, skin_t_nl, beta, pose_map):
     return kp + torch.einsum("rcjb,jkcb->rkb", chain_r_nl, q)
 
 
-def _lbs_blend_nl(model: ManoModel, chain_r_nl, skin_t_nl, v_posed_nl):
-    """Per-vertex LBS blend, batch-last (3, 778, B): the `lbs_blend` kernel
-    on CUDA tensors, the einsums on CPU ones (core/lbs_cuda.py)."""
-    return lbs_cuda.lbs_blend(model.lbs_weights, chain_r_nl, skin_t_nl, v_posed_nl)
+def _lbs_blend_nl(model: ManoModel, chain_r_nl, skin_t_nl, v_posed_nl, kernel: bool = True):
+    """Per-vertex LBS blend, batch-last (3, 778, B): with `kernel`, the
+    `lbs_blend` operator (its kernel on CUDA tensors, the einsums on CPU
+    ones; core/lbs_cuda.py), which has no autograd formula; without, the
+    einsums on any device, as JAX's `pallas_lbs=False` (its training path's
+    decode)."""
+    if kernel:
+        return lbs_cuda.lbs_blend(model.lbs_weights, chain_r_nl, skin_t_nl, v_posed_nl)
+    return lbs_cuda.lbs_blend_plain(model.lbs_weights, chain_r_nl, skin_t_nl, v_posed_nl)
 
 
-def _mesh_nl(model: ManoModel, chain_r_nl, skin_t_nl, beta, pose_map):
+def _mesh_nl(model: ManoModel, chain_r_nl, skin_t_nl, beta, pose_map, lbs_kernel: bool = True):
     """Skinned mesh (3, 778, B) in metres, uncentred."""
     v_shaped_nl = model.v_template.T[:, :, None] + torch.einsum(
         "vdc,bc->dvb", model.shapedirs, beta)
     v_posed_nl = v_shaped_nl + torch.einsum("vdp,bp->dvb", model.posedirs, pose_map)
-    return _lbs_blend_nl(model, chain_r_nl, skin_t_nl, v_posed_nl)
+    return _lbs_blend_nl(model, chain_r_nl, skin_t_nl, v_posed_nl, lbs_kernel)
 
 
 def mano_forward(model: ManoModel, theta: torch.Tensor, beta: torch.Tensor,
@@ -332,13 +339,16 @@ def mano_forward(model: ManoModel, theta: torch.Tensor, beta: torch.Tensor,
 
 def mano_decode(model: ManoModel, theta: torch.Tensor, beta: torch.Tensor,
                 skeidx: str = "RHD", config: ManoConfig = ManoConfig(),
-                fold: KeypointFold | None = None, with_mesh: bool = False) -> dict:
+                fold: KeypointFold | None = None, with_mesh: bool = False,
+                lbs_kernel: bool = True) -> dict:
     """(B, 48) pose, (B, 10) shape -> keypoints in mm (parity:
     hand/ManoLayer.py:45-60 of the reference).
 
     Returns 'joints' (regressed 21 keypoints) and 'mano_joints' (kinematic
     chain 21 keypoints), both (B, 21, 3) in the requested skeleton order, and
-    'mesh' (B, 778, 3) when with_mesh.
+    'mesh' (B, 778, 3) when with_mesh. lbs_kernel: the mesh's blend through
+    the `lbs_blend` operator (the default), or through the plain einsums,
+    which autograd differentiates (JAX's `pallas_lbs`).
     """
     if skeidx not in ("RHD", "BigHand", "FreiHand"):
         raise ValueError(f"unknown skeidx {skeidx!r}; expected RHD | BigHand | FreiHand")
@@ -361,7 +371,7 @@ def mano_decode(model: ManoModel, theta: torch.Tensor, beta: torch.Tensor,
 
     out = {"beta": beta, "theta": theta}
     if with_mesh:
-        verts_nl = _mesh_nl(model, chain_r_nl, skin_t_nl, beta, pose_map)
+        verts_nl = _mesh_nl(model, chain_r_nl, skin_t_nl, beta, pose_map, lbs_kernel)
         out["mesh"] = ((verts_nl - center_nl[:, None]) * 1000.0).permute(2, 1, 0)
 
     if skeidx == "RHD":

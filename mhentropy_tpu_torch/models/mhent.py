@@ -10,10 +10,12 @@ eval step's log p, with the entropy term and the chamfer branch) and
 the det regressor (`det_dims` :94, no flow, `combine_z`'s det branch, zero
 log q in `sample_q_z` :221), `log_q_z` :327, `kld_weight` :566,
 `sample_p_z` :573, `evidence_from_target` :598 and `set_evidences` :613,
-and the glow regressor (`init` :125-134, `sample_q_z` :293-321, `log_q_z`
-:332-335): a ConditionalGlow over theta45, whose eval draw on the card
-runs the Glow sampler kernel and whose reverse-KL draw runs the plain Glow
-in train mode, with the coupling nets' dropout.
+the mask / depth mods of `decode` :375-380 and the mask likelihood of
+`forward_log_p` :416-437 (core/render.py), and the glow regressor (`init`
+:125-134, `sample_q_z` :293-321, `log_q_z` :332-335): a ConditionalGlow
+over theta45, whose eval draw on the card runs the Glow sampler kernel and
+whose reverse-KL draw runs the plain Glow in train mode, with the coupling
+nets' dropout.
 
 The module's parameter names are the reference's `encoderRGB` state_dict:
 `feat_extractor.res.*`, `feat_extractor.l1.0.*`, `q_z_giv_i.*`,
@@ -29,7 +31,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from mhentropy_tpu_torch.core import camera, mano, skeletons
+from mhentropy_tpu_torch.core import camera, mano, render, skeletons
 from mhentropy_tpu_torch.core.mano import ManoConfig, ManoModel
 from mhentropy_tpu_torch.flows import (cuda_glow_sampler, cuda_sampler, cuda_sampler_int8, glow,
                                        priors, realnvp)
@@ -70,6 +72,10 @@ class MHEntConfig(NamedTuple):
     glow_blocks: int = 2
     use_chamfer_loss: bool = False
     w_chamfer: float = 10.0
+    # The mask likelihood p(m | z): the rendered silhouette against the
+    # target's hand mask, a Laplace of scale b_mask per pixel.
+    use_mask_loss: bool = False
+    b_mask: float = 0.02
 
     def det_dims(self) -> int:
         """The det head's width: theta3, beta, log s and t, and theta45 too
@@ -101,8 +107,9 @@ class MHEnt(nn.Module):
         """Route the float CUDA path through its kernels (stem, stage 1, the
         train-mode BN sums, the bf16 and f32 samplers or the Glow sampler;
         the default) or through their plain PyTorch versions, e.g. to
-        compare the two. The LBS blend and the int8 path route by device
-        alone."""
+        compare the two. The int8 path routes by device alone, the LBS
+        blend by device and caller (`decode(lbs_kernel=)`: the training
+        objective's mesh takes the plain blend)."""
         self.feat_extractor.res.kernels = enabled
         self.kernels = enabled
 
@@ -279,42 +286,55 @@ def log_q_z(net: MHEnt, z: torch.Tensor, feat_rows: torch.Tensor) -> torch.Tenso
 
 def decode(model: ManoModel, cfg: MHEntConfig, th_bt: torch.Tensor, logs_t: torch.Tensor,
            mods=("uv",), inv_norm: bool = False,
-           fold: mano.KeypointFold | None = None) -> dict:
+           fold: mano.KeypointFold | None = None, lbs_kernel: bool = True) -> dict:
     """MANO decode + normalisation + orthographic projection.
 
     th_bt (R, 58), logs_t (R, 3) -> xyz (R, K, 3) normalised-relative,
-    bone (R,), uv (R, K, 2) if requested, verts (R, 778, 3) if requested.
+    bone (R,), uv (R, K, 2) if requested, verts (R, 778, 3) if requested or
+    rendered, and the rendered mask / depth (R, 64, 64) for the "m" /
+    "depth" mods. lbs_kernel: the mesh's blend through the `lbs_blend`
+    operator, or the plain einsums that autograd differentiates (JAX's
+    `pallas_lbs`; mano.mano_decode).
     """
-    if "m" in mods or "depth" in mods:
-        raise NotImplementedError("the mask/depth renderer is not ported yet (ROADMAP queue 1, "
-                                  "\"Rendering and viz\")")
+    rendered = "m" in mods or "depth" in mods
+    with_mesh = rendered or "verts" in mods
     theta, beta = th_bt[:, :48], th_bt[:, -10:]
-    out = mano.mano_decode(model, theta, beta, skeidx="RHD", fold=fold,
-                           with_mesh="verts" in mods)
+    out = mano.mano_decode(model, theta, beta, skeidx="RHD", fold=fold, with_mesh=with_mesh,
+                           lbs_kernel=lbs_kernel)
     normed, root, bone = camera.batch_normalize_pose3d(
         out["mano_joints"], skeletons.ROOT_IDX[cfg.ds],
         norm_idx=skeletons.NORM_IDX[cfg.ds], return_st=True)
     result = {"xyz": normed, "bone": bone}
-    if "verts" in mods:
+    if with_mesh:
         result["verts"] = (out["mesh"] - root) / bone[:, None, None]
     if "uv" in mods:
         scale = torch.exp(logs_t[:, 0:1])
         result["uv"] = camera.orth_project(normed, scale, logs_t[:, 1:3], cfg.image_size,
                                            inv_norm=inv_norm)
+    if rendered:
+        result.update(render.render_mods(result["verts"], logs_t, mods=mods))
     return result
 
 
 def forward_log_p(model: ManoModel, cfg: MHEntConfig, z: torch.Tensor, y: dict,
                   mods=("uv",), fold: mano.KeypointFold | None = None) -> dict:
     """log p(y | z) + log p~(z) per row: the Laplace-with-deadzone
-    reprojection likelihoods on visible keypoints and the three z-priors,
-    over the temperature.
+    reprojection likelihoods on visible keypoints, with cfg.use_mask_loss
+    the mask likelihood, and the three z-priors, over the temperature.
 
     z: (N * B, 61) hypothesis-major rows; y: crop_uv (B, 42), pose3d (B, 63),
-    vis (B, 21).
+    vis (B, 21), and for the mask likelihood hand_mask (HO3D's spelling,
+    at the crop's side) or mask (RHD's, 64 x 64), (B, S', S'); without
+    either the term is absent. The mesh is decoded through the plain blend,
+    as JAX's training decode does: the term is differentiated.
     """
     pr = make_priors(cfg, z.device)
-    dec = decode(model, cfg, z[:, :TH_BT], z[:, -3:], mods=mods, inv_norm=False, fold=fold)
+    mask_key = "hand_mask" if "hand_mask" in y else ("mask" if "mask" in y else None)
+    with_mask = cfg.use_mask_loss and mask_key is not None
+    logs_t = z[:, -3:]
+    dec = decode(model, cfg, z[:, :TH_BT], logs_t,
+                 mods=tuple(mods) + (("verts",) if with_mask else ()), inv_norm=False, fold=fold,
+                 lbs_kernel=False)
     b = y["crop_uv"].shape[0]
     n = z.shape[0] // b
     out = {}
@@ -326,6 +346,17 @@ def forward_log_p(model: ManoModel, cfg: MHEntConfig, z: torch.Tensor, y: dict,
         weights = y["vis"].repeat(n, 1).repeat_interleave(d, dim=1)
         out[f"log_p_{mod}_giv_z"] = priors.laplace_deadzone_log_prob(
             y[gt_key].repeat(n, 1), mu, b_scale, weights=weights)
+    if with_mask:
+        mask = render.render_mods(dec["verts"], logs_t, mods=("m",))["mask"]
+        gt = y[mask_key].to(mask.dtype)
+        s = mask.shape[-1]
+        if gt.shape[-1] != s:
+            # The crop-resolution mask, max-pooled onto the render grid.
+            f = gt.shape[-1] // s
+            gt = gt.reshape(b, s, f, s, f).amax((2, 4))
+        err = (mask - gt.repeat(n, 1, 1)).reshape(z.shape[0], -1)
+        out["log_p_m_giv_z"] = priors.laplace_deadzone_log_prob(
+            err, torch.zeros_like(err), cfg.b_mask) / err.shape[1]
     out["log_p_th3"] = pr["th3_ref"].log_prob(z[:, :3])
     out["log_p_th45"] = pr["th45_ref"].log_prob(z[:, 3:48])
     out["log_p_bt"] = pr["bt"].log_prob(z[:, 48:58])

@@ -68,9 +68,6 @@ def _fused_bn_mode(cfg):
 def build_model_config(cfg) -> MHEntConfig:
     """YAML schema -> MHEntConfig."""
     net = cfg.network
-    if net.use_mask_loss:
-        raise NotImplementedError("the mask likelihood needs the renderer, which is not ported "
-                                  "yet (ROADMAP queue 1, \"Rendering and viz\")")
     enc = _encoder_config(cfg)
     flow = RealNVPConfig(
         dim=45,
@@ -102,6 +99,8 @@ def build_model_config(cfg) -> MHEntConfig:
         glow_blocks=int(net.glow_blocks),
         use_chamfer_loss=bool(net.use_chamfer_loss),
         w_chamfer=float(net.w_chamfer),
+        use_mask_loss=bool(net.use_mask_loss),
+        b_mask=float(net.b_mask),
     )
 
 
@@ -523,16 +522,23 @@ class Experiment:
                       "mixed_ho3d_rhd": mixed}.get(name)
             if loader is None:
                 raise NotImplementedError(name)
-            # The mask likelihood, which would request the hand masks, is
-            # refused by build_model_config.
-            heavy = None if tpu.target_fields == "full" else set()
+            use_mask = getattr(self.model_cfg, "use_mask_loss", False)
+            heavy = None
+            if tpu.target_fields != "full":
+                # The mask likelihood reads the hand mask: HO3D's hand_mask
+                # or RHD's mask (each loader gates on its own key).
+                heavy = {"hand_mask", "mask"} if use_mask else set()
             kw = dict(heavy_fields=heavy, image_u8=bool(tpu.image_u8),
                       device_st=bool(tpu.device_st))
             if name == "mixed_ho3d_rhd":
                 # A loss input present on one member only fails here, not
                 # on the first mixed batch.
-                kw["required"] = ({"object_verts"}
-                                  if getattr(self.model_cfg, "use_chamfer_loss", False) else set())
+                required = set()
+                if getattr(self.model_cfg, "use_chamfer_loss", False):
+                    required.add("object_verts")
+                if use_mask:
+                    required.add("hand_mask")
+                kw["required"] = required
             train = loader.load(tpu.data_dir, mode="training", prefix_cache=tpu.sample_cache,
                                 **kw) if "train" in which else None
             evald = loader.load(tpu.data_dir, mode="evaluation", **kw) \

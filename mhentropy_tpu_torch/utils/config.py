@@ -42,7 +42,7 @@ DEFAULTS = {
                 "regressor": "realnvp", "h_dims": [64, 64], "num_steps": 3,
                 "w_reg_th": 50, "b_2d": 0.03, "b_3d": 0.03, "entropy": True, "T": 1.0,
                 "th3_ref_alpha": 5.0, "bt_alpha": 50.0, "use_chamfer_loss": False,
-                "w_chamfer": 10.0, "use_mask_loss": False,
+                "w_chamfer": 10.0, "use_mask_loss": False, "b_mask": 0.02,
                 # The glow regressor's flow size and the KLD-weight schedule.
                 "glow_hidden": 512, "glow_layers": 4, "glow_blocks": 2,
                 "kld_w": 1.0, "kld_w_annealing": [1.0, 24000],

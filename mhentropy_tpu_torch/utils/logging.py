@@ -5,7 +5,8 @@ reference's meter (utils.py:75-91) with its quirk of dropping zero-valued
 updates, on by default for log parity; `get_logger` (:52), python logging
 to a file and stdout; `ScalarWriter` (:79), TensorBoard scalars through
 tensorboardX where it imports (a lazy, optional import) and always a JSONL
-record, `scalars.jsonl`. The port keeps its own copy so that it imports
+record, `scalars.jsonl`; and the run-option printers `print_args` (:109)
+and `save_args` (:118). The port keeps its own copy so that it imports
 nothing of the JAX package.
 """
 
@@ -98,3 +99,45 @@ class ScalarWriter:
         if self._tb is not None:
             self._tb.close()
         self._jsonl.close()
+
+
+def print_args(args):
+    """(manopth/argutils.py:8-13)."""
+    opts = vars(args) if not isinstance(args, dict) else args
+    print("======= Options ========")
+    for k, v in sorted(opts.items()):
+        print(f"{k}: {v}")
+    print("========================")
+
+
+def save_args(args, save_folder: str, opt_prefix: str = "opt",
+              verbose: bool = True):
+    """Persist run options + git state (manopth/argutils.py:16-51)."""
+    import datetime
+    import pickle
+    import subprocess
+
+    opts = vars(args) if not isinstance(args, dict) else args
+    os.makedirs(save_folder, exist_ok=True)
+    opt_path = os.path.join(save_folder, f"{opt_prefix}.txt")
+    with open(opt_path, "a") as fp:
+        fp.write("====== Options ======\n")
+        for k, v in sorted(opts.items()):
+            fp.write(f"{k}: {v}\n")
+        fp.write("=====================\n")
+        fp.write(f"launched {sys.argv[0]} at {datetime.datetime.now()}\n")
+        try:
+            label = subprocess.check_output(
+                ["git", "describe", "--always"], stderr=subprocess.DEVNULL
+            ).strip()
+            commit = subprocess.check_output(
+                ["git", "rev-parse", "HEAD"], stderr=subprocess.DEVNULL
+            ).strip()
+            fp.write("=== Git info ====\n")
+            fp.write(f"{label.decode()}\ncommit : {commit.decode()}\n")
+        except Exception:
+            pass
+    with open(os.path.join(save_folder, f"{opt_prefix}.pkl"), "wb") as fp:
+        pickle.dump(opts, fp)
+    if verbose:
+        print(f"Saved options to {opt_path}")

@@ -1344,3 +1344,90 @@ def test_exported_sampler_launches_the_kernels_and_matches_live(dev, int8):
         assert _within(outs["loaded"][m], outs["live"][m].float(), 1e-3), m
     with pytest.raises(ValueError, match="exported for cuda"):
         sampler.call(image.cpu(), noise.cpu())
+
+
+def test_render_at_the_eval_rows_matches_float64(dev):
+    """The splatting render (core/render.py) of 12,800 rows, the eval
+    batch's B = 64, N = 200, in f32 on the card against a float64
+    evaluation on the CPU of 64 of its rows: the mask within 1e-5, the depth
+    within 1e-4 where the float64 silhouette is more than 1e-4 from the 0.5
+    cover test (chip_smoke.RENDER_TOL). What it allocates beyond what was
+    allocated before: at most 16 GB at 12,800 rows (two (rows, V, S) f32
+    factors of 2.55 GB and up to two temporaries of that size) and 2 GB for
+    the mask's forward and backward at a train step's 640 rows
+    (chip_smoke.RENDER_MEM_GB)."""
+    from mhentropy_tpu_torch.core import render
+
+    g = torch.Generator().manual_seed(3)
+    rows = 12800
+    verts = (torch.randn(rows, 778, 3, generator=g) * 0.5).to(dev)
+    logs_t = torch.cat([torch.log(torch.rand(rows, 1, generator=g) * 0.2 + 0.3),
+                        torch.randn(rows, 2, generator=g) * 0.1], 1).to(dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        out = render.render_mods(verts, logs_t, mods=("m", "depth"))
+    torch.cuda.synchronize()
+    assert (torch.cuda.max_memory_allocated() - before) / 1e9 <= 16.0
+    mask, depth = out["mask"], out["depth"]
+    assert mask.shape == depth.shape == (rows, 64, 64)
+    assert torch.isfinite(mask).all() and torch.isfinite(depth).all()
+    assert 0.0 <= float(mask.min()) and float(mask.max()) <= 1.0 and float(mask.max()) > 0.5
+    ref = render.render_mods(verts[:64].double().cpu(), logs_t[:64].double().cpu(),
+                             mods=("m", "depth"))
+    assert (mask[:64].cpu().double() - ref["mask"]).abs().max() <= 1e-5
+    sure = (ref["mask"] - 0.5).abs() > 1e-4
+    assert ((depth[:64].cpu().double() - ref["depth"]).abs() * sure).max() <= 1e-4
+    del out, mask, depth
+    v640 = verts[:640].clone().requires_grad_()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    render.render_mods(v640, logs_t[:640], mods=("m",))["mask"].sum().backward()
+    torch.cuda.synchronize()
+    assert (torch.cuda.max_memory_allocated() - before) / 1e9 <= 2.0
+    assert torch.isfinite(v640.grad).all() and v640.grad.abs().max() > 0
+
+
+def test_mask_train_step_launches_no_lbs_and_matches_plain(dev):
+    """One train step with network.use_mask_loss (64 x 64 masks on the
+    card) from the same weights, batch and noise: the kernel path launches
+    the BN sums (one a BatchNorm) and the f32 sampler (1) and not the LBS
+    blend (the likelihood's mesh takes the plain blend, which autograd
+    differentiates), and its loss agrees with the plain path's within
+    chip_smoke.TRAIN_LOSS_TOL (1e-2 relative, bf16 backbone); the
+    gradients are finite."""
+    import copy
+
+    from mhentropy_tpu_torch.core import mano
+    from mhentropy_tpu_torch.data import synthetic
+    from mhentropy_tpu_torch.models import mhent
+    from mhentropy_tpu_torch.models.encoder import EncoderConfig
+    from mhentropy_tpu_torch.train import engine
+
+    cfg = mhent.MHEntConfig(
+        encoder=EncoderConfig(backbone="resnet18", n_latent=(64, 64)),
+        flow=realnvp.RealNVPConfig(dim=45, cond_dim=64, h_dim=64, num_steps=1),
+        feat_dim=64, image_size=64, n_train_hypotheses=3, use_mask_loss=True)
+    model = mano.synthetic_mano_model(0, device=dev)
+    data = synthetic.make_dataset(mano.synthetic_mano_model(0), n=4, image_size=64, seed=0)
+    image, target = next(synthetic.batches(data, 4, device=dev))
+    g = torch.Generator().manual_seed(2)
+    target = dict(target, mask=(torch.rand(4, 64, 64, generator=g) > 0.5).float().to(dev))
+    noise = torch.randn(12, 45, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    base = mhent.init(cfg, seed=0)
+    out = {}
+    for kernels in (True, False):
+        net = mhent.prepare(copy.deepcopy(base), dev, masters=True).train()
+        net.set_kernels(kernels)
+        before = (bn_cuda.stats_launches, cuda_sampler.launches_f32, lbs_cuda.launches)
+        step = engine.make_train_step(model, net, engine.make_optimizer(net, 1e-4, [5], 2))
+        loss = float(step(image, target, noise)["loss"])
+        assert all(torch.isfinite(p.grad).all() for p in net.parameters() if p.grad is not None)
+        out[kernels] = (loss, bn_cuda.stats_launches - before[0],
+                        cuda_sampler.launches_f32 - before[1], lbs_cuda.launches - before[2])
+    n_bn = sum(isinstance(m, resnet.BatchNorm2d) for m in net.modules())
+    assert out[True][1:] == (n_bn, 1, 0) and out[False][1:] == (0, 0, 0)
+    assert math.isfinite(out[True][0])
+    assert abs(out[True][0] - out[False][0]) <= 1e-2 * abs(out[False][0]), out

@@ -44,6 +44,9 @@ def test_port_imports_no_jax():
         "import mhentropy_tpu_torch.data.mixed, mhentropy_tpu_torch.core.camera\n"
         "import mhentropy_tpu_torch.core.rotations, mhentropy_tpu_torch.data.fixtures\n"
         "import mhentropy_tpu_torch.train_synthetic_demo, mhentropy_tpu_torch.export\n"
+        "import mhentropy_tpu_torch.core.render, mhentropy_tpu_torch.utils.viz\n"
+        "import mhentropy_tpu_torch.data.sk, mhentropy_tpu_torch.data.pose_pipeline\n"
+        "import mhentropy_tpu_torch.bench_input_pipeline\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'mhentropy_tpu', 'tools'))\n"
         "print(bad)\n"
@@ -56,7 +59,8 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("module", ["profile_step", "stem_probe", "stem_cost_attrib",
-                                    "stage1_probe", "bench", "kernel_variants"])
+                                    "stage1_probe", "bench", "kernel_variants",
+                                    "bench_input_pipeline"])
 def test_probe_and_bench_modules_stand_alone(module):
     """Each of the probes, the bench and profile_step alone, in a fresh
     interpreter, pulls in neither JAX, the JAX package nor tools/."""
