@@ -179,6 +179,30 @@
    f32 sampler 1); ms a train step with and without the term in
    alternating windows, a trace of each (busy share, the term's share of
    device time); the phase within 90 s.
+9h. Parallel (`phase_parallel`): 2 processes on cuda:0 joined under gloo
+   (the card's machine has one H100, and NCCL refuses two ranks on one
+   device; gloo's all-gather, send and recv of a CUDA tensor go through
+   pinned host memory, which the phase prints). On every rank: the
+   configs/rhd.yaml train step (resnet50 at 256 px, B = 64 over 2 data
+   ranks, N = 10) against the 1-process step on the same batch, weights
+   and base noise (bf16: loss; launches a rank BN stats sums 53, f32
+   sampler 1); in f32 the DP step and the TP step (tp = 2) held to a
+   float64 evaluation, beside a planted fault (BN statistics per rank)
+   that the same gate must refuse; the configs/ho3d.yaml eval batch
+   (B = 64, N = 200 over 2 hypo ranks) against the unsharded batch (every
+   metric; launches a rank stem 1, stage 1 3, bf16 sampler 1, f32 sampler
+   1); one pipelined draw (pp = 2, the 12-coupling flow at 640 rows, 2
+   microbatches) against the sequential one, values and gradients; one
+   FSDP step against the DP step (every weight and Adam moment); one TP
+   eval (tp = 2) against the replicated eval (the same launches a rank);
+   each pair's ms in alternating windows; the phase within
+   PARALLEL_PHASE_S.
+9i. The released-checkpoint eval (`phase_released`): the CLI of
+   mhentropy_tpu_torch/eval_released_checkpoint.py on a full-schema .pth
+   (the port's MHEnt at configs/ho3d.yaml's width with the reference's
+   `mano_dec.th_*` buffers and an empty `decoderPose`) and an HO3D tree of
+   RELEASED_FRAMES evaluation frames, at B = 64, N = 200: the four
+   README-table numbers finite, the eval kernels launched.
 10. Prints the kernels' JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
@@ -341,6 +365,33 @@ RLE_F32_GRAD_COS = 0.995
 DET_TOL = {"xyz": 1e-2, "uv": 2.0, "verts": 1e-2}
 RLE_WINDOW_S = 0.5  # the RLE and det phases' timing windows
 TRACED = 2  # steps a trace of the RLE and det train steps
+
+
+# The parallel phase (9h): its ranks, the steps (or eval batches) a timing
+# window, and its bounds. Two ranks' halves of a batch compute what one
+# process computes on the whole, in another order of sums: the train loss
+# (bf16, relative) as TRAIN_LOSS_TOL, in f32 the loss to 1e-4 and the
+# gradients against float64 as parallel_f32_grads states; the eval
+# metrics, each relative, to PARALLEL_METRIC_TOL (a rank's encoder and
+# sampler rows are the whole batch's rows); the pipelined draw to
+# SAMPLER_F32_TOL of its largest value. FSDP against DP after one step:
+# every weight within PARALLEL_FSDP_WEIGHT_TOL (the update moves a weight
+# by up to lr = 2e-4, so a wrong shard or gather shows) and every Adam
+# moment within PARALLEL_FSDP_MOMENT_TOL of its tensor's largest (the
+# moments carry the clip, which Adam's first update divides out).
+PARALLEL_RANKS = 2
+PARALLEL_STEPS = 2
+PARALLEL_PHASE_S = 120.0
+PARALLEL_METRIC_TOL = 1e-3
+PARALLEL_TP_TOL = 2e-2  # the TP eval: bf16 partial products summed in f32
+PARALLEL_F32_ALL_FACTOR = 3.0
+PARALLEL_FSDP_WEIGHT_TOL = 1e-6
+PARALLEL_FSDP_MOMENT_TOL = 1e-4
+RELEASED_FRAMES = 8
+# Launches a rank: a train step of configs/rhd.yaml, an eval batch of
+# configs/ho3d.yaml (stage 1 launches once a bottleneck).
+PARALLEL_TRAIN_LAUNCHES = {"bn_stats_sums": 53, "realnvp_sampler_f32": 1}
+PARALLEL_EVAL_LAUNCHES = {"stem": 1, "stage1": 3, "realnvp_sampler": 1, "realnvp_sampler_f32": 1}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3609,6 +3660,525 @@ def phase_mask(torch, dev):
     return out
 
 
+def parallel_worker(rank: int, world: int, backend: str, port: int, out_dir: str) -> None:
+    """One rank of phase_parallel: joins the group (gloo: every rank on
+    cuda:0; NCCL: rank r on cuda:r), runs parallel_cases and (rank 0)
+    writes their results as JSON."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        for var in ("GLOO_SOCKET_IFNAME", "NCCL_SOCKET_IFNAME"):
+            os.environ.setdefault(var, "lo")  # the group is on this host
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=world)
+        from mhentropy_tpu_torch import ext
+
+        ext.load()
+        out = parallel_cases(torch, dev, rank)
+        if rank == 0:
+            with open(os.path.join(out_dir, "parallel.json"), "w") as f:
+                json.dump(out, f)
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:  # noqa: BLE001 - the rank's failure goes to the parent
+        with open(os.path.join(out_dir, f"error{rank}.txt"), "w") as f:
+            f.write(f"rank {rank}:\n{traceback.format_exc()}")
+        os._exit(1)
+
+
+def cosine(a, b) -> float:
+    """The cosine of two tensors in float64, for gradients of any size
+    (torch's cosine_similarity floors the norms' product at 1e-8)."""
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def lockstep_ms(torch, fns: dict) -> dict:
+    """Spreads of ms a call of each of `fns` (name -> (callable, every
+    rank calls it)), RUNS windows of PARALLEL_STEPS calls, the names in
+    turn (reversed on odd runs), every rank entering each window together;
+    a name that rank 0 alone calls leaves the others waiting. Then, for
+    each name every rank calls, one more window with the collectives
+    timed (`mesh.timed`: the card synchronised around each): their share
+    of that window's wall ("collective_share") and their seconds by kind."""
+    import torch.distributed as dist
+
+    from mhentropy_tpu_torch.parallel import mesh as mesh_lib
+
+    rank = dist.get_rank()
+    order = tuple(fns)
+    runs = {name: [] for name in order}
+
+    def window(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(PARALLEL_STEPS):
+            fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t1
+
+    for r in range(RUNS):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            fn, everyone = fns[name]
+            dist.barrier()
+            if everyone or rank == 0:
+                runs[name].append(window(fn) * 1e3 / PARALLEL_STEPS)
+            dist.barrier()
+    out = {name: spread(v) for name, v in runs.items() if v}
+    for name in order:
+        fn, everyone = fns[name]
+        if everyone:
+            dist.barrier()
+            with mesh_lib.timed() as times:
+                wall = window(fn)
+            out[name].update(collective_share=sum(times.values()) / wall,
+                             collective_ms={k: v * 1e3 / PARALLEL_STEPS
+                                            for k, v in times.items()})
+    return out
+
+
+class _NoStep:
+    """An optimizer that leaves the weights alone: the sharded step then
+    stops at the global gradient, unclipped, in each parameter's .grad."""
+
+    def __init__(self, net):
+        self.net = net
+
+    def zero_grad(self) -> None:
+        self.net.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        pass
+
+
+def grad_errors(torch, g: dict, ref: dict) -> dict:
+    """Gradients `g` against `ref` (name -> float64 tensor): the lowest
+    cosine and the largest relative L2 over the parameters (with their
+    names), the median relative L2 and the relative L2 of all of them
+    together."""
+    cos = {k: cosine(g[k], v) for k, v in ref.items() if float(v.norm()) > 0}
+    l2 = {k: float((g[k] - v).norm() / v.norm()) for k, v in ref.items()
+          if float(v.norm()) > 0}
+    low, high = min(cos, key=cos.get), max(l2, key=l2.get)
+    diff = sum(float((g[k] - v).pow(2).sum()) for k, v in ref.items())
+    norm = sum(float(v.pow(2).sum()) for v in ref.values())
+    return {"min_grad_cosine": cos[low], "min_grad_cosine_param": low,
+            "max_grad_rel_l2": l2[high], "max_grad_rel_l2_param": high,
+            "median_grad_rel_l2": float(np.median(list(l2.values()))),
+            "all_grad_rel_l2": math.sqrt(diff / norm), "gradients": len(cos),
+            "same_params": set(g) == set(ref)}
+
+
+def parallel_f32_grads(torch, dev, rank, mcfg, base, model, fold, image, target,
+                       noise) -> dict:
+    """The 2-rank steps' global gradients in f32 (kernels on): data-parallel
+    ("two_ranks_kernels_f32"), tensor-parallel at tp = 2 ("tp_kernels_f32":
+    the f32 draw whole, its backward recomputed split), and data-parallel
+    with a planted fault, BN statistics taken per rank
+    ("per_rank_bn_fault": `bn_cuda.global_batch` made a no-op). Each is held
+    to a float64 evaluation of the 1-process plain path on the global
+    batch, as glow_f32_grads holds the 1-process kernel path: each
+    parameter's relative L2 error at most GLOW_F32_GRAD_FACTOR x the
+    1-process plain f32 path's largest plus 1e-4, the relative L2 of all
+    gradients together at most PARALLEL_F32_ALL_FACTOR x the plain f32
+    path's, and each cosine at least RLE_F32_GRAD_COS ("grad_ok"); the loss
+    within TRAIN_F32_LOSS_TOL of the 1-process kernel path's ("loss_ok").
+    The sound steps must pass both and the fault must fail "grad_ok": the
+    gate is shown to see per-rank statistics. The 1-process kernel path's
+    errors, and each step's against it, are printed beside."""
+    import contextlib
+    from unittest import mock
+
+    from mhentropy_tpu_torch.core import mano
+    from mhentropy_tpu_torch.models import bn_cuda
+    from mhentropy_tpu_torch.models import mhent
+    from mhentropy_tpu_torch.parallel import mesh as mesh_lib
+    from mhentropy_tpu_torch.train import engine
+
+    def net_of(kernels: bool, dtype):
+        net = mhent.MHEnt(mcfg)
+        net.load_state_dict(base)
+        net = mhent.prepare(net, dev, masters=True).train()
+        net.set_kernels(kernels)
+        net.feat_extractor.res.dtype = dtype
+        return net
+
+    per_rank_bn = mock.patch.object(bn_cuda, "global_batch",
+                                    lambda group: contextlib.nullcontext())
+    runs = {}
+    for name, mesh, tp, plant in (
+            ("two_ranks_kernels_f32", mesh_lib.make_mesh(), False, contextlib.nullcontext()),
+            ("tp_kernels_f32", mesh_lib.make_mesh(tp=2), True, contextlib.nullcontext()),
+            ("per_rank_bn_fault", mesh_lib.make_mesh(), False, per_rank_bn)):
+        net = net_of(True, torch.float32)
+        step = engine.make_train_step(model, net, _NoStep(net), fold=fold, mesh=mesh, tp=tp)
+        with plant:
+            loss = float(step(image, target, noise)["loss"])
+        if rank == 0:
+            runs[name] = (loss, {k: p.grad.double() for k, p in net.named_parameters()
+                                 if p.grad is not None})
+        del net, step
+    if rank != 0:
+        return {}
+    model64 = mano.ManoModel(*(t.double() if t.is_floating_point() else t for t in model))
+    args64 = (model64, mano.fold_keypoints(model64), image.double(),
+              {k: v.double() if v.is_floating_point() else v for k, v in target.items()},
+              noise.double())
+    for name, kernels, dtype in (("kernels_f32", True, torch.float32),
+                                 ("plain_f32", False, torch.float32),
+                                 ("plain_f64", False, torch.float64)):
+        net = net_of(kernels, dtype)
+        args = (model, fold, image, target, noise)
+        if dtype == torch.float64:
+            net.double()
+            args = args64
+        loss, g, _ = one_step_grads(torch, net, *args)
+        runs[name] = (loss, {k: v.double() for k, v in g.items()})
+        del net
+    ref_loss, ref = runs.pop("plain_f64")
+    one_loss, one = runs["kernels_f32"]
+    out = {name: {"loss": loss, "loss_rel_f64": abs(loss - ref_loss) / abs(ref_loss),
+                  **grad_errors(torch, g, ref)} for name, (loss, g) in runs.items()}
+    plain = out["plain_f32"]
+    for name in ("two_ranks_kernels_f32", "tp_kernels_f32", "per_rank_bn_fault"):
+        r = out[name]
+        r["loss_rel"] = abs(r["loss"] - one_loss) / abs(one_loss)
+        r["vs_one_process_kernels"] = {
+            k: v for k, v in grad_errors(torch, runs[name][1], one).items()
+            if k in ("min_grad_cosine", "max_grad_rel_l2", "all_grad_rel_l2")}
+        r["loss_ok"] = r["loss_rel"] <= TRAIN_F32_LOSS_TOL
+        r["grad_ok"] = (r["same_params"]
+                        and r["max_grad_rel_l2"] <= GLOW_F32_GRAD_FACTOR
+                        * plain["max_grad_rel_l2"] + 1e-4
+                        and r["all_grad_rel_l2"] <= PARALLEL_F32_ALL_FACTOR
+                        * plain["all_grad_rel_l2"]
+                        and r["min_grad_cosine"] >= RLE_F32_GRAD_COS)
+    return out
+
+
+def parallel_cases(torch, dev, rank: int) -> dict:
+    """phase_parallel's cases on one rank (rank 0 also runs the 1-process
+    references)."""
+    import torch.distributed as dist
+
+    from mhentropy_tpu_torch.core import mano as mano_lib
+    from mhentropy_tpu_torch.data import synthetic
+    from mhentropy_tpu_torch.flows import realnvp
+    from mhentropy_tpu_torch.models import mhent
+    from mhentropy_tpu_torch.parallel import mesh as mesh_lib
+    from mhentropy_tpu_torch.parallel import pipeline
+    from mhentropy_tpu_torch.parallel import sharded
+    from mhentropy_tpu_torch.train import engine
+    from mhentropy_tpu_torch.utils.config import load_cfg
+
+    out = {}
+    model = engine.load_mano_model("./mano/", device=dev)
+    fold = mano_lib.fold_keypoints(model)
+
+    # --- the configs/rhd.yaml train step -----------------------------------
+    cfg = load_cfg("configs/rhd.yaml")
+    tr = cfg.training
+    check(tr.batch_size == TRAIN_BATCH and tr.n_train_hypotheses == N_TRAIN_HYPO,
+          f"parallel: configs/rhd.yaml has batch {tr.batch_size}, N {tr.n_train_hypotheses}")
+    mcfg = engine.build_model_config(cfg)
+    base = mhent.init(mcfg, seed=0).state_dict()
+    data = synthetic.make_dataset(model, n=TRAIN_BATCH, image_size=mcfg.image_size, seed=3,
+                                  ds="rhd")
+    image, target = next(synthetic.batches(data, TRAIN_BATCH, device=dev))
+    g = torch.Generator(device=dev).manual_seed(13)
+    noise = torch.randn((N_TRAIN_HYPO * TRAIN_BATCH, 45), generator=g, device=dev)
+    dp = mesh_lib.make_mesh()
+
+    def train_step(mesh=None, f32=False, fsdp=False):
+        net = mhent.MHEnt(mcfg)
+        net.load_state_dict(base)
+        net = mhent.prepare(net, dev, masters=True).train()
+        if f32:
+            net.feat_extractor.res.dtype = torch.float32
+        if fsdp:
+            opt = engine.ShardedOptimizer(net, mesh, tr.lr, tr.milestones, 10)
+        else:
+            opt = engine.make_optimizer(net, tr.lr, tr.milestones, 10)
+        step = engine.make_train_step(model, net, opt, fold=fold, mesh=mesh)
+        return net, lambda: step(image, target, noise), opt
+
+    def one(run):
+        net, fn, opt = run
+        reset_launches()
+        aux = fn()
+        torch.cuda.synchronize()
+        return float(aux["loss"]), read_launches(), net, opt
+
+    train = {}
+    loss, launches, _, _ = one(train_step(dp))
+    row = train["bf16"] = {"loss": loss, "launches_per_rank": launches}
+    if rank == 0:
+        ref_loss = one(train_step(None))[0]
+        row.update(ref_loss=ref_loss, loss_rel=abs(loss - ref_loss) / abs(ref_loss))
+    dist.barrier()
+    train["f32"] = parallel_f32_grads(torch, dev, rank, mcfg, base, model, fold, image,
+                                      target, noise)
+    dist.barrier()
+    fsdp_loss, _, fsdp_net, fsdp_opt = one(train_step(dp, fsdp=True))
+    dp_loss, _, dp_net, dp_opt = one(train_step(dp))
+    dp_params = dict(dp_net.named_parameters())
+    w_diff = max(float((p - dp_params[k]).detach().abs().max())
+                 for k, p in fsdp_net.named_parameters())
+    fsdp_st, dp_st = fsdp_opt.state_dict()["adam"]["state"], dp_opt.state_dict()["adam"]["state"]
+    m_diff = max(float((fsdp_st[i][m] - st[m]).abs().max() / st[m].abs().max().clamp_min(1e-30))
+                 for i, st in dp_st.items() for m in ("exp_avg", "exp_avg_sq"))
+    train["fsdp"] = {"loss": fsdp_loss, "dp_loss": dp_loss,
+                     "loss_rel": abs(fsdp_loss - dp_loss) / abs(dp_loss),
+                     "weights_max_abs": w_diff, "moments_max_rel": m_diff,
+                     "moments_compared": 2 * len(dp_st),
+                     "same_moments": set(fsdp_st) == set(dp_st)}
+    del fsdp_net, dp_net, fsdp_opt, dp_opt, dp_params, fsdp_st, dp_st
+    sharded_step, fsdp_step = train_step(dp)[1], train_step(dp, fsdp=True)[1]
+    single_step = train_step(None)[1] if rank == 0 else None
+    train["ms"] = lockstep_ms(torch, {"two_ranks": (sharded_step, True),
+                                      "one_process": (single_step, False),
+                                      "fsdp": (fsdp_step, True)})
+    del sharded_step, fsdp_step, single_step
+    out["train"] = train
+    torch.cuda.empty_cache()
+
+    # --- the configs/ho3d.yaml eval batch ----------------------------------
+    cfg = load_cfg("configs/ho3d.yaml")
+    check(cfg.training.batch_size == EVAL_BATCH and cfg.training.test_samples == N_HYPO,
+          f"parallel: configs/ho3d.yaml has batch {cfg.training.batch_size}, N "
+          f"{cfg.training.test_samples}")
+    ecfg = engine.build_model_config(cfg)
+    net = mhent.prepare(mhent.init(ecfg, seed=1), dev)
+    data = synthetic.make_dataset(model, n=EVAL_BATCH, image_size=ecfg.image_size, seed=4)
+    image, target = next(synthetic.batches(data, EVAL_BATCH, device=dev))
+    kld = torch.randn((ecfg.n_train_hypotheses * EVAL_BATCH, 45), generator=g, device=dev)
+    hypo = torch.randn((N_HYPO * EVAL_BATCH, 45), generator=g, device=dev) * 0.8
+    steps = {"hypo": engine.make_eval_step(model, net, N_HYPO, 0.8, fold=fold,
+                                           mesh=mesh_lib.make_mesh(hypo=2)),
+             "tp": engine.make_eval_step(model, net, N_HYPO, 0.8, fold=fold,
+                                         mesh=mesh_lib.make_mesh(tp=2), tp=True)}
+    single = engine.make_eval_step(model, net, N_HYPO, 0.8, fold=fold)
+    ev = {}
+    ref = None
+    if rank == 0:
+        ref = {k: float(v) for k, v in single(image, target, kld, hypo).items()}
+    for label, step in steps.items():
+        reset_launches()
+        mets = {k: float(v) for k, v in step(image, target, kld, hypo).items()}
+        torch.cuda.synchronize()
+        row = {"launches_per_rank": read_launches()}
+        if rank == 0:
+            rel = {k: abs(mets[k] - v) / max(abs(v), 1e-6) for k, v in ref.items()}
+            worst = max(rel, key=rel.get)
+            row.update(max_rel=rel[worst], max_rel_metric=worst,
+                       max_abs=max(abs(mets[k] - v) for k, v in ref.items()))
+        ev[label] = row
+    ev["metrics"] = ref
+    ev["ms"] = lockstep_ms(torch, {
+        "hypo_two_ranks": (lambda: steps["hypo"](image, target, kld, hypo), True),
+        "one_process": (lambda: single(image, target, kld, hypo), False),
+        "tp_two_ranks": (lambda: steps["tp"](image, target, kld, hypo), True)})
+    out["eval"] = ev
+
+    # --- one pipelined draw (pp = 2) against the sequential one ------------
+    flow = net.q_z_giv_i.float()
+    feat = torch.randn((TRAIN_BATCH, ecfg.feat_dim), generator=g, device=dev)
+    z0 = torch.randn((N_TRAIN_HYPO * TRAIN_BATCH, 45), generator=g, device=dev)
+    pp = mesh_lib.make_mesh(pp=2)
+    names = pipeline.stage_names(flow)
+
+    def draw_grads(fn):
+        flow.zero_grad(set_to_none=True)
+        x, lp = fn()
+        ((x ** 2).sum() + lp.sum()).backward()
+        pipeline.drain()
+        return x.detach(), lp.detach()
+
+    def piped():
+        return pipeline.sample_pipelined(flow, z0, feat, pp, 2, n_per_image=N_TRAIN_HYPO,
+                                         return_log_prob=True)
+
+    def sequential():
+        cproj = realnvp.cond_cache(flow, realnvp.make_cond(flow, feat))
+        return realnvp.sample(flow, z0, cproj=cproj.repeat(1, 1, N_TRAIN_HYPO, 1))
+
+    x_p, lp_p = draw_grads(piped)
+    sharded.sync_grads(flow, pp, pipe_names=names)
+    g_p = {k: p.grad.clone() for k, p in flow.named_parameters() if p.grad is not None}
+    x_s, lp_s = draw_grads(sequential)
+    g_s = {k: p.grad.clone() for k, p in flow.named_parameters() if p.grad is not None}
+    cos = {k: cosine(g_p[k], v) for k, v in g_s.items() if float(v.norm()) > 0}
+    out["pipeline"] = {
+        "rows": int(z0.shape[0]), "max_abs_x": float((x_p - x_s).abs().max()),
+        "max_abs_log_q": float((lp_p - lp_s).abs().max()),
+        "x_scale": float(x_s.abs().max()), "log_q_scale": float(lp_s.abs().max()),
+        "min_grad_cosine": min(cos.values()),
+        "ms": lockstep_ms(torch, {"pp_two_ranks": (lambda: draw_grads(piped), True),
+                                  "sequential": (lambda: draw_grads(sequential), False)})}
+    out["staged_collectives"] = sorted(mesh_lib.STAGED)
+    return out
+
+
+def phase_parallel(torch, dev, world: int = PARALLEL_RANKS, backend: str = "gloo"):
+    """9h: the parallel cases in a 2-rank gloo group on the card (see the
+    module docstring); fails if a rank fails, a bound is missed or the phase
+    takes more than PARALLEL_PHASE_S. world / backend "nccl": one rank a
+    card on a machine with `world` cards (the meshes then hold 'data' ranks
+    beside each layout's two)."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=parallel_worker, args=(r, world, backend, port, tmp))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(PARALLEL_PHASE_S + 120)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        errors = [open(os.path.join(tmp, f)).read() for f in sorted(os.listdir(tmp))
+                  if f.startswith("error")]
+        check(not errors and all(p.exitcode == 0 for p in procs),
+              f"parallel: ranks exited {[p.exitcode for p in procs]}:\n" + "\n".join(errors))
+        with open(os.path.join(tmp, "parallel.json")) as f:
+            out = json.load(f)
+    out["wall_s"] = time.perf_counter() - t0
+    tr, ev, pp = out["train"], out["eval"], out["pipeline"]
+    print(f"parallel: collectives through host memory under gloo: "
+          f"{out['staged_collectives']}", flush=True)
+    r = tr["bf16"]
+    print(f"parallel train bf16 ({world} data ranks, {backend}, B = {TRAIN_BATCH}): loss "
+          f"{r['loss']:.6g} vs "
+          f"1-process {r['ref_loss']:.6g} (rel {r['loss_rel']:.3g}); launches a rank "
+          f"{ {k: v for k, v in r['launches_per_rank'].items() if v} }", flush=True)
+    for name, r in tr["f32"].items():
+        print(f"parallel train f32 {name} against the 1-process plain path in float64: loss "
+              f"rel {r['loss_rel_f64']:.3g}, lowest gradient cosine {r['min_grad_cosine']:.6f} "
+              f"({r['min_grad_cosine_param']}), largest relative L2 {r['max_grad_rel_l2']:.4g} "
+              f"({r['max_grad_rel_l2_param']}), median {r['median_grad_rel_l2']:.4g}, all "
+              f"together {r['all_grad_rel_l2']:.4g}"
+              + (f"; against the 1-process kernel path: loss rel {r['loss_rel']:.3g}, "
+                 f"{json.dumps(r['vs_one_process_kernels'])}; loss_ok {r['loss_ok']}, "
+                 f"grad_ok {r['grad_ok']}" if "grad_ok" in r else ""), flush=True)
+    print(f"parallel fsdp vs dp: {json.dumps(tr['fsdp'])}", flush=True)
+    for label in ("hypo", "tp"):
+        r = ev[label]
+        print(f"parallel eval {label} ({world} ranks, B = {EVAL_BATCH}, N = {N_HYPO}): worst metric "
+              f"{r['max_rel_metric']} rel {r['max_rel']:.3g}, max-abs {r['max_abs']:.3g}; "
+              f"launches a rank {r['launches_per_rank']}", flush=True)
+    print(f"parallel pipeline (pp = 2, {pp['rows']} rows): max-abs x {pp['max_abs_x']:.3g} "
+          f"(of {pp['x_scale']:.3g}), log q {pp['max_abs_log_q']:.3g} (of "
+          f"{pp['log_q_scale']:.3g}); lowest gradient cosine {pp['min_grad_cosine']:.6f}",
+          flush=True)
+    for part in (tr, ev, pp):
+        print("parallel ms: " + "; ".join(
+            f"{k} median {v['median']:.3f} [{v['min']:.3f}, {v['max']:.3f}]"
+            + (f" (collectives {v['collective_share']:.3f}: "
+               f"{ {c: round(t, 3) for c, t in v['collective_ms'].items()} })"
+               if "collective_share" in v else "")
+            for k, v in part["ms"].items()) + f" over {RUNS} windows of {PARALLEL_STEPS} "
+            f"[{card_line()}]", flush=True)
+    for k, n in PARALLEL_TRAIN_LAUNCHES.items():
+        got = tr["bf16"]["launches_per_rank"][k]
+        check(got == n, f"parallel train: {got} {k} launches a rank, expected {n}")
+    for label in ("hypo", "tp"):
+        for k, n in PARALLEL_EVAL_LAUNCHES.items():
+            got = ev[label]["launches_per_rank"][k]
+            check(got == n, f"parallel eval {label}: {got} {k} launches a rank, expected {n}")
+    check(tr["bf16"]["loss_rel"] <= TRAIN_LOSS_TOL, f"parallel train bf16: {tr['bf16']}")
+    f32 = tr["f32"]
+    for name in ("two_ranks_kernels_f32", "tp_kernels_f32"):
+        check(f32[name]["loss_ok"] and f32[name]["grad_ok"], f"parallel train f32 {name}: {f32}")
+    check(not f32["per_rank_bn_fault"]["grad_ok"],
+          f"parallel train f32: the gradient gate passes BN statistics taken per rank: {f32}")
+    fs = tr["fsdp"]
+    check(fs["loss_rel"] <= TRAIN_F32_LOSS_TOL and fs["same_moments"]
+          and fs["weights_max_abs"] <= PARALLEL_FSDP_WEIGHT_TOL
+          and fs["moments_max_rel"] <= PARALLEL_FSDP_MOMENT_TOL, f"parallel fsdp: {fs}")
+    check(ev["hypo"]["max_rel"] <= PARALLEL_METRIC_TOL, f"parallel eval hypo: {ev['hypo']}")
+    check(ev["tp"]["max_rel"] <= PARALLEL_TP_TOL, f"parallel eval tp: {ev['tp']}")
+    check(pp["max_abs_x"] <= SAMPLER_F32_TOL * max(pp["x_scale"], 1.0)
+          and pp["max_abs_log_q"] <= SAMPLER_F32_TOL * max(pp["log_q_scale"], 1.0)
+          and pp["min_grad_cosine"] >= TRAIN_GRAD_COS, f"parallel pipeline: {pp}")
+    check(out["wall_s"] <= PARALLEL_PHASE_S, f"parallel: the phase took {out['wall_s']:.1f} s")
+    print(f"parallel: the phase took {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def phase_released(torch, dev):
+    """9i: eval_released_checkpoint's CLI on a fabricated full-schema .pth
+    and an HO3D tree at B = 64, N = 200; its four numbers finite and the
+    eval kernels launched."""
+    import contextlib
+    import io
+    import tempfile
+
+    from mhentropy_tpu_torch import eval_released_checkpoint as released
+    from mhentropy_tpu_torch.data import fixtures
+    from mhentropy_tpu_torch.models import mhent
+    from mhentropy_tpu_torch.train import engine
+    from mhentropy_tpu_torch.utils.config import load_cfg
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = load_cfg("configs/ho3d.yaml")
+        net = mhent.init(engine.build_model_config(cfg), seed=11)
+        rng = np.random.default_rng(13)
+        enc = {k: v.clone() for k, v in net.state_dict().items()}
+        for name, shape in (("th_betas", (1, 10)), ("th_shapedirs", (778, 3, 10)),
+                            ("th_posedirs", (778, 3, 135)), ("th_v_template", (1, 778, 3)),
+                            ("th_J_regressor", (16, 778)), ("th_weights", (778, 16)),
+                            ("th_hands_mean", (1, 45)), ("th_comps", (45, 45)),
+                            ("th_selected_comps", (45, 45))):
+            enc[f"mano_dec.{name}"] = torch.from_numpy(rng.standard_normal(shape).astype("f4"))
+        enc["mano_dec.th_faces"] = torch.from_numpy(rng.integers(0, 778, (1538, 3)))
+        pth = os.path.join(tmp, "ent_ho3d.pth")
+        torch.save({"decoderPose": {}, "encoderRGB": enc}, pth)
+        data = fixtures.write_ho3d(os.path.join(tmp, "data"), 1, RELEASED_FRAMES)
+        reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            summary = released.main(["--pth", pth, "--data", data, "--mano",
+                                     os.path.join(tmp, "no_mano"), "--batch", str(EVAL_BATCH),
+                                     "--n", str(N_HYPO)])
+        torch.cuda.synchronize()
+        launches = read_launches()
+    text = buf.getvalue()
+    table = [line for line in text.splitlines() if "(reference:" in line]
+    vals = [float(line.split(":")[1].split()[0]) for line in table]
+    out = {"table": table, "values": vals, "launches": launches,
+           "wall_s": time.perf_counter() - t0,
+           "summary": {key: summary[key] for _, key, _, _ in released.TABLE}}
+    print("released eval: " + " | ".join(table) + f"; launches {launches}; "
+          f"{out['wall_s']:.1f} s", flush=True)
+    check(len(vals) == 4 and all(math.isfinite(v) for v in vals),
+          f"released eval: the table {table}")
+    check(f"evaluation split: {RELEASED_FRAMES} samples" in text, f"released eval: {text}")
+    for name, n in PARALLEL_EVAL_LAUNCHES.items():
+        check(launches[name] == n, f"released eval: {launches[name]} {name} launches for one "
+                                   f"batch, expected {n}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3780,6 +4350,8 @@ def main() -> int:
     print("mask train step: " + "; ".join(
         f"{k} median {v['median']:.3f} ms [{v['min']:.3f}, {v['max']:.3f}]" for k, v in t.items())
         + f" over {RUNS} windows of >= {MASK_WINDOW_S} s [{card}]", flush=True)
+    parallel = phase_parallel(torch, dev)
+    released = phase_released(torch, dev)
 
     path_launches = {"stem": launches, "stage1": launches, "realnvp_sampler": launches,
                      "lbs_blend": verts_launches, "stage1_int8": int8_launches[f"b{BATCH}"],
@@ -3810,7 +4382,10 @@ def main() -> int:
                    "render": mask["render"]["launches"],
                    "mask_train": mask["train_step"]["launches_per_step"],
                    "mask_eval": mask["eval_batch"]["launches"],
-                   **{f"mask_{k}_train_baseline": r["launches"] for k, r in mask["runs"].items()}}
+                   **{f"mask_{k}_train_baseline": r["launches"] for k, r in mask["runs"].items()},
+                   "parallel_train_step_a_rank": parallel["train"]["bf16"]["launches_per_rank"],
+                   "parallel_eval_batch_a_rank": parallel["eval"]["hypo"]["launches_per_rank"],
+                   "released_eval": released["launches"]}
     kernels = [{"name": r["name"], "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": path_launches[r["name"]][r["name"]],
                 "launches_by_path": {p: c[r["name"]] for p, c in slice_paths.items()
@@ -3842,7 +4417,8 @@ def main() -> int:
                                                "kernel_vs_plain_max_abs": verts_err},
                       "train": train, "prohmr": humans, "rle": rle_res, "det": det_res,
                       "glow": {k: v for k, v in glow_res.items() if k != "kernel"},
-                      "bench": bench_line, "loaders": loaders, "mask": mask}),
+                      "bench": bench_line, "loaders": loaders, "mask": mask,
+                      "parallel": parallel, "released": released}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

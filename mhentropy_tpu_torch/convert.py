@@ -22,6 +22,11 @@ given as numpy arrays, into the port's, so that both packages compute with
 the same int8 weights and scales. `opt_state_from_jax` turns the optax Adam
 state of the JAX `make_optimizer` into the port's Adam moments by
 parameter name, so a JAX-trained state continues in the port.
+
+`load_reference_state` loads a reference checkpoint into an MHEnt: the
+reference's MHEnt owns its MANO layer, so its `encoderRGB` carries the
+`mano_dec.*` buffers, which it drops (the MANO model comes from `./mano/`,
+as in the JAX package's converter); every other key loads strictly.
 """
 
 from __future__ import annotations
@@ -121,6 +126,22 @@ def from_jax(params: dict, batch_stats: dict) -> dict:
         sd.update(realnvp_state_dict(flow, "q_z_giv_i."))
     _linear(sd, "det_head.0", params["det_head"]["l0"])
     _linear(sd, "det_head.2", params["det_head"]["l1"])
+    return sd
+
+
+# Keys of a reference `encoderRGB` that are not the MHEnt's: its MANO layer.
+REFERENCE_ONLY_PREFIXES = ("mano_dec.",)
+
+
+def load_reference_state(net: torch.nn.Module, state: dict) -> dict:
+    """Load a reference checkpoint into `net` (an MHEnt) and return the
+    module state it loaded: `state` is the checkpoint ({"encoderRGB": ...,
+    "decoderPose": ...}, the port's own .pth too) or a bare state dict. The
+    `mano_dec.*` buffers are dropped; any other key the net lacks, and any
+    key of the net's that is missing, raises (strict=True)."""
+    sd = state.get("encoderRGB", state)
+    sd = {k: v for k, v in sd.items() if not k.startswith(REFERENCE_ONLY_PREFIXES)}
+    net.load_state_dict(sd, strict=True)
     return sd
 
 

@@ -77,7 +77,31 @@ def _lbs_fake(w, rot, trans, vposed) -> torch.Tensor:
     return vposed.new_empty(vposed.shape)
 
 
+def _setup_context(ctx, inputs, output) -> None:
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, g):
+    """The blend is linear in each of its four inputs: each gradient is the
+    transpose of the plain einsums, in plain PyTorch (the JAX kernel has no
+    backward kernel either; JAX differentiates its XLA path)."""
+    w, rot, trans, vposed = ctx.saved_tensors
+    need = ctx.needs_input_grad
+    g_w = g_rot = g_trans = g_vposed = None
+    if need[3]:
+        g_vposed = torch.einsum("rvb,rcvb->cvb", g, torch.einsum("vj,rcjb->rcvb", w, rot))
+    if need[2]:
+        g_trans = torch.einsum("vj,rvb->rjb", w, g)
+    if need[1]:
+        g_rot = torch.einsum("vj,rvb,cvb->rcjb", w, g, vposed)
+    if need[0]:
+        g_w = (torch.einsum("rcjb,rvb,cvb->vj", rot, g, vposed)
+               + torch.einsum("rjb,rvb->vj", trans, g))
+    return g_w, g_rot, g_trans, g_vposed
+
+
 _op = ops.define(
     "lbs_blend(Tensor lbs_weights, Tensor chain_r_nl, Tensor skin_t_nl, Tensor v_posed_nl) "
     "-> Tensor",
-    cpu=lambda *args: lbs_blend_plain(*args).contiguous(), cuda=_lbs_kernel, fake=_lbs_fake)
+    cpu=lambda *args: lbs_blend_plain(*args).contiguous(), cuda=_lbs_kernel, fake=_lbs_fake,
+    backward=_backward, setup_context=_setup_context)

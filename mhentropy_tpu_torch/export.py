@@ -18,6 +18,9 @@ Notes:
     contract a batcher pads to.
   - torch cannot replay `jax.random`, so the base noise is an input (JAX's
     `raw_key`): (n * batch, 45) hypothesis-major rows, already times temp.
+  - `ShardedSampler` serves one artifact data-parallel (the sharded export
+    of tests/test_export.py:81): every rank loads the same bytes, exported
+    for its share of the batch, and the outputs are gathered.
 
     python -m mhentropy_tpu_torch.export sampler.pt2 [--batch 8] [--n 100]
         [--quantize] [--pth ckpt.pth] [--mano ./mano/] [--device cpu]
@@ -37,6 +40,7 @@ from torch import nn
 from mhentropy_tpu_torch.core import mano
 from mhentropy_tpu_torch.flows import cuda_glow_sampler
 from mhentropy_tpu_torch.models import mhent
+from mhentropy_tpu_torch.parallel import mesh as mesh_lib
 
 # What the artifact records beside the program (torch.export.save's extra files).
 DEVICE_FILE = "device"
@@ -224,6 +228,29 @@ def load_sampler(blob: bytes) -> Sampler:
     extra = {DEVICE_FILE: "", CONFIG_FILE: ""}
     program = torch.export.load(io.BytesIO(blob), extra_files=extra)
     return Sampler(program, extra[DEVICE_FILE], extra[CONFIG_FILE])
+
+
+class ShardedSampler:
+    """A data-parallel server of one artifact (JAX's sharded export,
+    tests/test_export.py:81): every rank of the mesh's 'data' axis loads
+    the same artifact bytes, exported for the per-rank batch, and serves
+    its rows of a global batch; `call` returns the outputs gathered over
+    'data', (N, B, ...) as the unsharded call gives them. The ranks of
+    the other axes serve the same rows."""
+
+    def __init__(self, blob: bytes, mesh: mesh_lib.Mesh):
+        self.sampler = load_sampler(blob)
+        self.mesh = mesh
+
+    def call(self, image: torch.Tensor, base_noise: torch.Tensor) -> dict:
+        """image (B, S, S, 3) and base_noise (n * B, 45), the global batch's,
+        alike on every rank."""
+        b = image.shape[0]
+        n = base_noise.shape[0] // b
+        mine = self.sampler.call(mesh_lib.shard_batch(self.mesh, image),
+                                 mesh_lib.shard_rows(self.mesh, base_noise, n, b, hypo=False))
+        group = self.mesh.group(mesh_lib.DATA_AXIS)
+        return {k: mesh_lib.all_gather(v, group, dim=1) for k, v in mine.items()}
 
 
 def main(argv=None):

@@ -48,6 +48,7 @@ from torch.nn import functional as F
 from mhentropy_tpu_torch import ext, ops
 from mhentropy_tpu_torch.flows import realnvp
 from mhentropy_tpu_torch.flows.priors import std_normal_logp
+from mhentropy_tpu_torch.parallel import sharded
 
 # Kernel launches since the counts were last reset; nothing else touches them.
 launches = 0  # bf16 weights (realnvp_sampler.cu)
@@ -334,22 +335,29 @@ def transform_reference(flow: realnvp.RealNVP, z0: torch.Tensor, cproj: torch.Te
 
 class TransformDiff(torch.autograd.Function):
     """`transform` with f32 weights, differentiable in z0, cproj and the
-    flow's transform parameters: kernel forward, plain-flow backward."""
+    flow's transform parameters: kernel forward, plain-flow backward.
+
+    Inside `parallel.sharded.tensor_parallel` the kernel, which reads whole
+    weights, runs whole; the backward recomputes the couplings split on the
+    caller's line, so that each rank's gradients are its columns' part, as
+    the split path's are, and the train step sums them over the line
+    (`sharded.sync_grads`)."""
 
     @staticmethod
     def forward(ctx, flow, z0, cproj, *weights):
         # weights are transform_params(flow), passed so that autograd routes
         # their gradients; the backward differentiates the flow's own.
         dtype = torch.float64 if z0.dtype == torch.float64 else torch.float32
-        x, logdet = transform(pack(flow, dtype=dtype), z0, cproj)
-        ctx.flow = flow
+        ctx.flow, ctx.line = flow, sharded.line()
+        with sharded.whole():
+            x, logdet = transform(pack(flow, dtype=dtype), z0, cproj)
         ctx.save_for_backward(z0, cproj)
         return x, logdet
 
     @staticmethod
     def backward(ctx, dx, dlogdet):
         z0, cproj = ctx.saved_tensors
-        with torch.enable_grad():
+        with torch.enable_grad(), sharded.on_line(ctx.line):
             z = z0.detach().requires_grad_()
             c = cproj.detach().requires_grad_()
             x, logdet = transform_reference(ctx.flow, z, c)
@@ -366,10 +374,15 @@ def sample_fused_diff(flow: realnvp.RealNVP, feat: torch.Tensor, n: int,
                       z0_rows: torch.Tensor):
     """`sample_fused` under autograd (pallas_sampler.sample_fused_diff): the
     same hypothesis-major rows in and out, gradients to feat (through the
-    conditioning cache), the flow's parameters and the noise."""
+    conditioning cache), the flow's parameters and the noise. Inside
+    `parallel.sharded.tensor_parallel` the draw is whole and its gradients
+    split, as the split path's (`TransformDiff`)."""
     b = feat.shape[0]
     d = flow.cfg.dim
-    cproj = realnvp.cond_cache(flow, realnvp.make_cond(flow, feat)).contiguous()
+    ln = sharded.line()
+    with sharded.whole():
+        cproj = realnvp.cond_cache(flow, realnvp.make_cond(flow, feat),
+                                   kernel_line=ln).contiguous()
     z0 = z0_rows.reshape(n, b, d).transpose(0, 1).contiguous()  # image-major
     x, logdet = transform_diff(flow, z0, cproj)
     lp = std_normal_logp(z0) - logdet

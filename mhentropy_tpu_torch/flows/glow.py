@@ -36,6 +36,8 @@ module's `.training`:
 
 from __future__ import annotations
 
+import contextlib
+
 import math
 from typing import NamedTuple
 
@@ -181,10 +183,34 @@ def _batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor, train: bool) -> torch.Tenso
                         training=False, eps=bn.eps)
 
 
+# Inside `global_rows`: (n, b, rows), the dropout input's rows being this
+# rank's images `rows` of n hypothesis-major blocks of a b-image batch.
+_global = None
+
+
+@contextlib.contextmanager
+def global_rows(n: int, b: int, rows: slice):
+    """Dropout inside draws its uniforms for the whole batch (n blocks of b
+    rows) and keeps this rank's `rows` of each block, so that the ranks of a
+    sharded step draw the masks one process draws."""
+    global _global
+    prev, _global = _global, (n, b, rows)
+    try:
+        yield
+    finally:
+        _global = prev
+
+
 def dropout(t: torch.Tensor, p: float, generator: torch.Generator | None = None):
     """Inverted dropout: each element kept with probability 1 - p and then
     scaled by 1 / (1 - p), else 0; the uniforms come from `generator`."""
-    keep = torch.rand(t.shape, generator=generator, device=t.device) < 1.0 - p
+    if _global is None:
+        u = torch.rand(t.shape, generator=generator, device=t.device)
+    else:
+        n, b, rows = _global
+        u = torch.rand((n, b, t.shape[-1]), generator=generator,
+                       device=t.device)[:, rows].reshape(t.shape)
+    keep = u < 1.0 - p
     return torch.where(keep, t / (1.0 - p), torch.zeros_like(t))
 
 

@@ -15,7 +15,9 @@ the partitioner (`cond_mapping.{i}`) are named by the port: the JAX
 package's checkpoint loader (tools/convert_torch.py `convert_realnvp`)
 reads no key for them. torch's Linear keeps (out, in) weights; `layers`
 hands the coupling math (in, out) matrices like the JAX package's stacked
-params.
+params. Inside `parallel.sharded.tensor_parallel` each coupling net's first
+layer and its `c.0` projection compute this rank's hidden columns and the
+second layer their part of its product, summed over the 'model' line.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from mhentropy_tpu_torch.flows.priors import std_normal_logp
+from mhentropy_tpu_torch.parallel import sharded
 
 KEMB_CH = 63  # the joint-index embedding's width
 
@@ -181,16 +184,47 @@ def make_cond(flow: RealNVP, feat: torch.Tensor) -> torch.Tensor:
     return feat.reshape(b * cfg.joint_n, -1)
 
 
-def cond_cache(flow: RealNVP, cond: torch.Tensor) -> torch.Tensor:
+def cond_cache(flow: RealNVP, cond: torch.Tensor,
+               kernel_line: sharded.Line | None = None) -> torch.Tensor:
     """Per-layer conditioning projections, once per image: (L, 4, B, H),
     layer x (s0, s1, t0, t1) x batch x hidden. An unconditional flow gets
-    broadcastable (L, 4, B, 1) zeros."""
+    broadcastable (L, 4, B, 1) zeros.
+
+    kernel_line: the tensor-parallel line of a kernel's caller that reads
+    the cache whole and differentiates it split (`cuda_sampler.
+    sample_fused_diff`): every column is computed, and the c.0 projections
+    read cond through `copy_to`, as the split cache's do, so that the
+    backward sums their cotangent (this rank's columns') over the line."""
     cfg = flow.cfg
     if not flow.conditional:
         return cond.new_zeros((cfg.n_layers, 4, cond.shape[0], 1))
+    ln = sharded.line() or kernel_line
+    if ln is not None:
+        return _split_cond_cache(flow, cond, ln, whole=kernel_line is not None)
     return torch.stack([
         torch.stack([F.linear(cond, net.c[j].weight, net.c[j].bias)
                      for net, j in ((s, 0), (s, 1), (t, 0), (t, 1))])
+        for s, t in zip(flow.s, flow.t)
+    ])
+
+
+def _split_cond_cache(flow: RealNVP, cond: torch.Tensor, ln: sharded.Line,
+                      whole: bool = False) -> torch.Tensor:
+    """`cond_cache` with the column-parallel `c.0` projections (s0, t0)
+    computed on this rank's hidden columns, zero elsewhere (whole: on
+    every column)."""
+    h = flow.cfg.h_dim
+    cols = ln.cols(h)
+    cs = sharded.copy_to(cond, ln)
+
+    def c0(lin):
+        if whole:
+            return F.linear(cs, lin.weight, lin.bias)
+        return F.pad(F.linear(cs, lin.weight[cols], lin.bias[cols]), (cols.start, h - cols.stop))
+
+    return torch.stack([
+        torch.stack([c0(s.c[0]), F.linear(cond, s.c[1].weight, s.c[1].bias),
+                     c0(t.c[0]), F.linear(cond, t.c[1].weight, t.c[1].bias)])
         for s, t in zip(flow.s, flow.t)
     ])
 
@@ -201,10 +235,20 @@ def _lrelu(h):
 
 def _st_nets(layer: Layer, x_masked: torch.Tensor, cp: torch.Tensor):
     """The s (tanh-squashed) and t nets of one coupling layer."""
-    def mlp(w0, b0, w1, b1, w2, b2, c0, c1):
-        h = _lrelu(x_masked @ w0 + b0 + c0)
-        h = _lrelu(h @ w1 + b1 + c1)
-        return h @ w2 + b2
+    ln = sharded.line()
+    if ln is None:
+        def mlp(w0, b0, w1, b1, w2, b2, c0, c1):
+            h = _lrelu(x_masked @ w0 + b0 + c0)
+            h = _lrelu(h @ w1 + b1 + c1)
+            return h @ w2 + b2
+    else:
+        cols = ln.cols(layer.s_w0.shape[1])
+        xs = sharded.copy_to(x_masked, ln)
+
+        def mlp(w0, b0, w1, b1, w2, b2, c0, c1):
+            h = _lrelu(xs @ w0[:, cols] + b0[cols] + c0[..., cols])
+            h = _lrelu(sharded.reduce_from(h @ w1[cols], ln) + b1 + c1)
+            return h @ w2 + b2
 
     s = torch.tanh(mlp(layer.s_w0, layer.s_b0, layer.s_w1, layer.s_b1,
                        layer.s_w2, layer.s_b2, cp[0], cp[1]))

@@ -20,19 +20,56 @@ versions; CUDA tensors launch the kernel, and a tensor in another layout
 raises: a hidden copy of every activation is what cost the TPU version its
 A/B. Where autograd hands `TrainBN`'s backward a dy in another layout, the
 backward converts it explicitly and counts the copy in `dy_copies`.
+
+Inside `global_batch(group)` (a data-parallel step) the statistics are the
+global batch's, as XLA's sharded jit takes them: the (sum, sum x^2) of each
+rank's kernel (or plain sums) are all-reduced over the group in the forward,
+and the (sum dy, sum dy x) in the backward, before the math below.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from mhentropy_tpu_torch import ext
+from mhentropy_tpu_torch.parallel import mesh as mesh_lib
 
 # Kernel launches since the counts were last reset; nothing else touches them.
 stats_launches = 0
 grad_launches = 0
 # Explicit channels-last copies of a cotangent dy in TrainBN's backward.
 dy_copies = 0
+
+# The process group whose ranks' batches make the statistics' batch (the
+# data axis of a sharded train step), or None: this process's batch alone.
+_group = None
+
+
+@contextlib.contextmanager
+def global_batch(group):
+    """Train-mode BN inside takes its statistics over the batches of every
+    rank of `group` (None: this process's alone)."""
+    global _group
+    prev, _group = _group, group
+    try:
+        yield
+    finally:
+        _group = prev
+
+
+def _ranks(group) -> int:
+    return 1 if group is None else torch.distributed.get_world_size(group)
+
+
+def _reduce_pair(a: torch.Tensor, b: torch.Tensor, group):
+    """(a, b) summed over the group's ranks in one collective."""
+    if group is None:
+        return a, b
+    both = mesh_lib.all_reduce_(torch.cat([a, b]), group)
+    return both[:a.shape[0]], both[a.shape[0]:]
+
 
 # Pass-1 blocks to aim for: four per SM of the H100's 132.
 _TARGET_BLOCKS = 4 * 132
@@ -144,14 +181,17 @@ class StatsSums(torch.autograd.Function):
     VJP's cotangent adds them in bf16)."""
 
     @staticmethod
-    def forward(ctx, xf, x):
+    def forward(ctx, xf, x, group=None):
         ctx.save_for_backward(x)
-        return stats_sums(x)
+        ctx.group = group
+        return _reduce_pair(*stats_sums(x), group)
 
     @staticmethod
     def backward(ctx, ds, dss):
         (x,) = ctx.saved_tensors
-        return _bcast(ds, x) + 2.0 * x.float() * _bcast(dss, x), None
+        # Every rank's loss reads the global sums: sum their cotangents.
+        ds, dss = _reduce_pair(ds, dss, ctx.group)
+        return _bcast(ds, x) + 2.0 * x.float() * _bcast(dss, x), None, None
 
 
 class TrainBN(torch.autograd.Function):
@@ -161,9 +201,9 @@ class TrainBN(torch.autograd.Function):
     elementwise dx in PyTorch, including the mean / var cotangent terms."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps: float):
-        m = x.numel() // x.shape[1]
-        s, ss = stats_sums(x)
+    def forward(ctx, x, scale, bias, eps: float, group=None):
+        m = x.numel() // x.shape[1] * _ranks(group)
+        s, ss = _reduce_pair(*stats_sums(x), group)
         mean = s / m
         var = torch.clamp(ss / m - mean * mean, min=0.0)
         rstd = torch.rsqrt(var + eps)
@@ -171,13 +211,14 @@ class TrainBN(torch.autograd.Function):
              + _bcast(bias, x)).to(x.dtype)
         ctx.save_for_backward(x, mean, rstd, scale)
         ctx.set_materialize_grads(False)
+        ctx.group, ctx.m = group, m
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, dmean, dvar):
         global dy_copies
         x, mean, rstd, scale = ctx.saved_tensors
-        m = x.numel() // x.shape[1]
+        group, m = ctx.group, ctx.m
         xf = x.float()
         dx = torch.zeros_like(xf)
         s1 = s2 = torch.zeros_like(mean)
@@ -187,15 +228,22 @@ class TrainBN(torch.autograd.Function):
                 dy_copies += 1
             s1, sxy = grad_sums(dy, x)
             # sum(dy * xhat) from the raw sums: xhat = (x - mean) * rstd.
+            # scale's and bias's gradients are this rank's (the step sums
+            # them over the ranks); dx takes the global batch's sums.
             s2 = (sxy - mean * s1) * rstd
+            g1, gxy = _reduce_pair(s1, sxy, group)
+            g2 = (gxy - mean * g1) * rstd
             xhat = (xf - _bcast(mean, x)) * _bcast(rstd, x)
-            dx = _bcast(rstd * scale, x) * (dy.float() - _bcast(s1 / m, x)
-                                            - xhat * _bcast(s2 / m, x))
+            dx = _bcast(rstd * scale, x) * (dy.float() - _bcast(g1 / m, x)
+                                            - xhat * _bcast(g2 / m, x))
+        if group is not None and (dmean is not None or dvar is not None):
+            dmean, dvar = _reduce_pair(torch.zeros_like(mean) if dmean is None else dmean,
+                                       torch.zeros_like(mean) if dvar is None else dvar, group)
         if dmean is not None:
             dx = dx + _bcast(dmean / m, x)
         if dvar is not None:
             dx = dx + _bcast(dvar * (2.0 / m), x) * (xf - _bcast(mean, x))
-        return dx.to(x.dtype), s2, s1, None
+        return dx.to(x.dtype), s2, s1, None, None
 
 
 def normalize(xf: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, scale: torch.Tensor,
@@ -216,21 +264,29 @@ def batch_norm_train(x: torch.Tensor, bn: torch.nn.BatchNorm2d, mode: str = "sta
     path with `tpu.fused_train_bn` off). Otherwise mode "stats" computes the
     sums with `StatsSums` and leaves the backward to autograd; "full" runs
     `TrainBN`, whose backward reduces with `grad_sums`. Either way CPU
-    tensors take the plain sums and CUDA tensors the kernels.
+    tensors take the plain sums and CUDA tensors the kernels. Inside
+    `global_batch(group)` every path takes the statistics of the ranks'
+    batches together.
     """
     if mode not in ("stats", "full"):
         raise ValueError(f"train BN mode {mode!r}; expected 'stats' or 'full'")
-    m = x.numel() // x.shape[1]
+    group = _group
+    m = x.numel() // x.shape[1] * _ranks(group)
     if mode == "full" and kernels:
-        y, mean, var = TrainBN.apply(x, bn.weight, bn.bias, bn.eps)
+        y, mean, var = TrainBN.apply(x, bn.weight, bn.bias, bn.eps, group)
     else:
         xf = x.float()
         if kernels:
-            s, ss = StatsSums.apply(xf, x)
+            s, ss = StatsSums.apply(xf, x, group)
             mean, mu2 = s / m, ss / m
-        else:
+        elif group is None:
             dims = _sum_dims(x)
             mean, mu2 = xf.mean(dims), (xf * xf).mean(dims)
+        else:
+            dims = _sum_dims(x)
+            both = mesh_lib.AllReduceSum.apply(torch.cat([xf.sum(dims), (xf * xf).sum(dims)]),
+                                               group)
+            mean, mu2 = both[:x.shape[1]] / m, both[x.shape[1]:] / m
         var = torch.clamp(mu2 - mean * mean, min=0.0)
         y = normalize(xf, mean, var, bn.weight, bn.bias, bn.eps, x.dtype)
     with torch.no_grad():

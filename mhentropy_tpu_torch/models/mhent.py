@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from mhentropy_tpu_torch.core import camera, mano, render, skeletons
 from mhentropy_tpu_torch.core.mano import ManoConfig, ManoModel
@@ -38,6 +39,8 @@ from mhentropy_tpu_torch.flows import (cuda_glow_sampler, cuda_sampler, cuda_sam
 from mhentropy_tpu_torch.flows.realnvp import RealNVPConfig
 from mhentropy_tpu_torch.models import quant as quant_mod
 from mhentropy_tpu_torch.models.encoder import Encoder, EncoderConfig, init_weights_
+from mhentropy_tpu_torch.parallel import pipeline as pipe_lib
+from mhentropy_tpu_torch.parallel import sharded
 from mhentropy_tpu_torch.train import metrics as metrics_lib
 
 # z layout (network.py:367-373 of the reference).
@@ -179,7 +182,16 @@ def make_priors(cfg: MHEntConfig, device=None) -> dict:
 
 
 def det_head_apply(net: MHEnt, feat: torch.Tensor) -> torch.Tensor:
-    return net.det_head(feat)
+    """The det head; inside `parallel.sharded.tensor_parallel` its first
+    linear computes this rank's columns and the second their part of its
+    product, summed over the 'model' line."""
+    ln = sharded.line()
+    if ln is None:
+        return net.det_head(feat)
+    l0, l2 = net.det_head[0], net.det_head[2]
+    cols = ln.cols(l0.out_features)
+    h = torch.relu(F.linear(sharded.copy_to(feat, ln), l0.weight[cols], l0.bias[cols]))
+    return sharded.reduce_from(F.linear(h, l2.weight[:, cols]), ln) + l2.bias
 
 
 def extract_feat(net: MHEnt, image: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -210,7 +222,8 @@ def sample_q_z(net: MHEnt, feat: torch.Tensor, n: int, temp: float = 1.0,
                base_noise: torch.Tensor | None = None,
                generator: torch.Generator | None = None,
                differentiable: bool = False,
-               flow_q: cuda_sampler_int8.FlowQTree | None = None):
+               flow_q: cuda_sampler_int8.FlowQTree | None = None,
+               pipeline=None):
     """Draw n hypotheses per image from q(z | I).
 
     Rows are hypothesis-major (N blocks of B). base_noise: (n * B, 45), already
@@ -234,11 +247,25 @@ def sample_q_z(net: MHEnt, feat: torch.Tensor, n: int, temp: float = 1.0,
     The det regressor draws nothing: its n rows repeat the det head's z,
     and log q is 0.
 
+    pipeline: (mesh, n_micro): the realnvp draw runs the GPipe schedule over
+    the mesh's 'pipe' axis (`parallel.pipeline.sample_pipelined`, the plain
+    coupling math, differentiable), as JAX's `sample_q_z(pipeline=)`; it
+    raises for another regressor and with flow_q. The kernels read whole
+    weights, so inside `parallel.sharded.tensor_parallel` they run outside
+    the split (`sharded.whole`); the f32 draw's backward recomputes split
+    (`cuda_sampler.TransformDiff`).
+
     Returns z (n * B, 61) and log q (n * B,).
     """
     cfg = net.cfg
     b = feat.shape[0]
     flow = net.q_z_giv_i
+    if pipeline is not None and cfg.regressor != "realnvp":
+        raise NotImplementedError(f"pipeline parallelism covers the realnvp regressor; got "
+                                  f"{cfg.regressor!r}")
+    if pipeline is not None and flow_q is not None:
+        raise NotImplementedError("pipeline= and flow_q= are mutually exclusive: the int8 "
+                                  "fused eval draw is not pipelined")
     if flow is None:
         z_det = det_head_apply(net, feat).repeat(n, 1)
         return combine_z(cfg, z_det, None), feat.new_zeros(n * b)
@@ -252,19 +279,26 @@ def sample_q_z(net: MHEnt, feat: torch.Tensor, n: int, temp: float = 1.0,
                 raise RuntimeError("the Glow sampler kernel needs the packed flow "
                                    "(mhent.prepare) and a flow it takes "
                                    f"({flow.cfg}); set_kernels(False) runs the plain flow")
-            z_flow, log_q = cuda_glow_sampler.sample_and_log_prob_fused(
-                flow, net.packed_flow, feat, n, base_noise)
+            with sharded.whole():
+                z_flow, log_q = cuda_glow_sampler.sample_and_log_prob_fused(
+                    flow, net.packed_flow, feat, n, base_noise)
         else:
             z_flow, log_q = glow.sample_and_log_prob(flow, feat, n, noise=base_noise,
                                                      generator=generator, train=differentiable)
+    elif pipeline is not None:
+        mesh, n_micro = pipeline
+        z_flow, log_q = pipe_lib.sample_pipelined(flow, base_noise, feat, mesh, n_micro,
+                                                  n_per_image=n, return_log_prob=True)
     elif flow_q is not None and not differentiable:
-        z_flow, log_q = cuda_sampler_int8.sample_fused_q(flow, flow_q, feat, n, base_noise)
+        with sharded.whole():
+            z_flow, log_q = cuda_sampler_int8.sample_fused_q(flow, flow_q, feat, n, base_noise)
     elif fused and differentiable:
         z_flow, log_q = cuda_sampler.sample_fused_diff(flow, feat, n, base_noise)
     elif fused:
         if net.packed_flow is None:
             raise RuntimeError("the fused sampler needs the packed flow; run mhent.prepare")
-        z_flow, log_q = cuda_sampler.sample_fused(flow, net.packed_flow, feat, n, base_noise)
+        with sharded.whole():
+            z_flow, log_q = cuda_sampler.sample_fused(flow, net.packed_flow, feat, n, base_noise)
     else:
         cproj = realnvp.cond_cache(flow, realnvp.make_cond(flow, feat))
         z_flow, log_q = realnvp.sample(flow, base_noise, cproj=cproj.repeat(1, 1, n, 1))
@@ -368,7 +402,7 @@ def reverse_kld(model: ManoModel, net: MHEnt, y: dict, image: torch.Tensor,
                 base_noise: torch.Tensor | None = None, train: bool = False, mods=("uv",),
                 generator: torch.Generator | None = None,
                 fold: mano.KeypointFold | None = None,
-                feat: torch.Tensor | None = None) -> dict:
+                feat: torch.Tensor | None = None, pipeline=None) -> dict:
     """-KL(q(z|I) || p(y|z) p~(z)) up to a constant, per image: the
     training objective and the eval step's log p. base_noise:
     (n_train_hypotheses * B, 45) standard normal (temperature 1), drawn from
@@ -377,7 +411,8 @@ def reverse_kld(model: ManoModel, net: MHEnt, y: dict, image: torch.Tensor,
     running statistics updated in place); differentiate the result under
     autograd for the training step. feat: the conditioning feature
     `extract_feat(net, image, train)` already computed (the eval step
-    shares one encoder pass with `sample_hypotheses`)."""
+    shares one encoder pass with `sample_hypotheses`). pipeline: (mesh,
+    n_micro), the draw through the GPipe schedule (`sample_q_z`)."""
     cfg = net.cfg
     if feat is None:
         feat = extract_feat(net, image, train=train)
@@ -387,7 +422,7 @@ def reverse_kld(model: ManoModel, net: MHEnt, y: dict, image: torch.Tensor,
     # regressor that is the Glow in train mode, with its coupling nets'
     # dropout (:314-321), whatever `train` says.
     z, log_q = sample_q_z(net, feat, n, temp=1.0, base_noise=base_noise, generator=generator,
-                          differentiable=True)
+                          differentiable=True, pipeline=pipeline)
     th_bt = z[:, :TH_BT]
     out = {"th_norm": torch.linalg.norm(th_bt[:, :48], dim=1),
            "bt_norm": torch.linalg.norm(th_bt[:, -10:], dim=1)}
@@ -429,7 +464,8 @@ def sample_hypotheses(model: ManoModel, net: MHEnt, image: torch.Tensor, n: int 
             raise ValueError("sample_hypotheses: feat is the float feature; with quant the "
                              "int8 encoder computes its own")
         spec, qtree = quant
-        feat = quant_mod.encoder_feat(spec, qtree, net.feat_extractor, image)
+        with sharded.whole():
+            feat = quant_mod.encoder_feat(spec, qtree, net.feat_extractor, image)
         if spec.int8_sampler:
             flow_q = qtree.get("flow")
             if flow_q is None:

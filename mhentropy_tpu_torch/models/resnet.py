@@ -22,7 +22,9 @@ JAX gates say (`not train`), and every BatchNorm runs the flax train-mode
 math of `bn_cuda.batch_norm_train`: its channel sums are the `bn_cuda`
 kernels on the card, and `kernels = False` gives flax's plain statistics.
 `bn_mode` ("stats" or "full") picks the autograd structure around the
-kernels. The parameters may stay f32 masters while the compute runs in
+kernels. Inside `parallel.sharded.tensor_parallel` each residual block's
+`conv1` and `bn1` compute this rank's output channels and `conv2` their
+part of its product, summed over the 'model' line (`_split_pair`). The parameters may stay f32 masters while the compute runs in
 `dtype` (bf16): each conv casts its weight to its input's dtype in the
 forward (flax's `param_dtype` f32 / `dtype` bf16), and `.to` returns the
 very tensor when the dtypes already match, as on the serving path after
@@ -31,10 +33,14 @@ very tensor when the dtypes already match, as on the serving path after
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from mhentropy_tpu_torch.models import bn_cuda, stage1_cuda, stem_cuda
+from mhentropy_tpu_torch.parallel import sharded
 
 
 class Conv2d(nn.Conv2d):
@@ -58,6 +64,29 @@ class BatchNorm2d(nn.BatchNorm2d):
         return super().forward(x)
 
 
+def _bn_cols(bn: BatchNorm2d, y: torch.Tensor, cols: slice) -> torch.Tensor:
+    """`bn` on the channels `cols` of its input (y holds those alone); in
+    train mode it updates those channels' running statistics."""
+    if bn.training:
+        view = SimpleNamespace(weight=bn.weight[cols], bias=bn.bias[cols], eps=bn.eps,
+                               momentum=bn.momentum, running_mean=bn.running_mean[cols],
+                               running_var=bn.running_var[cols])
+        return bn_cuda.batch_norm_train(y, view, bn.mode, bn.kernels)
+    return F.batch_norm(y, bn.running_mean[cols], bn.running_var[cols], bn.weight[cols],
+                        bn.bias[cols], False, 0.0, bn.eps)
+
+
+def _split_pair(block, x: torch.Tensor, ln: sharded.Line) -> torch.Tensor:
+    """relu(bn1(conv1(x))) on this rank's output channels, then conv2 on
+    them: its partial product, summed over the line (Megatron's pair)."""
+    cols = ln.cols(block.conv1.out_channels)
+    xs = sharded.copy_to(x, ln)
+    y = block.conv1._conv_forward(xs, block.conv1.weight[cols].to(x.dtype), None)
+    y = torch.relu(_bn_cols(block.bn1, y, cols))
+    y = block.conv2._conv_forward(y, block.conv2.weight[:, cols].to(y.dtype), None)
+    return sharded.reduce_from(y, ln)
+
+
 def _conv_bn(cin: int, cout: int, k: int, stride: int = 1):
     return (Conv2d(cin, cout, k, stride, k // 2, bias=False),
             BatchNorm2d(cout, eps=1e-5, momentum=0.1))
@@ -75,8 +104,12 @@ class BasicBlock(nn.Module):
             self.downsample = nn.Sequential(*_conv_bn(inplanes, planes, 1, stride))
 
     def forward(self, x):
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+        ln = sharded.line()
+        if ln is None:
+            y = self.conv2(torch.relu(self.bn1(self.conv1(x))))
+        else:
+            y = _split_pair(self, x, ln)
+        y = self.bn2(y)
         res = x if self.downsample is None else self.downsample(x)
         return torch.relu(y + res)
 
@@ -94,8 +127,12 @@ class Bottleneck(nn.Module):
             self.downsample = nn.Sequential(*_conv_bn(inplanes, planes * 4, 1, stride))
 
     def forward(self, x):
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = torch.relu(self.bn2(self.conv2(y)))
+        ln = sharded.line()
+        if ln is None:
+            y = self.conv2(torch.relu(self.bn1(self.conv1(x))))
+        else:
+            y = _split_pair(self, x, ln)
+        y = torch.relu(self.bn2(y))
         y = self.bn3(self.conv3(y))
         res = x if self.downsample is None else self.downsample(x)
         return torch.relu(y + res)

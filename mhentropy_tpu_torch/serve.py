@@ -24,6 +24,7 @@ import time
 import numpy as np
 import torch
 
+from mhentropy_tpu_torch import convert
 from mhentropy_tpu_torch.core import mano
 from mhentropy_tpu_torch.models import mhent, quant
 from mhentropy_tpu_torch.train import engine
@@ -107,10 +108,9 @@ class InferenceServer:
     def _restore(net: mhent.MHEnt, path: str) -> None:
         if not path.endswith(".pth"):
             raise NotImplementedError(
-                f"{path!r}: orbax checkpoints are not ported yet (ROADMAP queue 1, "
-                f"\"What training still lacks\"); pass a reference .pth")
-        ckpt = torch.load(path, map_location="cpu")
-        net.load_state_dict(ckpt.get("encoderRGB", ckpt), strict=True)
+                f"{path!r}: orbax checkpoints are read by the JAX package only; convert this "
+                f"one with `python orbax_to_pth.py {path} out.pth` and pass the .pth")
+        convert.load_reference_state(net, torch.load(path, map_location="cpu"))
 
     def _normalised(self, images: np.ndarray) -> torch.Tensor:
         # HTTP bodies arrive as read-only buffers; torch wants writable memory.

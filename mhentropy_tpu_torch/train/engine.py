@@ -18,8 +18,10 @@ non-integrated RLE mode that a `network.enc_type` other than "MHEnt"
 selects (:505-518): `build_rle_config` :115, `make_rle_train_step` :249
 and `make_rle_eval_step` :280, with `Experiment`'s branches for it
 (checkpoints in the reference's RLE schema, {'encoderRGB', 'p_nf'}).
-Checkpoints are the reference's .pth; orbax directories are not ported
-(ROADMAP queue 1, "What training still lacks": orbax imports JAX).
+Checkpoints are the reference's .pth (its `mano_dec.*` buffers dropped by
+`convert.load_reference_state`); an orbax directory of the JAX package is
+converted to one by the repository's `orbax_to_pth.py` (orbax imports JAX,
+which the port does not).
 
 Both loops feed their steps through `data.common.prefetch` over
 `data.common.batches(..., device=)`: a thread builds each batch and copies
@@ -36,6 +38,7 @@ with.
 from __future__ import annotations
 
 import logging
+import math
 import os
 import re
 import time
@@ -43,17 +46,23 @@ import weakref
 
 import torch
 
+from mhentropy_tpu_torch import convert
 from mhentropy_tpu_torch.core import camera
 from mhentropy_tpu_torch.core import mano as mano_lib
 from mhentropy_tpu_torch.core.mano import ManoConfig, ManoModel
 from mhentropy_tpu_torch.data import common as data_common
 from mhentropy_tpu_torch.data import synthetic
+from mhentropy_tpu_torch.flows import glow
 from mhentropy_tpu_torch.flows.realnvp import RealNVPConfig
-from mhentropy_tpu_torch.models import mhent, rle
+from mhentropy_tpu_torch.models import bn_cuda, mhent, rle
 from mhentropy_tpu_torch.models import quant as quant_mod
 from mhentropy_tpu_torch.models.encoder import EncoderConfig
 from mhentropy_tpu_torch.models.mhent import MHEntConfig
 from mhentropy_tpu_torch.models.rle import RLEConfig
+from mhentropy_tpu_torch.parallel import mesh as mesh_lib
+from mhentropy_tpu_torch.parallel import pipeline as pipe_lib
+from mhentropy_tpu_torch.parallel import sharded
+from mhentropy_tpu_torch.parallel.mesh import DATA_AXIS, HYPO_AXIS, PIPE_AXIS
 from mhentropy_tpu_torch.train import metrics as metrics_lib
 from mhentropy_tpu_torch.utils.logging import AverageMeter, ScalarWriter, get_logger
 
@@ -183,17 +192,22 @@ def _prep_image(image: torch.Tensor, target: dict) -> torch.Tensor:
     return img * scale[:, None, None, None] + target["_img_bias"][:, None, None, None]
 
 
-def _prep_batch(image: torch.Tensor, target: dict):
-    """Image normalisation plus the orthographic camera `st` fitted from
-    pose3d and crop_uv when the loader left it out."""
-    image = _prep_image(image, target)
+def _prep_target(target: dict) -> dict:
+    """The orthographic camera `st` fitted from pose3d and crop_uv when the
+    loader left it out."""
     if "st" not in target and "pose3d" in target and "crop_uv" in target:
         target = dict(target)
         uv = target["crop_uv"]
         k = uv.shape[-1] // 2
         target["st"] = camera.compute_st(target["pose3d"].reshape(-1, k, 3),
                                          uv.reshape(-1, k, 2))
-    return image, target
+    return target
+
+
+def _prep_batch(image: torch.Tensor, target: dict):
+    """Image normalisation plus the orthographic camera `st` fitted from
+    pose3d and crop_uv when the loader left it out."""
+    return _prep_image(image, target), _prep_target(target)
 
 
 class Optimizer:
@@ -225,10 +239,15 @@ class Optimizer:
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
 
+    def global_norm(self) -> torch.Tensor:
+        """The norm of every gradient together, the clip's."""
+        grads = [p.grad for p in self.params if p.grad is not None]
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
     @torch.no_grad()
     def step(self) -> None:
         grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = self.global_norm()
         # Stays on the device: no host sync for the clip decision.
         divisor = torch.where(norm < self.max_norm, torch.ones_like(norm),
                               norm / self.max_norm)
@@ -264,6 +283,106 @@ class Optimizer:
         self.count = count
 
 
+class ShardedOptimizer(Optimizer):
+    """`Optimizer` with its state sharded over the mesh's 'data' axis on
+    the rule of `mesh.fsdp_sharding` (`tpu.fsdp`). JAX's `make_train_step(
+    fsdp=True)` shards the parameters, gradients and moments (ZeRO-3);
+    here every rank keeps the whole parameters and the whole summed
+    gradients, as under DP, and only the optimizer's state and work are
+    split (ZeRO-1): each split parameter's Adam moments are this rank's
+    shard, and Adam steps this rank's shard of the parameter in place (a
+    view of it, not a copy). `step` clips with the norm whose square is the
+    shards' squares summed over 'data' plus the whole parameters' once,
+    steps Adam on the shards and all-gathers them into the parameters.
+    `state_dict` gathers the moments into the 1-process layout, so a
+    checkpoint restores into an unsharded run, and `load_state_dict` takes
+    that layout."""
+
+    def __init__(self, net: torch.nn.Module, mesh: mesh_lib.Mesh, lr: float, milestones,
+                 steps_per_epoch: int, gamma: float = 0.1, max_norm: float = 1.0,
+                 min_size: int = 4096):
+        self.named = list(net.named_parameters())
+        self.split = mesh_lib.fsdp_sharding(mesh, net, min_size)
+        self.group = mesh.group(DATA_AXIS)
+        self.n, self.i = mesh.shape[DATA_AXIS], mesh.index(DATA_AXIS)
+        self.shards = {k: p.detach().chunk(self.n, self.split[k])[self.i]
+                       for k, p in self.named if k in self.split}
+        self._settings = (lr, milestones, steps_per_epoch, gamma, max_norm)
+        super().__init__([self.shards.get(k, p) for k, p in self.named], lr, milestones,
+                         steps_per_epoch, gamma=gamma, max_norm=max_norm)
+
+    def zero_grad(self) -> None:
+        super().zero_grad()
+        for _, p in self.named:
+            p.grad = None
+
+    def global_norm(self) -> torch.Tensor:
+        sq_split = sq_whole = torch.zeros((), device=self.params[0].device)
+        for k, p in self.named:
+            g = self.shards[k].grad if k in self.shards else p.grad
+            if g is None:
+                continue
+            if k in self.shards:
+                sq_split = sq_split + g.float().pow(2).sum()
+            else:
+                sq_whole = sq_whole + g.float().pow(2).sum()
+        return torch.sqrt(mesh_lib.all_reduce_(sq_split, self.group) + sq_whole)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for k, p in self.named:
+            if k in self.shards:
+                self.shards[k].grad = (None if p.grad is None
+                                       else p.grad.chunk(self.n, self.split[k])[self.i].clone())
+        super().step()
+        names = list(self.shards)
+        full = mesh_lib.all_gather_many([self.shards[k] for k in names], self.group,
+                                        [self.split[k] for k in names])
+        params = dict(self.named)
+        for k, t in zip(names, full):
+            params[k].copy_(t)
+
+    def _replicated(self) -> Optimizer:
+        return Optimizer([p for _, p in self.named], *self._settings[:3],
+                         gamma=self._settings[3], max_norm=self._settings[4])
+
+    @torch.no_grad()
+    def state_dict(self) -> dict:
+        full = self._replicated()
+        for k, p in self.named:
+            st = self.adam.state.get(self.shards.get(k, p))
+            if not st:
+                continue
+            if k in self.shards:
+                st = {"step": st["step"].clone(), **dict(zip(
+                    ("exp_avg", "exp_avg_sq"),
+                    mesh_lib.all_gather_many([st["exp_avg"], st["exp_avg_sq"]], self.group,
+                                             [self.split[k]] * 2)))}
+            full.adam.state[p] = st
+        full.count = self.count
+        return full.state_dict()
+
+    @torch.no_grad()
+    def load_moments(self, named_params: dict, state: dict) -> None:
+        full = self._replicated()
+        full.load_moments(named_params, state)
+        self.load_state_dict(full.state_dict())
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        full = self._replicated()
+        full.load_state_dict(state)
+        for k, p in self.named:
+            st = full.adam.state.get(p)
+            if st and k in self.shards:
+                st = {"step": st["step"],
+                      **{m: st[m].chunk(self.n, self.split[k])[self.i].clone()
+                         for m in ("exp_avg", "exp_avg_sq")}}
+            if st:
+                self.adam.state[self.shards.get(k, p)] = st
+        self.count = full.count
+
+
 def make_optimizer(net: torch.nn.Module, lr: float, milestones, steps_per_epoch: int,
                    gamma: float = 0.1) -> Optimizer:
     """Adam + MultiStep LR (gamma 0.1) + global-norm clip 1.0 over every
@@ -273,7 +392,9 @@ def make_optimizer(net: torch.nn.Module, lr: float, milestones, steps_per_epoch:
 
 def make_train_step(model: ManoModel, net: mhent.MHEnt, optimizer: Optimizer,
                     fold: mano_lib.KeypointFold | None = None,
-                    generator: torch.Generator | None = None):
+                    generator: torch.Generator | None = None,
+                    mesh: mesh_lib.Mesh | None = None, tp: bool = False, pipe: bool = False,
+                    n_micro: int = 2):
     """One optimisation step of the reverse-KL objective.
 
     Returns step_fn(image, target, noise) -> aux {loss, th_norm, bt_norm,
@@ -283,9 +404,26 @@ def make_train_step(model: ManoModel, net: mhent.MHEnt, optimizer: Optimizer,
     running statistics are updated in place and its parameters by the
     optimizer. A padded tail batch (target["valid"]) is masked out of the
     loss. generator: the glow regressor's dropout masks.
+
+    mesh: a `parallel.mesh.Mesh` of more than one rank (JAX's sharded step,
+    :359-422). image, target and noise are then the global batch and its
+    whole base noise, drawn alike on every rank, as the 1-process step
+    takes them; each rank computes its 'data' rows (and their noise rows),
+    train-mode BN takes the global batch's statistics, the glow regressor's
+    dropout masks are the global batch's (`glow.global_rows`), a rank's
+    loss is its share of the global batch's, the gradients are summed over the ranks
+    (`sharded.sync_grads`), so that the optimizer (a `ShardedOptimizer`
+    under tpu.fsdp) steps on the global gradient on every rank: the step of
+    the 1-process run on the global batch. tp: the Megatron split over
+    'model' (`sharded.tensor_parallel`); pipe: the draw through the GPipe
+    schedule over 'pipe' in n_micro microbatches (realnvp regressor only).
+    The aux values are the global batch's.
     """
     if fold is None:
         fold = mano_lib.fold_keypoints(model)
+    if mesh is not None and mesh.size > 1:
+        return _sharded_train_step(model, net, optimizer, fold, generator, mesh, tp, pipe,
+                                   n_micro)
 
     def step_fn(image, target, noise):
         image, target = _prep_batch(image, target)
@@ -305,10 +443,53 @@ def make_train_step(model: ManoModel, net: mhent.MHEnt, optimizer: Optimizer,
     return step_fn
 
 
+def _sharded_train_step(model, net, optimizer, fold, generator, mesh, tp, pipe, n_micro):
+    tp_names = set(mesh_lib.tp_sharding(mesh, net)) if tp else set()
+    pipeline = (mesh, n_micro) if pipe and mesh.shape[PIPE_AXIS] > 1 else None
+    pipe_names = pipe_lib.stage_names(net) if pipeline is not None else set()
+    group = mesh.group(DATA_AXIS)
+    n_train = net.cfg.n_train_hypotheses
+
+    def step_fn(image, target, noise):
+        b = image.shape[0]
+        image, target = mesh_lib.shard_batch(mesh, (image, target))
+        noise = mesh_lib.shard_rows(mesh, noise, n_train, b, hypo=False)
+        image, target = _prep_batch(image, target)
+        optimizer.zero_grad()
+        with bn_cuda.global_batch(group), sharded.tensor_parallel(mesh if tp else None), \
+                glow.global_rows(n_train, b, mesh_lib.batch_sharding(mesh, b)):
+            out = mhent.reverse_kld(model, net, target, image, base_noise=noise, train=True,
+                                    generator=generator, fold=fold, pipeline=pipeline)
+            lp = out["log_p"]
+            if "valid" in target:
+                v = target["valid"]
+                den = mesh_lib.all_reduce_(v.sum().detach(), group) + 1e-16
+                loss = -(lp * v).sum() / den
+            else:
+                loss = -lp.sum() / b
+            loss.backward()
+        if pipeline is not None:
+            pipe_lib.drain()
+        sharded.sync_grads(net, mesh, tp_names, pipe_names)
+        optimizer.step()
+        if tp_names:
+            sharded.sync_split_stats(net, mesh, tp_names)
+        h_q = out.get("h_q_z_giv_i")
+        sums = torch.stack([loss.detach(), out["th_norm"].detach().sum() / (n_train * b),
+                            out["bt_norm"].detach().sum() / (n_train * b),
+                            h_q.detach().sum() / b if h_q is not None else loss.new_zeros(()),
+                            out["q_log_p_z_giv_y"].detach().sum() / b])
+        sums = mesh_lib.all_reduce_(sums, group)
+        return dict(zip(("loss", "th_norm", "bt_norm", "h_q", "q_log_p"), sums.unbind()))
+
+    return step_fn
+
+
 def make_eval_step(model: ManoModel, net: mhent.MHEnt, n: int, temp: float,
                    n_quant: int | None = None, quant_spec=None,
                    fold: mano_lib.KeypointFold | None = None,
-                   generator: torch.Generator | None = None):
+                   generator: torch.Generator | None = None,
+                   mesh: mesh_lib.Mesh | None = None, tp: bool = False):
     """The multi-hypothesis eval step: reverse-KL log p with its entropy
     term, n hypotheses per image (int8 encoder and sampler when quant_spec
     is given), and the BH / WH / diversity metrics.
@@ -319,9 +500,23 @@ def make_eval_step(model: ManoModel, net: mhent.MHEnt, n: int, temp: float,
     drawn with mods ("xyz", "uv"): the metrics never read the mesh.
     generator: the dropout masks of the glow regressor's reverse-KL draw,
     which runs in train mode here too, as in JAX.
+
+    mesh: a `parallel.mesh.Mesh` of more than one rank (JAX :427-484). The
+    step takes the global batch and its whole noise, as the 1-process step
+    does; each rank encodes its 'data' rows and draws its share of the n
+    hypotheses (`hypo_batch_spec`: N over 'hypo') through the kernels. BH,
+    WH and diversity need every hypothesis, so the samples are gathered
+    over 'hypo' and 'data' (and log p over 'data') and every rank scores
+    the global batch: the metrics are the 1-process step's on every rank.
+    A top-n_quant filter needs every hypothesis's log q, so it raises with
+    hypotheses split. tp: the Megatron split over 'model'; the kernels read
+    whole weights.
     """
     if fold is None:
         fold = mano_lib.fold_keypoints(model)
+    if mesh is not None and mesh.size > 1:
+        return _sharded_eval_step(model, net, n, temp, n_quant, quant_spec, fold, generator,
+                                  mesh, tp)
 
     @torch.inference_mode()
     def eval_fn(image, target, kld_noise, hypo_noise, qtree=None):
@@ -339,6 +534,47 @@ def make_eval_step(model: ManoModel, net: mhent.MHEnt, n: int, temp: float,
         output = dict(samples)
         output["log_p"] = out["log_p"]
         total, _, mets = metrics_lib.mhent_metrics(output, target,
+                                                   image_size=net.cfg.image_size)
+        mets = {k: v.mean() for k, v in mets.items()}
+        mets["loss_total"] = total
+        return mets
+
+    return eval_fn
+
+
+def _sharded_eval_step(model, net, n, temp, n_quant, quant_spec, fold, generator, mesh, tp):
+    n_quant = n if n_quant is None else n_quant
+    n_hypo = mesh.shape[HYPO_AXIS]
+    if n_quant < n and n_hypo > 1:
+        raise NotImplementedError(
+            f"the top-{n_quant} filter of {n} hypotheses needs every hypothesis's log q; with "
+            f"tpu.mesh_hypo {n_hypo} each rank draws {n // n_hypo}: leave training.test_quant "
+            f"unset")
+    hypo_group, data_group = mesh.group(HYPO_AXIS), mesh.group(DATA_AXIS)
+    n_train = net.cfg.n_train_hypotheses
+
+    @torch.inference_mode()
+    def eval_fn(image, target, kld_noise, hypo_noise, qtree=None):
+        b = image.shape[0]
+        full_target = _prep_target(target)
+        image, target = _prep_batch(*mesh_lib.shard_batch(mesh, (image, target)))
+        n_mine = n // n_hypo
+        with sharded.tensor_parallel(mesh if tp else None), \
+                glow.global_rows(n_train, b, mesh_lib.batch_sharding(mesh, b)):
+            feat = mhent.extract_feat(net, image)
+            out = mhent.reverse_kld(model, net, target, image,
+                                    base_noise=mesh_lib.shard_rows(mesh, kld_noise, n_train, b,
+                                                                   hypo=False),
+                                    generator=generator, fold=fold, feat=feat)
+            samples = mhent.sample_hypotheses(
+                model, net, image, n=n_mine, n_quant=min(n_quant, n_mine), temp=temp,
+                mods=("xyz", "uv"), base_noise=mesh_lib.shard_rows(mesh, hypo_noise, n, b),
+                fold=fold, quant=(quant_spec, qtree) if quant_spec is not None else None,
+                feat=feat if quant_spec is None else None)
+        output = {k: mesh_lib.all_gather(mesh_lib.all_gather(samples[k], hypo_group, dim=0),
+                                         data_group, dim=1) for k in ("xyz", "uv")}
+        output["log_p"] = mesh_lib.all_gather(out["log_p"], data_group, dim=0)
+        total, _, mets = metrics_lib.mhent_metrics(output, full_target,
                                                    image_size=net.cfg.image_size)
         mets = {k: v.mean() for k, v in mets.items()}
         mets["loss_total"] = total
@@ -423,6 +659,15 @@ class Experiment:
     `metric_eval/<name>`, against the train step count). close() (or a
     `with` block) releases them; a finaliser does so when the instance is
     collected, and close_all_experiments() for every live one.
+
+    In a process group (`parallel.multihost.initialize`, e.g. under
+    `python -m torch.distributed.run`), or with tpu.mesh_hypo, tp or pp
+    above 1, it lays the ranks out as JAX's Experiment lays out its devices
+    (:527-536: `fit_devices` on the batch, then `make_mesh`), reads
+    tpu.fsdp, and runs the sharded train and eval steps on it: every rank
+    iterates the same global batches and draws the same noise (one seed),
+    and computes its share of each step. Rank 0 alone writes the log, the
+    scalars and the checkpoints.
     """
 
     _live: "weakref.WeakSet" = None  # initialised below the class
@@ -433,11 +678,33 @@ class Experiment:
         if not self.integrated and not cfg.network.p_nf:
             raise NotImplementedError("non-integrated mode requires network.p_nf (realnvp)")
         self.device = resolve_device(device)
+        tpu = cfg.tpu
+        shape = dict(hypo=int(tpu.mesh_hypo or 1), tp=int(tpu.tp or 1), pp=int(tpu.pp or 1))
+        self.fsdp, self.tp, self.pp = bool(tpu.fsdp), shape["tp"] > 1, shape["pp"] > 1
+        self.rank, size = mesh_lib.world()
+        self.mesh = None
+        if size > 1 or math.prod(shape.values()) > 1:
+            n_dev = mesh_lib.fit_devices(cfg.training.batch_size, n_available=size, **shape)
+            self.mesh = mesh_lib.make_mesh(n_dev, **shape)
+            if not self.integrated:
+                raise NotImplementedError("the RLE mode runs in one process: its steps take no "
+                                          "mesh")
+            if self.tp and cfg.network.regressor == "glow":
+                raise NotImplementedError("tpu.tp splits the realnvp and det regressors; the "
+                                          "glow regressor's blocks are not split")
         os.makedirs(cfg.model_dir, exist_ok=True)
-        self.log = get_logger(os.path.join(cfg.model_dir, f"info_{cfg.training.mode}.log"),
-                              name=f"mhent_{id(self)}")
+        if self.rank == 0:
+            self.log = get_logger(os.path.join(cfg.model_dir, f"info_{cfg.training.mode}.log"),
+                                  name=f"mhent_{id(self)}")
+            self.writer = ScalarWriter(cfg.model_dir)
+        else:
+            self.log = logging.getLogger(f"mhent_{id(self)}")
+            self.log.addHandler(logging.NullHandler())
+            self.log.propagate = False
+            self.writer = _NullWriter()
         self.log.info(str(cfg))
-        self.writer = ScalarWriter(cfg.model_dir)
+        if self.mesh is not None:
+            self.log.info(f"mesh {self.mesh.shape}, fsdp {self.fsdp}")
         Experiment._live.add(self)
         # The finaliser owns the sinks, not self, or it would never run.
         self._finalizer = weakref.finalize(self, _close_sinks, self.writer, self.log)
@@ -484,13 +751,13 @@ class Experiment:
         {"encoderRGB", "p_nf"}); returns the checkpoint dict."""
         if not path.endswith(".pth"):
             raise NotImplementedError(
-                f"{path!r}: orbax checkpoints are not ported yet (ROADMAP queue 1, \"What "
-                f"training still lacks\"); pass a reference .pth")
+                f"{path!r}: orbax checkpoints are read by the JAX package only; convert this "
+                f"one with `python orbax_to_pth.py {path} out.pth` and pass the .pth")
         ckpt = torch.load(path, map_location="cpu")
         if isinstance(net, rle.RLE):
             rle.load_checkpoint(net, ckpt)
         else:
-            net.load_state_dict(ckpt.get("encoderRGB", ckpt), strict=True)
+            convert.load_reference_state(net, ckpt)
         return ckpt
 
     def _draws(self, target: dict, bs: int):
@@ -561,6 +828,8 @@ class Experiment:
 
     def _get_optimizer(self, steps_per_epoch: int) -> Optimizer:
         t = self.cfg.training
+        if self.fsdp and self.mesh is not None and self.mesh.shape[DATA_AXIS] > 1:
+            return ShardedOptimizer(self.net, self.mesh, t.lr, t.milestones, steps_per_epoch)
         return make_optimizer(self.net, t.lr, t.milestones, steps_per_epoch)
 
     def _ensure_state(self, steps_per_epoch: int) -> None:
@@ -583,12 +852,20 @@ class Experiment:
             self.steps_per_epoch = steps_per_epoch
             self.optimizer = self._get_optimizer(steps_per_epoch)
             if self._pending_opt is not None:
-                self.optimizer.load_state_dict(self._pending_opt)
+                self._load_optimizer(self._pending_opt)
                 self._pending_opt = None
             self._train_step = (
                 make_train_step(self.model, self.net, self.optimizer, fold=self.fold,
-                                generator=self.gen)
+                                generator=self.gen, mesh=self.mesh, tp=self.tp, pipe=self.pp)
                 if self.integrated else make_rle_train_step(self.net, self.optimizer))
+
+    def _load_optimizer(self, state: dict) -> None:
+        """A .pth's optimizer: the port's own state_dict, or Adam moments by
+        parameter name with their update count (orbax_to_pth.py's)."""
+        if "adam" in state:
+            self.optimizer.load_state_dict(state)
+        else:
+            self.optimizer.load_moments(dict(self.net.named_parameters()), state)
 
     def _latest_checkpoint(self):
         """(epoch, path) of the newest per-epoch checkpoint that save_model
@@ -608,7 +885,7 @@ class Experiment:
         the step count of a checkpoint that save_model wrote."""
         ckpt = self._restore(self.net, path)
         if ckpt.get("optimizer") is not None:
-            self.optimizer.load_state_dict(ckpt["optimizer"])
+            self._load_optimizer(ckpt["optimizer"])
         self.step = int(ckpt.get("step", 0))
 
     def train_baseline(self):
@@ -687,12 +964,14 @@ class Experiment:
         "p_nf" beside a BasicEnc "encoderRGB" in the RLE mode."""
         tag = name if epoch is None else f"{name}_{epoch}"
         path = os.path.abspath(os.path.join(self.cfg.model_dir, f"{tag}.pth"))
-        os.makedirs(os.path.dirname(path), exist_ok=True)
         modules = (rle.checkpoint(self.net) if not self.integrated else
                    {"encoderRGB": {k: v.detach().cpu() for k, v in self.net.state_dict().items()}})
-        torch.save({**modules,
-                    "optimizer": self.optimizer.state_dict() if self.optimizer else None,
-                    "step": self.step}, path)
+        # Every rank takes part (a sharded optimizer gathers its moments);
+        # rank 0 writes.
+        opt = self.optimizer.state_dict() if self.optimizer else None
+        if self.rank == 0:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            torch.save({**modules, "optimizer": opt, "step": self.step}, path)
         self.log.info(f"save model in {path}")
         return path
 
@@ -738,7 +1017,8 @@ class Experiment:
         spec = self.quant_spec = self._quant_spec(bs)
         if self.integrated:
             step = make_eval_step(self.model, self.net, n, temp, n_quant=min(tr.test_quant or n, n),
-                                  quant_spec=spec, fold=self.fold, generator=self.gen)
+                                  quant_spec=spec, fold=self.fold, generator=self.gen,
+                                  mesh=self.mesh, tp=self.tp)
         else:
             step = make_rle_eval_step(self.net)
         qtree = None
@@ -783,6 +1063,16 @@ class Experiment:
 
 
 Experiment._live = weakref.WeakSet()
+
+
+class _NullWriter:
+    """The scalar sink of a rank other than 0: writes nothing."""
+
+    def add_scalar(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def _close_sinks(writer: ScalarWriter, log) -> None:

@@ -57,7 +57,9 @@ DEFAULTS = {
             "autoresume": False,
             # The dataset loaders (train/engine.py make_datasets).
             "decode_cache": None, "target_fields": "auto", "image_u8": True,
-            "sample_cache": None, "device_st": True},
+            "sample_cache": None, "device_st": True,
+            # The mesh (train/engine.py Experiment, parallel/mesh.py).
+            "mesh_hypo": 1, "fsdp": False, "tp": 1, "pp": 1},
 }
 
 

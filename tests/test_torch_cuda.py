@@ -272,6 +272,29 @@ def test_lbs_blend_kernel_matches_plain(dev, rows):
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("v,j,rows", [(778, 16, 640), (778, 16, 12800), (6890, 24, 320)])
+def test_lbs_blend_gradient_through_the_kernel(dev, v, j, rows):
+    """A backward through `mhent::lbs_blend` on the card (the forward a
+    kernel launch) gives the plain blend's gradient for all four inputs,
+    to 1e-4 of each gradient's largest entry (f32 sums in another order)."""
+    g = torch.Generator().manual_seed(5)
+    w = torch.rand(v, j, generator=g)
+    args = [(w / w.sum(1, keepdim=True)), torch.randn(3, 3, j, rows, generator=g),
+            torch.randn(3, j, rows, generator=g) * 0.05,
+            torch.randn(3, v, rows, generator=g) * 0.05]
+    cot = torch.randn(3, v, rows, generator=g).to(dev)
+    grads = {}
+    for name, fn in (("kernel", lbs_cuda.lbs_blend), ("plain", lbs_cuda.lbs_blend_plain)):
+        leaves = [a.to(dev).requires_grad_() for a in args]
+        before = lbs_cuda.launches
+        (fn(*leaves) * cot).sum().backward()
+        assert lbs_cuda.launches == before + (name == "kernel")
+        grads[name] = [leaf.grad for leaf in leaves]
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        assert got is not None
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
 def _int8_sites(g, dev):
     def site(shape):
         cout = shape[-1]

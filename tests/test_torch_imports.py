@@ -47,6 +47,10 @@ def test_port_imports_no_jax():
         "import mhentropy_tpu_torch.core.render, mhentropy_tpu_torch.utils.viz\n"
         "import mhentropy_tpu_torch.data.sk, mhentropy_tpu_torch.data.pose_pipeline\n"
         "import mhentropy_tpu_torch.bench_input_pipeline\n"
+        "import mhentropy_tpu_torch.parallel.mesh, mhentropy_tpu_torch.parallel.sharded\n"
+        "import mhentropy_tpu_torch.parallel.multihost, mhentropy_tpu_torch.parallel.pipeline\n"
+        "import mhentropy_tpu_torch.utils.profiling\n"
+        "import mhentropy_tpu_torch.eval_released_checkpoint, chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'mhentropy_tpu', 'tools'))\n"
         "print(bad)\n"
