@@ -192,10 +192,23 @@
    (B = 64, N = 200 over 2 hypo ranks) against the unsharded batch (every
    metric; launches a rank stem 1, stage 1 3, bf16 sampler 1, f32 sampler
    1); one pipelined draw (pp = 2, the 12-coupling flow at 640 rows, 2
-   microbatches) against the sequential one, values and gradients; one
-   FSDP step against the DP step (every weight and Adam moment); one TP
-   eval (tp = 2) against the replicated eval (the same launches a rank);
-   each pair's ms in alternating windows; the phase within
+   microbatches) against the sequential one, values and gradients; two
+   ZeRO-3 steps (`tpu.fsdp`: parameters, gradients and Adam moments stored
+   as 'data' halves) against two DP steps (every weight and Adam moment),
+   and ZeRO-3 in the f32 gate; a TP train step (tp = 2, the split
+   parameters stored as halves) against the 1-process step; the state at
+   rest and the peak a rank of DP, ZeRO-3 and TP (ZeRO-3's state at most
+   PARALLEL_ZERO3_REST_SHARE of DP's); the glow regressor at tp = 2 (an
+   eval batch: its reverse-KL term through the split blocks, the
+   hypotheses through the Glow kernel; its train step in the f32 gate)
+   and the RLE mode on 2 data ranks (configs/rhd_rle.yaml: a train step,
+   an eval batch; the train step's gradients in the f32 gate, beside the
+   per-rank BN fault, which it must refuse), each against one process;
+   one TP eval (tp = 2, stored split) against the replicated eval (the
+   same launches a rank) and the eval's top-N_QUANT filter over 2 hypo
+   ranks against one process's; the DP and hypo steps', the TP eval's and
+   the pipelined draw's ms in alternating windows, every other path's by
+   one call, the card synchronised around it; the phase within
    PARALLEL_PHASE_S.
 9i. The released-checkpoint eval (`phase_released`): the CLI of
    mhentropy_tpu_torch/eval_released_checkpoint.py on a full-schema .pth
@@ -374,13 +387,15 @@ TRACED = 2  # steps a trace of the RLE and det train steps
 # gradients against float64 as parallel_f32_grads states; the eval
 # metrics, each relative, to PARALLEL_METRIC_TOL (a rank's encoder and
 # sampler rows are the whole batch's rows); the pipelined draw to
-# SAMPLER_F32_TOL of its largest value. FSDP against DP after one step:
-# every weight within PARALLEL_FSDP_WEIGHT_TOL (the update moves a weight
-# by up to lr = 2e-4, so a wrong shard or gather shows) and every Adam
+# SAMPLER_F32_TOL of its largest value. ZeRO-3 against DP after two steps:
+# every weight within PARALLEL_FSDP_WEIGHT_TOL (an update moves a weight
+# by up to lr = 2e-4, so a wrong block or gather shows) and every Adam
 # moment within PARALLEL_FSDP_MOMENT_TOL of its tensor's largest (the
-# moments carry the clip, which Adam's first update divides out).
+# moments carry the clip, which Adam's update divides out). The TP and RLE
+# steps' losses as TRAIN_LOSS_TOL; the glow TP eval as the TP eval, the
+# RLE eval and the top-N_QUANT eval as PARALLEL_METRIC_TOL.
 PARALLEL_RANKS = 2
-PARALLEL_STEPS = 2
+PARALLEL_STEPS = 1
 PARALLEL_PHASE_S = 120.0
 PARALLEL_METRIC_TOL = 1e-3
 PARALLEL_TP_TOL = 2e-2  # the TP eval: bf16 partial products summed in f32
@@ -392,6 +407,17 @@ RELEASED_FRAMES = 8
 # configs/ho3d.yaml (stage 1 launches once a bottleneck).
 PARALLEL_TRAIN_LAUNCHES = {"bn_stats_sums": 53, "realnvp_sampler_f32": 1}
 PARALLEL_EVAL_LAUNCHES = {"stem": 1, "stage1": 3, "realnvp_sampler": 1, "realnvp_sampler_f32": 1}
+# The glow regressor's eval batch at tp = 2 (the hypotheses through the
+# Glow kernel on the packed weights, whole, and the gathered gates); the RLE
+# mode's (2 data ranks): the BN stats sums of a train step, the eval
+# kernels of an eval batch.
+PARALLEL_GLOW_EVAL_LAUNCHES = {"stem": 1, "stage1": 3, "glow_sampler": 1}
+PARALLEL_RLE_TRAIN_LAUNCHES = {"bn_stats_sums": 53}
+PARALLEL_RLE_EVAL_LAUNCHES = {"stem": 1, "stage1": 3}
+# The eval's top-test_quant filter over 2 hypo ranks: the most likely half.
+N_QUANT = N_HYPO // 2
+# ZeRO-3's state at rest a rank against DP's (2 data ranks: about half).
+PARALLEL_ZERO3_REST_SHARE = 0.6
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3776,78 +3802,47 @@ def grad_errors(torch, g: dict, ref: dict) -> dict:
             "same_params": set(g) == set(ref)}
 
 
-def parallel_f32_grads(torch, dev, rank, mcfg, base, model, fold, image, target,
-                       noise) -> dict:
-    """The 2-rank steps' global gradients in f32 (kernels on): data-parallel
-    ("two_ranks_kernels_f32"), tensor-parallel at tp = 2 ("tp_kernels_f32":
-    the f32 draw whole, its backward recomputed split), and data-parallel
-    with a planted fault, BN statistics taken per rank
-    ("per_rank_bn_fault": `bn_cuda.global_batch` made a no-op). Each is held
-    to a float64 evaluation of the 1-process plain path on the global
-    batch, as glow_f32_grads holds the 1-process kernel path: each
-    parameter's relative L2 error at most GLOW_F32_GRAD_FACTOR x the
-    1-process plain f32 path's largest plus 1e-4, the relative L2 of all
-    gradients together at most PARALLEL_F32_ALL_FACTOR x the plain f32
-    path's, and each cosine at least RLE_F32_GRAD_COS ("grad_ok"); the loss
-    within TRAIN_F32_LOSS_TOL of the 1-process kernel path's ("loss_ok").
-    The sound steps must pass both and the fault must fail "grad_ok": the
-    gate is shown to see per-rank statistics. The 1-process kernel path's
-    errors, and each step's against it, are printed beside."""
-    import contextlib
-    from unittest import mock
+def f32_gate(torch, rank: int, steps: dict, one_step) -> dict:
+    """The f32 gradient gate of 2-rank steps. steps: name -> (run, plant):
+    run() takes one step on every rank (kernels on, the weights left alone:
+    `_NoStep`) and returns (loss, net), the net holding the global
+    gradients; plant: a context around it (a planted fault, or none).
+    one_step(kernels, dtype), on rank 0: (loss, gradients) of one forward
+    and backward of the 1-process path from the same weights, batch and
+    draws. Each step's gradients, gathered into the 1-process layout, are
+    held to the 1-process plain path's in float64, as glow_f32_grads holds
+    the 1-process kernel path: each parameter's relative L2 error at most
+    GLOW_F32_GRAD_FACTOR x the 1-process plain f32 path's largest plus
+    1e-4, the relative L2 of all gradients together at most
+    PARALLEL_F32_ALL_FACTOR x the plain f32 path's, and each cosine at
+    least RLE_F32_GRAD_COS ("grad_ok"); the loss within TRAIN_F32_LOSS_TOL
+    of the 1-process kernel path's ("loss_ok"). phase_parallel requires
+    both of a sound step and refuses a planted fault that passes
+    "grad_ok". The 1-process kernel path's errors, and each step's against
+    it, are printed beside. Returns the errors on rank 0, {} on the others."""
+    from mhentropy_tpu_torch.parallel import sharded
 
-    from mhentropy_tpu_torch.core import mano
-    from mhentropy_tpu_torch.models import bn_cuda
-    from mhentropy_tpu_torch.models import mhent
-    from mhentropy_tpu_torch.parallel import mesh as mesh_lib
-    from mhentropy_tpu_torch.train import engine
-
-    def net_of(kernels: bool, dtype):
-        net = mhent.MHEnt(mcfg)
-        net.load_state_dict(base)
-        net = mhent.prepare(net, dev, masters=True).train()
-        net.set_kernels(kernels)
-        net.feat_extractor.res.dtype = dtype
-        return net
-
-    per_rank_bn = mock.patch.object(bn_cuda, "global_batch",
-                                    lambda group: contextlib.nullcontext())
     runs = {}
-    for name, mesh, tp, plant in (
-            ("two_ranks_kernels_f32", mesh_lib.make_mesh(), False, contextlib.nullcontext()),
-            ("tp_kernels_f32", mesh_lib.make_mesh(tp=2), True, contextlib.nullcontext()),
-            ("per_rank_bn_fault", mesh_lib.make_mesh(), False, per_rank_bn)):
-        net = net_of(True, torch.float32)
-        step = engine.make_train_step(model, net, _NoStep(net), fold=fold, mesh=mesh, tp=tp)
+    for name, (run, plant) in steps.items():
         with plant:
-            loss = float(step(image, target, noise)["loss"])
+            loss, net = run()
+        grads = sharded.gathered_grads(net)  # the 1-process layout (collective)
         if rank == 0:
-            runs[name] = (loss, {k: p.grad.double() for k, p in net.named_parameters()
-                                 if p.grad is not None})
-        del net, step
+            runs[name] = (loss, {k: g.double() for k, g in grads.items()})
+        del net, grads
     if rank != 0:
         return {}
-    model64 = mano.ManoModel(*(t.double() if t.is_floating_point() else t for t in model))
-    args64 = (model64, mano.fold_keypoints(model64), image.double(),
-              {k: v.double() if v.is_floating_point() else v for k, v in target.items()},
-              noise.double())
     for name, kernels, dtype in (("kernels_f32", True, torch.float32),
                                  ("plain_f32", False, torch.float32),
                                  ("plain_f64", False, torch.float64)):
-        net = net_of(kernels, dtype)
-        args = (model, fold, image, target, noise)
-        if dtype == torch.float64:
-            net.double()
-            args = args64
-        loss, g, _ = one_step_grads(torch, net, *args)
+        loss, g = one_step(kernels, dtype)
         runs[name] = (loss, {k: v.double() for k, v in g.items()})
-        del net
     ref_loss, ref = runs.pop("plain_f64")
     one_loss, one = runs["kernels_f32"]
     out = {name: {"loss": loss, "loss_rel_f64": abs(loss - ref_loss) / abs(ref_loss),
                   **grad_errors(torch, g, ref)} for name, (loss, g) in runs.items()}
     plain = out["plain_f32"]
-    for name in ("two_ranks_kernels_f32", "tp_kernels_f32", "per_rank_bn_fault"):
+    for name in steps:
         r = out[name]
         r["loss_rel"] = abs(r["loss"] - one_loss) / abs(one_loss)
         r["vs_one_process_kernels"] = {
@@ -3863,15 +3858,98 @@ def parallel_f32_grads(torch, dev, rank, mcfg, base, model, fold, image, target,
     return out
 
 
+def on_card(torch, dev, build):
+    """The module `build()` makes, its parameters made on `dev` (no host
+    init), for a caller that loads its state next."""
+    with torch.device(dev):
+        return build()
+
+
+def per_rank_bn():
+    """The planted fault of the f32 gates: train-mode BN takes each rank's
+    statistics (`bn_cuda.global_batch` made a no-op)."""
+    import contextlib
+    from unittest import mock
+
+    from mhentropy_tpu_torch.models import bn_cuda
+
+    return mock.patch.object(bn_cuda, "global_batch", lambda group: contextlib.nullcontext())
+
+
+def mhent_f32_net(torch, dev, mcfg, base, kernels: bool, dtype):
+    """An MHEnt of mcfg from state `base` in train mode, its backbone
+    computing in dtype."""
+    from mhentropy_tpu_torch.models import mhent
+
+    net = on_card(torch, dev, lambda: mhent.MHEnt(mcfg))
+    net.load_state_dict(base)
+    net = mhent.prepare(net, dev, masters=True).train()
+    net.set_kernels(kernels)
+    net.feat_extractor.res.dtype = dtype
+    return net
+
+
+def mhent_f32_one(torch, net, model, image, target, noise, generator=None):
+    """one_step_grads of an f32 or float64 net (the model, batch and noise
+    cast to float64 for the latter): (loss, gradients)."""
+    from mhentropy_tpu_torch.core import mano
+
+    if net.feat_extractor.res.dtype == torch.float64:
+        net.double()
+        model = mano.ManoModel(*(t.double() if t.is_floating_point() else t for t in model))
+        image, noise = image.double(), noise.double()
+        target = {k: v.double() if v.is_floating_point() else v for k, v in target.items()}
+    loss, g, _ = one_step_grads(torch, net, model, mano.fold_keypoints(model), image, target,
+                                noise, generator=generator)
+    return loss, g
+
+
+def parallel_f32_grads(torch, dev, rank, mcfg, base, model, fold, image, target,
+                       noise) -> dict:
+    """`f32_gate` of the configs/rhd.yaml train step: data-parallel
+    ("two_ranks_kernels_f32"), ZeRO-3 ("zero3_kernels_f32": the net stored
+    as 'data' blocks, gathered for the step, each rank keeping its block's
+    part of the summed gradients), tensor-parallel at tp = 2 with the split
+    parameters stored as blocks ("tp_kernels_f32": the f32 draw whole on
+    the gathered weights, its backward recomputed split), and
+    data-parallel with BN statistics taken per rank ("per_rank_bn_fault"),
+    which the gate must refuse."""
+    import contextlib
+
+    from mhentropy_tpu_torch.parallel import mesh as mesh_lib
+    from mhentropy_tpu_torch.parallel import sharded
+    from mhentropy_tpu_torch.train import engine
+
+    def run(mesh, fsdp: bool, tp: bool):
+        def go():
+            net = mhent_f32_net(torch, dev, mcfg, base, True, torch.float32)
+            sharded.distribute(net, mesh, fsdp=fsdp, tp=tp)
+            step = engine.make_train_step(model, net, _NoStep(net), fold=fold, mesh=mesh, tp=tp)
+            return float(step(image, target, noise)["loss"]), net
+        return go
+
+    dp, none = mesh_lib.make_mesh(), contextlib.nullcontext()
+    steps = {"two_ranks_kernels_f32": (run(dp, False, False), none),
+             "zero3_kernels_f32": (run(dp, True, False), none),
+             "tp_kernels_f32": (run(mesh_lib.make_mesh(tp=2), False, True), none),
+             "per_rank_bn_fault": (run(dp, False, False), per_rank_bn())}
+    return f32_gate(torch, rank, steps, lambda kernels, dtype: mhent_f32_one(
+        torch, mhent_f32_net(torch, dev, mcfg, base, kernels, dtype), model, image, target,
+        noise))
+
+
 def parallel_cases(torch, dev, rank: int) -> dict:
     """phase_parallel's cases on one rank (rank 0 also runs the 1-process
     references)."""
+    import contextlib
+    import gc
+
     import torch.distributed as dist
 
     from mhentropy_tpu_torch.core import mano as mano_lib
     from mhentropy_tpu_torch.data import synthetic
     from mhentropy_tpu_torch.flows import realnvp
-    from mhentropy_tpu_torch.models import mhent
+    from mhentropy_tpu_torch.models import mhent, rle
     from mhentropy_tpu_torch.parallel import mesh as mesh_lib
     from mhentropy_tpu_torch.parallel import pipeline
     from mhentropy_tpu_torch.parallel import sharded
@@ -3894,60 +3972,214 @@ def parallel_cases(torch, dev, rank: int) -> dict:
     image, target = next(synthetic.batches(data, TRAIN_BATCH, device=dev))
     g = torch.Generator(device=dev).manual_seed(13)
     noise = torch.randn((N_TRAIN_HYPO * TRAIN_BATCH, 45), generator=g, device=dev)
-    dp = mesh_lib.make_mesh()
+    dp, tp2 = mesh_lib.make_mesh(), mesh_lib.make_mesh(tp=2)
 
-    def train_step(mesh=None, f32=False, fsdp=False):
-        net = mhent.MHEnt(mcfg)
+    def train_step(mesh=None, f32=False, fsdp=False, tp=False):
+        net = on_card(torch, dev, lambda: mhent.MHEnt(mcfg))
         net.load_state_dict(base)
         net = mhent.prepare(net, dev, masters=True).train()
         if f32:
             net.feat_extractor.res.dtype = torch.float32
-        if fsdp:
-            opt = engine.ShardedOptimizer(net, mesh, tr.lr, tr.milestones, 10)
-        else:
-            opt = engine.make_optimizer(net, tr.lr, tr.milestones, 10)
-        step = engine.make_train_step(model, net, opt, fold=fold, mesh=mesh)
+        if fsdp or tp:
+            sharded.distribute(net, mesh, fsdp=fsdp, tp=tp)
+        opt = engine.make_optimizer(net, tr.lr, tr.milestones, 10)
+        step = engine.make_train_step(model, net, opt, fold=fold, mesh=mesh, tp=tp,
+                                      generator=torch.Generator(device=dev).manual_seed(17))
         return net, lambda: step(image, target, noise), opt
 
-    def one(run):
-        net, fn, opt = run
-        reset_launches()
-        aux = fn()
+    def one(run, steps: int = 1):
+        """(last loss, launches, net, optimizer, memory) of `steps` steps of
+        a run that `run()` builds: its state at rest a rank ("rest_mb":
+        what stays allocated after the steps, the loss freed: parameters,
+        gradients, Adam moments, buffers, the kernels' folded weights), the
+        steps' peak ("peak_mb"), above what was allocated before, and the
+        last step's ms ("ms": one call, the card synchronised around it)."""
+        gc.collect()
         torch.cuda.synchronize()
-        return float(aux["loss"]), read_launches(), net, opt
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(dev)
+        net, fn, opt = run()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss = float(fn()["loss"])
+            ms = (time.perf_counter() - t1) * 1e3
+        torch.cuda.synchronize()
+        launches = read_launches()
+        gc.collect()
+        mem = {"rest_mb": (torch.cuda.memory_allocated(dev) - before) / 1e6,
+               "peak_mb": (torch.cuda.max_memory_allocated(dev) - before) / 1e6, "ms": ms}
+        return loss, launches, net, opt, mem
+
+    walls = {}
+    t_sec = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_sec
+        now = time.perf_counter()
+        walls[name] = now - t_sec
+        t_sec = now
 
     train = {}
-    loss, launches, _, _ = one(train_step(dp))
+    loss, launches, _, _, _ = one(lambda: train_step(dp))
     row = train["bf16"] = {"loss": loss, "launches_per_rank": launches}
+    ref_loss = None
     if rank == 0:
-        ref_loss = one(train_step(None))[0]
+        ref_loss = one(lambda: train_step(None))[0]
         row.update(ref_loss=ref_loss, loss_rel=abs(loss - ref_loss) / abs(ref_loss))
     dist.barrier()
+    lap("train_bf16")
     train["f32"] = parallel_f32_grads(torch, dev, rank, mcfg, base, model, fold, image,
                                       target, noise)
     dist.barrier()
-    fsdp_loss, _, fsdp_net, fsdp_opt = one(train_step(dp, fsdp=True))
-    dp_loss, _, dp_net, dp_opt = one(train_step(dp))
-    dp_params = dict(dp_net.named_parameters())
-    w_diff = max(float((p - dp_params[k]).detach().abs().max())
-                 for k, p in fsdp_net.named_parameters())
-    fsdp_st, dp_st = fsdp_opt.state_dict()["adam"]["state"], dp_opt.state_dict()["adam"]["state"]
+    lap("train_f32")
+    # ZeRO-3 against DP, two steps each; their states at rest and peaks.
+    fsdp_loss, _, fsdp_net, fsdp_opt, fsdp_mem = one(lambda: train_step(dp, fsdp=True), 2)
+    fsdp_sd, fsdp_st = fsdp_net.state_dict(), fsdp_opt.state_dict()["adam"]["state"]
+    stored = {k: p.numel() for k, p in fsdp_net.named_parameters()
+              if sharded.piece(p) is not None}
+    del fsdp_net, fsdp_opt
+    dp_loss, _, dp_net, dp_opt, dp_mem = one(lambda: train_step(dp), 2)
+    dp_sd, dp_st = dp_net.state_dict(), dp_opt.state_dict()["adam"]["state"]
+    whole = {k: p.numel() for k, p in dp_net.named_parameters()}
+    w_diff = max(float((fsdp_sd[k] - dp_sd[k]).abs().max()) for k in whole)
     m_diff = max(float((fsdp_st[i][m] - st[m]).abs().max() / st[m].abs().max().clamp_min(1e-30))
                  for i, st in dp_st.items() for m in ("exp_avg", "exp_avg_sq"))
-    train["fsdp"] = {"loss": fsdp_loss, "dp_loss": dp_loss,
+    train["fsdp"] = {"loss": fsdp_loss, "dp_loss": dp_loss, "steps": 2,
                      "loss_rel": abs(fsdp_loss - dp_loss) / abs(dp_loss),
                      "weights_max_abs": w_diff, "moments_max_rel": m_diff,
                      "moments_compared": 2 * len(dp_st),
-                     "same_moments": set(fsdp_st) == set(dp_st)}
-    del fsdp_net, dp_net, fsdp_opt, dp_opt, dp_params, fsdp_st, dp_st
-    sharded_step, fsdp_step = train_step(dp)[1], train_step(dp, fsdp=True)[1]
+                     "same_moments": set(fsdp_st) == set(dp_st),
+                     "halves": sum(2 * n == whole[k] for k, n in stored.items()),
+                     "split": len(stored), "big": sum(n >= 4096 for n in whole.values())}
+    del dp_net, dp_opt, dp_sd, dp_st, fsdp_sd, fsdp_st
+    # TP = 2 with the split parameters stored as halves.
+    tp_loss, tp_launches, tp_net, tp_opt, tp_mem = one(lambda: train_step(tp2, tp=True))
+    train["tp"] = {"loss": tp_loss, "launches_per_rank": tp_launches, "ms": tp_mem["ms"],
+                   "halves": sum(sharded.piece(p) is not None and 2 * p.numel() == whole[k]
+                                 for k, p in tp_net.named_parameters()),
+                   "tp_params": len(mesh_lib.tp_sharding(
+                       tp2, on_card(torch, "meta", lambda: mhent.MHEnt(mcfg))))}
+    if rank == 0:
+        train["tp"]["loss_rel"] = abs(tp_loss - ref_loss) / abs(ref_loss)
+    del tp_net, tp_opt
+    train["memory"] = {"dp": dp_mem, "zero3": fsdp_mem, "tp": tp_mem}
+    lap("zero3_tp_memory")
+    sharded_step = train_step(dp)[1]
     single_step = train_step(None)[1] if rank == 0 else None
     train["ms"] = lockstep_ms(torch, {"two_ranks": (sharded_step, True),
-                                      "one_process": (single_step, False),
-                                      "fsdp": (fsdp_step, True)})
-    del sharded_step, fsdp_step, single_step
+                                      "one_process": (single_step, False)})
+    del sharded_step, single_step
     out["train"] = train
     torch.cuda.empty_cache()
+    lap("train_ms")
+
+    # --- the glow regressor at tp = 2: an eval batch (its reverse-KL term
+    # through the split blocks in train mode, the hypotheses through the
+    # Glow kernel) --------------------------------------------------------
+    gcfg = mcfg._replace(regressor="glow")
+    gbase = mhent.init(gcfg, seed=5).state_dict()
+    glow_tp = {}
+    hypo = torch.randn((N_HYPO * TRAIN_BATCH, 45), generator=g, device=dev) * 0.8
+
+    def glow_eval(mesh):
+        net = on_card(torch, dev, lambda: mhent.MHEnt(gcfg))
+        net.load_state_dict(gbase)
+        net = mhent.prepare(net, dev)
+        if mesh is not None:
+            sharded.distribute(net, mesh, tp=True)
+        step = engine.make_eval_step(model, net, N_HYPO, 0.8, fold=fold, mesh=mesh,
+                                     tp=mesh is not None,
+                                     generator=torch.Generator(device=dev).manual_seed(19))
+        return lambda: step(image, target, noise, hypo)
+
+    glow_tp["eval"] = parallel_metrics(torch, rank, glow_eval(tp2),
+                                       glow_eval(None) if rank == 0 else None)
+
+    # Its train step at tp = 2 (the split blocks under autograd, the
+    # hidden BatchNorm summed over 'model', the dropout masks one
+    # process's columns) in the f32 gate.
+    def glow_train_f32():
+        net = mhent_f32_net(torch, dev, gcfg, gbase, True, torch.float32)
+        sharded.distribute(net, tp2, tp=True)
+        step = engine.make_train_step(model, net, _NoStep(net), fold=fold, mesh=tp2, tp=True,
+                                      generator=torch.Generator(device=dev).manual_seed(35))
+        return float(step(image, target, noise)["loss"]), net
+
+    glow_tp["train_f32"] = f32_gate(
+        torch, rank, {"tp_kernels_f32": (glow_train_f32, contextlib.nullcontext())},
+        lambda kernels, dtype: mhent_f32_one(
+            torch, mhent_f32_net(torch, dev, gcfg, gbase, kernels, dtype), model, image,
+            target, noise, generator=torch.Generator(device=dev).manual_seed(35)))
+    dist.barrier()
+    out["glow_tp"] = glow_tp
+    torch.cuda.empty_cache()
+    lap("glow_tp")
+
+    # --- the RLE mode on 2 data ranks (configs/rhd_rle.yaml) ----------------
+    rcfg = engine.build_rle_config(load_cfg("configs/rhd_rle.yaml"))
+    rbase = rle.init(rcfg, seed=0).state_dict()
+    rdraws = rle.draws(rcfg, target["pose3d"], torch.Generator(device=dev).manual_seed(23))
+
+    def rle_train(mesh):
+        net = on_card(torch, dev, lambda: rle.RLE(rcfg))
+        net.load_state_dict(rbase)
+        net = rle.prepare(net, dev, masters=True).train()
+        opt = engine.make_optimizer(net, tr.lr, tr.milestones, 10)
+        step = engine.make_rle_train_step(net, opt, mesh=mesh)
+        return net, lambda: step(image, target, *rdraws), opt
+
+    def rle_eval(mesh):
+        net = on_card(torch, dev, lambda: rle.RLE(rcfg))
+        net.load_state_dict(rbase)
+        step = engine.make_rle_eval_step(rle.prepare(net, dev), mesh=mesh)
+        return lambda: step(image, target, *rdraws)
+
+    rle_out = {}
+    loss, launches, _, _, mem = one(lambda: rle_train(dp))
+    rle_out["train"] = {"loss": loss, "launches_per_rank": launches, "ms": mem["ms"]}
+    if rank == 0:
+        ref, _, _, _, mem = one(lambda: rle_train(None))
+        rle_out["train"].update(ref_loss=ref, loss_rel=abs(loss - ref) / abs(ref),
+                                ref_ms=mem["ms"])
+    rle_out["eval"] = parallel_metrics(torch, rank, rle_eval(dp),
+                                       rle_eval(None) if rank == 0 else None)
+
+    # The train step's global gradients in the f32 gate, beside BN
+    # statistics taken per rank.
+    def rle_f32_net(kernels: bool, dtype):
+        net = on_card(torch, dev, lambda: rle.RLE(rcfg))
+        net.load_state_dict(rbase)
+        net = rle.prepare(net, dev, masters=True).train()
+        net.set_kernels(kernels)
+        net.encoderRGB.res.dtype = dtype
+        return net
+
+    def rle_train_f32():
+        net = rle_f32_net(True, torch.float32)
+        step = engine.make_rle_train_step(net, _NoStep(net), mesh=dp)
+        return float(step(image, target, *rdraws)["loss"]), net
+
+    def rle_one(kernels: bool, dtype):
+        net = rle_f32_net(kernels, dtype)
+        im, tg = engine._prep_batch(image, target)
+        draws = rdraws
+        if dtype == torch.float64:
+            net.double()
+            im, draws = im.double(), tuple(d.double() for d in rdraws)
+            tg = {k: v.double() if v.is_floating_point() else v for k, v in tg.items()}
+        loss, _, grads, _ = rle_one_step(torch, net, im, tg, draws)
+        return loss, grads
+
+    rle_out["f32"] = f32_gate(torch, rank, {
+        "two_ranks_kernels_f32": (rle_train_f32, contextlib.nullcontext()),
+        "per_rank_bn_fault": (rle_train_f32, per_rank_bn())}, rle_one)
+    dist.barrier()
+    out["rle"] = rle_out
+    torch.cuda.empty_cache()
+    lap("rle")
 
     # --- the configs/ho3d.yaml eval batch ----------------------------------
     cfg = load_cfg("configs/ho3d.yaml")
@@ -3956,36 +4188,35 @@ def parallel_cases(torch, dev, rank: int) -> dict:
           f"{cfg.training.test_samples}")
     ecfg = engine.build_model_config(cfg)
     net = mhent.prepare(mhent.init(ecfg, seed=1), dev)
+    # The TP eval's own net, stored split.
+    tp_net = copy.deepcopy(net)
+    sharded.distribute(tp_net, tp2, tp=True)
     data = synthetic.make_dataset(model, n=EVAL_BATCH, image_size=ecfg.image_size, seed=4)
     image, target = next(synthetic.batches(data, EVAL_BATCH, device=dev))
     kld = torch.randn((ecfg.n_train_hypotheses * EVAL_BATCH, 45), generator=g, device=dev)
     hypo = torch.randn((N_HYPO * EVAL_BATCH, 45), generator=g, device=dev) * 0.8
-    steps = {"hypo": engine.make_eval_step(model, net, N_HYPO, 0.8, fold=fold,
-                                           mesh=mesh_lib.make_mesh(hypo=2)),
-             "tp": engine.make_eval_step(model, net, N_HYPO, 0.8, fold=fold,
-                                         mesh=mesh_lib.make_mesh(tp=2), tp=True)}
-    single = engine.make_eval_step(model, net, N_HYPO, 0.8, fold=fold)
+    hypo_mesh = mesh_lib.make_mesh(hypo=2)
+    steps = {"hypo": engine.make_eval_step(model, net, N_HYPO, 0.8, fold=fold, mesh=hypo_mesh),
+             "tp": engine.make_eval_step(model, tp_net, N_HYPO, 0.8, fold=fold, mesh=tp2,
+                                         tp=True),
+             "hypo_quant": engine.make_eval_step(model, net, N_HYPO, 0.8, n_quant=N_QUANT,
+                                                 fold=fold, mesh=hypo_mesh)}
+    singles = {"": engine.make_eval_step(model, net, N_HYPO, 0.8, fold=fold),
+               "quant": engine.make_eval_step(model, net, N_HYPO, 0.8, n_quant=N_QUANT,
+                                              fold=fold)}
     ev = {}
-    ref = None
-    if rank == 0:
-        ref = {k: float(v) for k, v in single(image, target, kld, hypo).items()}
     for label, step in steps.items():
-        reset_launches()
-        mets = {k: float(v) for k, v in step(image, target, kld, hypo).items()}
-        torch.cuda.synchronize()
-        row = {"launches_per_rank": read_launches()}
-        if rank == 0:
-            rel = {k: abs(mets[k] - v) / max(abs(v), 1e-6) for k, v in ref.items()}
-            worst = max(rel, key=rel.get)
-            row.update(max_rel=rel[worst], max_rel_metric=worst,
-                       max_abs=max(abs(mets[k] - v) for k, v in ref.items()))
-        ev[label] = row
-    ev["metrics"] = ref
+        single = singles["quant" if label == "hypo_quant" else ""]
+        ev[label] = parallel_metrics(
+            torch, rank, lambda: step(image, target, kld, hypo),
+            (lambda: single(image, target, kld, hypo)) if rank == 0 else None)
+    ev["tp"]["halves"] = sum(sharded.piece(p) is not None for p in tp_net.parameters())
     ev["ms"] = lockstep_ms(torch, {
         "hypo_two_ranks": (lambda: steps["hypo"](image, target, kld, hypo), True),
-        "one_process": (lambda: single(image, target, kld, hypo), False),
+        "one_process": (lambda: singles[""](image, target, kld, hypo), False),
         "tp_two_ranks": (lambda: steps["tp"](image, target, kld, hypo), True)})
     out["eval"] = ev
+    lap("eval")
 
     # --- one pipelined draw (pp = 2) against the sequential one ------------
     flow = net.q_z_giv_i.float()
@@ -4022,8 +4253,34 @@ def parallel_cases(torch, dev, rank: int) -> dict:
         "min_grad_cosine": min(cos.values()),
         "ms": lockstep_ms(torch, {"pp_two_ranks": (lambda: draw_grads(piped), True),
                                   "sequential": (lambda: draw_grads(sequential), False)})}
+    lap("pipeline")
     out["staged_collectives"] = sorted(mesh_lib.STAGED)
+    out["section_s"] = walls
     return out
+
+
+def parallel_metrics(torch, rank: int, sharded_fn, single_fn) -> dict:
+    """One call of a sharded eval step on every rank (its launches a rank)
+    and, on rank 0, of its 1-process counterpart (single_fn): the worst
+    metric's relative and absolute difference, and each call's ms (the
+    card synchronised around it)."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mets = {k: float(v) for k, v in sharded_fn().items()}
+    torch.cuda.synchronize()
+    row = {"launches_per_rank": read_launches(), "ms": (time.perf_counter() - t1) * 1e3}
+    if rank == 0:
+        t1 = time.perf_counter()
+        ref = {k: float(v) for k, v in single_fn().items()}
+        torch.cuda.synchronize()
+        row["ref_ms"] = (time.perf_counter() - t1) * 1e3
+        rel = {k: abs(mets[k] - v) / max(abs(v), 1e-6) for k, v in ref.items()}
+        worst = max(rel, key=rel.get)
+        row.update(max_rel=rel[worst], max_rel_metric=worst,
+                   max_abs=max(abs(mets[k] - v) for k, v in ref.items()), metrics=ref,
+                   same_metrics=set(mets) == set(ref))
+    return row
 
 
 def phase_parallel(torch, dev, world: int = PARALLEL_RANKS, backend: str = "gloo"):
@@ -4063,6 +4320,8 @@ def phase_parallel(torch, dev, world: int = PARALLEL_RANKS, backend: str = "gloo
             out = json.load(f)
     out["wall_s"] = time.perf_counter() - t0
     tr, ev, pp = out["train"], out["eval"], out["pipeline"]
+    gt, rl = out["glow_tp"], out["rle"]
+    card = card_line()
     print(f"parallel: collectives through host memory under gloo: "
           f"{out['staged_collectives']}", flush=True)
     r = tr["bf16"]
@@ -4070,21 +4329,47 @@ def phase_parallel(torch, dev, world: int = PARALLEL_RANKS, backend: str = "gloo
           f"{r['loss']:.6g} vs "
           f"1-process {r['ref_loss']:.6g} (rel {r['loss_rel']:.3g}); launches a rank "
           f"{ {k: v for k, v in r['launches_per_rank'].items() if v} }", flush=True)
-    for name, r in tr["f32"].items():
-        print(f"parallel train f32 {name} against the 1-process plain path in float64: loss "
-              f"rel {r['loss_rel_f64']:.3g}, lowest gradient cosine {r['min_grad_cosine']:.6f} "
-              f"({r['min_grad_cosine_param']}), largest relative L2 {r['max_grad_rel_l2']:.4g} "
-              f"({r['max_grad_rel_l2_param']}), median {r['median_grad_rel_l2']:.4g}, all "
-              f"together {r['all_grad_rel_l2']:.4g}"
-              + (f"; against the 1-process kernel path: loss rel {r['loss_rel']:.3g}, "
-                 f"{json.dumps(r['vs_one_process_kernels'])}; loss_ok {r['loss_ok']}, "
-                 f"grad_ok {r['grad_ok']}" if "grad_ok" in r else ""), flush=True)
-    print(f"parallel fsdp vs dp: {json.dumps(tr['fsdp'])}", flush=True)
-    for label in ("hypo", "tp"):
+    gates = {"train": tr["f32"], "glow tp train": gt["train_f32"], "rle train": rl["f32"]}
+    for label, gate in gates.items():
+        for name, r in gate.items():
+            print(f"parallel {label} f32 {name} against the 1-process plain path in float64: loss "
+                  f"rel {r['loss_rel_f64']:.3g}, lowest gradient cosine {r['min_grad_cosine']:.6f} "
+                  f"({r['min_grad_cosine_param']}), largest relative L2 {r['max_grad_rel_l2']:.4g} "
+                  f"({r['max_grad_rel_l2_param']}), median {r['median_grad_rel_l2']:.4g}, all "
+                  f"together {r['all_grad_rel_l2']:.4g}"
+                  + (f"; against the 1-process kernel path: loss rel {r['loss_rel']:.3g}, "
+                     f"{json.dumps(r['vs_one_process_kernels'])}; loss_ok {r['loss_ok']}, "
+                     f"grad_ok {r['grad_ok']}" if "grad_ok" in r else ""), flush=True)
+    print(f"parallel zero3 vs dp after {tr['fsdp']['steps']} steps: {json.dumps(tr['fsdp'])}",
+          flush=True)
+    r = tr["tp"]
+    print(f"parallel train tp = 2 (split parameters stored as halves: {r['halves']} of "
+          f"{r['tp_params']}): loss {r['loss']:.6g} rel {r['loss_rel']:.3g} to 1-process; "
+          f"launches a rank { {k: v for k, v in r['launches_per_rank'].items() if v} }",
+          flush=True)
+    for layout, m in tr["memory"].items():
+        print(f"parallel memory {layout} (configs/rhd.yaml train step, a rank of {world}): state "
+              f"at rest {m['rest_mb']:.1f} MB, the step's peak {m['peak_mb']:.1f} MB [{card}]",
+              flush=True)
+    for label in ("hypo", "tp", "hypo_quant"):
         r = ev[label]
-        print(f"parallel eval {label} ({world} ranks, B = {EVAL_BATCH}, N = {N_HYPO}): worst metric "
-              f"{r['max_rel_metric']} rel {r['max_rel']:.3g}, max-abs {r['max_abs']:.3g}; "
-              f"launches a rank {r['launches_per_rank']}", flush=True)
+        print(f"parallel eval {label} ({world} ranks, B = {EVAL_BATCH}, N = {N_HYPO}"
+              + (f", top {N_QUANT}" if label == "hypo_quant" else "")
+              + f"): worst metric {r['max_rel_metric']} rel {r['max_rel']:.3g}, max-abs "
+              f"{r['max_abs']:.3g}; launches a rank "
+              f"{ {k: v for k, v in r['launches_per_rank'].items() if v} }", flush=True)
+    r = gt["eval"]
+    print(f"parallel glow tp = 2 eval (B = {TRAIN_BATCH}, N = {N_HYPO}): worst metric "
+          f"{r['max_rel_metric']} rel {r['max_rel']:.3g}; launches a rank "
+          f"{ {k: v for k, v in r['launches_per_rank'].items() if v} }", flush=True)
+    r = rl["train"]
+    print(f"parallel rle train ({world} data ranks, B = {TRAIN_BATCH}): loss {r['loss']:.6g} "
+          f"rel {r['loss_rel']:.3g} to 1-process; launches a rank "
+          f"{ {k: v for k, v in r['launches_per_rank'].items() if v} }", flush=True)
+    r = rl["eval"]
+    print(f"parallel rle eval: worst metric {r['max_rel_metric']} rel {r['max_rel']:.3g}; "
+          f"launches a rank { {k: v for k, v in r['launches_per_rank'].items() if v} }",
+          flush=True)
     print(f"parallel pipeline (pp = 2, {pp['rows']} rows): max-abs x {pp['max_abs_x']:.3g} "
           f"(of {pp['x_scale']:.3g}), log q {pp['max_abs_log_q']:.3g} (of "
           f"{pp['log_q_scale']:.3g}); lowest gradient cosine {pp['min_grad_cosine']:.6f}",
@@ -4096,26 +4381,67 @@ def phase_parallel(torch, dev, world: int = PARALLEL_RANKS, backend: str = "gloo
                f"{ {c: round(t, 3) for c, t in v['collective_ms'].items()} })"
                if "collective_share" in v else "")
             for k, v in part["ms"].items()) + f" over {RUNS} windows of {PARALLEL_STEPS} "
-            f"[{card_line()}]", flush=True)
-    for k, n in PARALLEL_TRAIN_LAUNCHES.items():
-        got = tr["bf16"]["launches_per_rank"][k]
-        check(got == n, f"parallel train: {got} {k} launches a rank, expected {n}")
-    for label in ("hypo", "tp"):
-        for k, n in PARALLEL_EVAL_LAUNCHES.items():
-            got = ev[label]["launches_per_rank"][k]
-            check(got == n, f"parallel eval {label}: {got} {k} launches a rank, expected {n}")
+            f"[{card}]", flush=True)
+    one_call = {"zero3_train_two_ranks": tr["memory"]["zero3"]["ms"],
+                "dp_train_two_ranks": tr["memory"]["dp"]["ms"],
+                "tp_train_two_ranks": tr["tp"]["ms"],
+                "glow_tp_eval_two_ranks": gt["eval"]["ms"],
+                "glow_eval_one_process": gt["eval"]["ref_ms"],
+                "rle_train_two_ranks": rl["train"]["ms"],
+                "rle_train_one_process": rl["train"]["ref_ms"],
+                "rle_eval_two_ranks": rl["eval"]["ms"],
+                "rle_eval_one_process": rl["eval"]["ref_ms"],
+                "hypo_quant_eval_two_ranks": ev["hypo_quant"]["ms"],
+                "quant_eval_one_process": ev["hypo_quant"]["ref_ms"]}
+    print("parallel ms, one call each (the card synchronised around it): "
+          + "; ".join(f"{k} {v:.3f}" for k, v in one_call.items()) + f" [{card}]", flush=True)
+    print("parallel sections (s, rank 0): "
+          + "; ".join(f"{k} {v:.1f}" for k, v in out["section_s"].items()), flush=True)
+
+    def launches(label, got, want):
+        for k, n in want.items():
+            check(got[k] == n, f"parallel {label}: {got[k]} {k} launches a rank, expected {n}")
+
+    launches("train", tr["bf16"]["launches_per_rank"], PARALLEL_TRAIN_LAUNCHES)
+    launches("train tp", tr["tp"]["launches_per_rank"], PARALLEL_TRAIN_LAUNCHES)
+    for label in ("hypo", "tp", "hypo_quant"):
+        launches(f"eval {label}", ev[label]["launches_per_rank"], PARALLEL_EVAL_LAUNCHES)
+    launches("glow tp eval", gt["eval"]["launches_per_rank"], PARALLEL_GLOW_EVAL_LAUNCHES)
+    launches("rle train", rl["train"]["launches_per_rank"], PARALLEL_RLE_TRAIN_LAUNCHES)
+    launches("rle eval", rl["eval"]["launches_per_rank"], PARALLEL_RLE_EVAL_LAUNCHES)
     check(tr["bf16"]["loss_rel"] <= TRAIN_LOSS_TOL, f"parallel train bf16: {tr['bf16']}")
-    f32 = tr["f32"]
-    for name in ("two_ranks_kernels_f32", "tp_kernels_f32"):
-        check(f32[name]["loss_ok"] and f32[name]["grad_ok"], f"parallel train f32 {name}: {f32}")
-    check(not f32["per_rank_bn_fault"]["grad_ok"],
-          f"parallel train f32: the gradient gate passes BN statistics taken per rank: {f32}")
+    check(tr["tp"]["loss_rel"] <= TRAIN_LOSS_TOL
+          and tr["tp"]["halves"] == tr["tp"]["tp_params"] > 0, f"parallel train tp: {tr['tp']}")
+    for label, gate in gates.items():
+        for name, r in gate.items():
+            if name.endswith("fault"):
+                check(not r["grad_ok"], f"parallel {label} f32: the gradient gate passes the "
+                                        f"planted {name}: {gate}")
+            elif "loss_ok" in r:
+                check(r["loss_ok"] and r["grad_ok"], f"parallel {label} f32 {name}: {gate}")
+    check(set(tr["f32"]) >= {"two_ranks_kernels_f32", "zero3_kernels_f32", "tp_kernels_f32",
+                             "per_rank_bn_fault"} and "tp_kernels_f32" in gt["train_f32"]
+          and {"two_ranks_kernels_f32", "per_rank_bn_fault"} <= set(rl["f32"]),
+          f"parallel f32 gates: {list(gates)} ran {[list(g) for g in gates.values()]}")
     fs = tr["fsdp"]
     check(fs["loss_rel"] <= TRAIN_F32_LOSS_TOL and fs["same_moments"]
           and fs["weights_max_abs"] <= PARALLEL_FSDP_WEIGHT_TOL
-          and fs["moments_max_rel"] <= PARALLEL_FSDP_MOMENT_TOL, f"parallel fsdp: {fs}")
-    check(ev["hypo"]["max_rel"] <= PARALLEL_METRIC_TOL, f"parallel eval hypo: {ev['hypo']}")
-    check(ev["tp"]["max_rel"] <= PARALLEL_TP_TOL, f"parallel eval tp: {ev['tp']}")
+          and fs["moments_max_rel"] <= PARALLEL_FSDP_MOMENT_TOL
+          and fs["halves"] == fs["split"] == fs["big"] > 0, f"parallel zero3: {fs}")
+    mem = tr["memory"]
+    check(mem["zero3"]["rest_mb"] <= PARALLEL_ZERO3_REST_SHARE * mem["dp"]["rest_mb"],
+          f"parallel zero3: state at rest {mem['zero3']['rest_mb']:.1f} MB a rank against DP's "
+          f"{mem['dp']['rest_mb']:.1f} MB")
+    for label, tol in (("hypo", PARALLEL_METRIC_TOL), ("hypo_quant", PARALLEL_METRIC_TOL),
+                       ("tp", PARALLEL_TP_TOL)):
+        check(ev[label]["same_metrics"] and ev[label]["max_rel"] <= tol,
+              f"parallel eval {label}: {ev[label]}")
+    check(ev["tp"]["halves"] > 0, f"parallel eval tp: nothing stored split: {ev['tp']}")
+    check(gt["eval"]["same_metrics"] and gt["eval"]["max_rel"] <= PARALLEL_TP_TOL,
+          f"parallel glow tp eval: {gt['eval']}")
+    check(rl["train"]["loss_rel"] <= TRAIN_LOSS_TOL, f"parallel rle train: {rl['train']}")
+    check(rl["eval"]["same_metrics"] and rl["eval"]["max_rel"] <= PARALLEL_METRIC_TOL,
+          f"parallel rle eval: {rl['eval']}")
     check(pp["max_abs_x"] <= SAMPLER_F32_TOL * max(pp["x_scale"], 1.0)
           and pp["max_abs_log_q"] <= SAMPLER_F32_TOL * max(pp["log_q_scale"], 1.0)
           and pp["min_grad_cosine"] >= TRAIN_GRAD_COS, f"parallel pipeline: {pp}")

@@ -41,6 +41,7 @@ from mhentropy_tpu_torch.core import mano
 from mhentropy_tpu_torch.flows import cuda_glow_sampler
 from mhentropy_tpu_torch.models import mhent
 from mhentropy_tpu_torch.parallel import mesh as mesh_lib
+from mhentropy_tpu_torch.parallel import sharded
 
 # What the artifact records beside the program (torch.export.save's extra files).
 DEVICE_FILE = "device"
@@ -172,17 +173,21 @@ def _config_from_json(text: str) -> mhent.MHEntConfig:
 def export_sampler(model: mano.ManoModel, net: mhent.MHEnt, batch: int, n: int = 100,
                    temp: float = 0.8, mods=("xyz", "uv"), quant=None) -> bytes:
     """Serialise the sampler for `batch` images of the net's image size and
-    its device (the prepared net's) to a `torch.export` artifact."""
-    fn = make_sample_fn(model, net, n, temp, mods, quant=quant)
-    if any(t.is_inference() for t in fn.state_dict().values()):
-        raise ValueError("export_sampler: the net's weights are inference tensors; run "
-                         "mhent.prepare (and load its weights) outside torch.inference_mode")
-    dev = net.det_head[0].weight.device
-    size = net.cfg.image_size
-    args = (torch.zeros((batch, size, size, 3), device=dev),
-            torch.zeros((n * batch, net.cfg.flow.dim), device=dev))
-    with torch.no_grad():
-        program = torch.export.export(fn, args)
+    its device (the prepared net's) to a `torch.export` artifact. A net
+    stored split (a sharded run's, `parallel.sharded.distribute`) is
+    gathered whole before the trace, on every rank (collective): the
+    artifact holds the 1-process weights."""
+    with sharded.whole(net):
+        fn = make_sample_fn(model, net, n, temp, mods, quant=quant)
+        if any(t.is_inference() for t in fn.state_dict().values()):
+            raise ValueError("export_sampler: the net's weights are inference tensors; run "
+                             "mhent.prepare (and load its weights) outside torch.inference_mode")
+        dev = net.det_head[0].weight.device
+        size = net.cfg.image_size
+        args = (torch.zeros((batch, size, size, 3), device=dev),
+                torch.zeros((n * batch, net.cfg.flow.dim), device=dev))
+        with torch.no_grad():
+            program = torch.export.export(fn, args)
     buf = io.BytesIO()
     torch.export.save(program, buf, extra_files={DEVICE_FILE: dev.type,
                                                  CONFIG_FILE: _config_json(net.cfg)})

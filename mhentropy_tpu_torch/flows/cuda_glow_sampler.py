@@ -43,6 +43,7 @@ from torch.nn import functional as F
 from mhentropy_tpu_torch import ext, ops
 from mhentropy_tpu_torch.flows import glow
 from mhentropy_tpu_torch.flows.priors import std_normal_logp
+from mhentropy_tpu_torch.parallel import sharded
 
 # Kernel launches since the count was last reset; nothing else touches it.
 launches = 0
@@ -302,8 +303,11 @@ def sample_and_log_prob_fused(flow: glow.ConditionalGlow, packed: Packed,
     """
     b = context.shape[0]
     d = flow.cfg.features
+    # Inside `parallel.sharded.tensor_parallel` the gates are gathered over
+    # the line (`glow._ctx_cache`); the packed weights are whole.
     ctx = pack_context(flow, context)
     z0 = noise.reshape(n, b, d).transpose(0, 1).contiguous()  # image-major
-    x, sum_log_scale = transform(packed, z0, ctx)
+    with sharded.whole():
+        x, sum_log_scale = transform(packed, z0, ctx)
     lp = std_normal_logp(z0) + sum_log_scale + packed.ld_const
     return x.transpose(0, 1).reshape(n * b, d), lp.transpose(0, 1).reshape(n * b)

@@ -44,6 +44,7 @@ from typing import NamedTuple
 
 import torch
 from torch.nn import functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from mhentropy_tpu_torch import ext, ops
 from mhentropy_tpu_torch.flows import realnvp
@@ -312,9 +313,14 @@ def sample_fused(flow: realnvp.RealNVP, packed: Packed, feat: torch.Tensor,
     """
     b = feat.shape[0]
     d = flow.cfg.dim
-    cproj = realnvp.cond_cache(flow, realnvp.make_cond(flow, feat)).float().contiguous()
+    # Inside `parallel.sharded.tensor_parallel` the cache's columns are
+    # gathered over the line (the kernel reads it whole, and the packed
+    # weights are whole).
+    cproj = realnvp.cond_cache(flow, realnvp.make_cond(flow, feat),
+                               gather=True).float().contiguous()
     z0 = z0_rows.reshape(n, b, d).transpose(0, 1).contiguous()  # image-major
-    x, logdet = transform(packed, z0, cproj)
+    with sharded.whole():
+        x, logdet = transform(packed, z0, cproj)
     lp = std_normal_logp(z0) - logdet
     return x.transpose(0, 1).reshape(n * b, d), lp.transpose(0, 1).reshape(n * b)
 
@@ -338,10 +344,10 @@ class TransformDiff(torch.autograd.Function):
     flow's transform parameters: kernel forward, plain-flow backward.
 
     Inside `parallel.sharded.tensor_parallel` the kernel, which reads whole
-    weights, runs whole; the backward recomputes the couplings split on the
-    caller's line, so that each rank's gradients are its columns' part, as
-    the split path's are, and the train step sums them over the line
-    (`sharded.sync_grads`)."""
+    weights, runs on the transform's weights gathered whole
+    (`sharded.whole`); the backward recomputes the couplings split on the
+    caller's line and the blocks each rank stores, so that each rank's
+    gradients are its blocks', as the split path's are."""
 
     @staticmethod
     def forward(ctx, flow, z0, cproj, *weights):
@@ -349,7 +355,7 @@ class TransformDiff(torch.autograd.Function):
         # their gradients; the backward differentiates the flow's own.
         dtype = torch.float64 if z0.dtype == torch.float64 else torch.float32
         ctx.flow, ctx.line = flow, sharded.line()
-        with sharded.whole():
+        with sharded.whole(list(weights)):
             x, logdet = transform(pack(flow, dtype=dtype), z0, cproj)
         ctx.save_for_backward(z0, cproj)
         return x, logdet
@@ -370,20 +376,47 @@ def transform_diff(flow: realnvp.RealNVP, z0: torch.Tensor, cproj: torch.Tensor)
     return TransformDiff.apply(flow, z0, cproj, *transform_params(flow))
 
 
+# flow -> (dtype, [(storage, version)] of what pack reads, Packed).
+_PACKS = WeakIdKeyDictionary()
+
+
+def packed_now(flow: realnvp.RealNVP, dtype=torch.float32) -> Packed:
+    """`pack(flow, dtype)` of the transform's current weights (gathered
+    whole when stored split), kept while they are unchanged: the same
+    storages (held here, so that no other tensor takes their address) at
+    the same version counters. A draw without gradients (the eval step's
+    reverse-KL term) reads it: no gather or repack a call."""
+    tensors = [*transform_params(flow), flow.mask]
+    key = [(t.untyped_storage(), t._version) for t in tensors]
+    hit = _PACKS.get(flow)
+    if hit is not None and hit[0] == dtype and all(
+            s.data_ptr() == hs.data_ptr() and v == hv
+            for (s, v), (hs, hv) in zip(key, hit[1])):
+        return hit[2]
+    with sharded.whole(transform_params(flow)):
+        packed = pack(flow, dtype=dtype)
+    _PACKS[flow] = (dtype, key, packed)
+    return packed
+
+
 def sample_fused_diff(flow: realnvp.RealNVP, feat: torch.Tensor, n: int,
                       z0_rows: torch.Tensor):
     """`sample_fused` under autograd (pallas_sampler.sample_fused_diff): the
     same hypothesis-major rows in and out, gradients to feat (through the
-    conditioning cache), the flow's parameters and the noise. Inside
-    `parallel.sharded.tensor_parallel` the draw is whole and its gradients
-    split, as the split path's (`TransformDiff`)."""
+    conditioning cache), the flow's parameters and the noise (without
+    gradients, the same draw on `packed_now`'s weights). Inside
+    `parallel.sharded.tensor_parallel` the draw is whole (the cache's
+    columns gathered over the line) and its gradients split, as the split
+    path's (`TransformDiff`)."""
     b = feat.shape[0]
     d = flow.cfg.dim
-    ln = sharded.line()
-    with sharded.whole():
-        cproj = realnvp.cond_cache(flow, realnvp.make_cond(flow, feat),
-                                   kernel_line=ln).contiguous()
+    cproj = realnvp.cond_cache(flow, realnvp.make_cond(flow, feat), gather=True).contiguous()
     z0 = z0_rows.reshape(n, b, d).transpose(0, 1).contiguous()  # image-major
-    x, logdet = transform_diff(flow, z0, cproj)
+    if torch.is_grad_enabled():
+        x, logdet = transform_diff(flow, z0, cproj)
+    else:
+        dtype = torch.float64 if z0.dtype == torch.float64 else torch.float32
+        with sharded.whole():
+            x, logdet = transform(packed_now(flow, dtype), z0, cproj)
     lp = std_normal_logp(z0) - logdet
     return x.transpose(0, 1).reshape(n * b, d), lp.transpose(0, 1).reshape(n * b)

@@ -32,6 +32,15 @@ module's `.training`:
   data-dependent init: it writes log_scale and shift and sets the
   `initialized` buffer to True. Nothing in the port reads that buffer: it
   is kept so that the fork's checkpoints load and record what they did.
+
+Inside `parallel.sharded.tensor_parallel` each ResidualNet block splits as
+JAX's rule splits it (mhentropy_tpu/parallel/mesh.py:147-154, :184-195):
+`linear_layers.0` column-parallel with its hidden BatchNorm on the same
+columns, `linear_layers.1` row-parallel and summed over the 'model' line,
+`context_layer` column-parallel over the residual width, its gate
+all-gathered over the line before it multiplies the summed stream (the one
+collective a block beside the sum). The dropout mask on a split hidden is
+this rank's columns of the mask one process draws.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from mhentropy_tpu_torch.flows.priors import std_normal_logp
+from mhentropy_tpu_torch.parallel import sharded
 
 LU_EPS = 1e-3
 BN_EPS = 1e-3
@@ -201,15 +211,19 @@ def global_rows(n: int, b: int, rows: slice):
         _global = prev
 
 
-def dropout(t: torch.Tensor, p: float, generator: torch.Generator | None = None):
+def dropout(t: torch.Tensor, p: float, generator: torch.Generator | None = None,
+            cols: tuple[slice, int] | None = None):
     """Inverted dropout: each element kept with probability 1 - p and then
-    scaled by 1 / (1 - p), else 0; the uniforms come from `generator`."""
+    scaled by 1 / (1 - p), else 0; the uniforms come from `generator`.
+    cols: (this rank's columns, the whole width) of a split hidden: the
+    uniforms are drawn for the whole width and t takes its columns."""
+    part, width = cols if cols is not None else (slice(None), t.shape[-1])
     if _global is None:
-        u = torch.rand(t.shape, generator=generator, device=t.device)
+        u = torch.rand((*t.shape[:-1], width), generator=generator, device=t.device)[..., part]
     else:
         n, b, rows = _global
-        u = torch.rand((n, b, t.shape[-1]), generator=generator,
-                       device=t.device)[:, rows].reshape(t.shape)
+        u = torch.rand((n, b, width), generator=generator,
+                       device=t.device)[:, rows, part].reshape(t.shape)
     keep = u < 1.0 - p
     return torch.where(keep, t / (1.0 - p), torch.zeros_like(t))
 
@@ -217,13 +231,21 @@ def dropout(t: torch.Tensor, p: float, generator: torch.Generator | None = None)
 def _ctx_cache(flow: ConditionalGlow, context: torch.Tensor) -> list[dict]:
     """Per-image context projections, computed once and broadcast across
     hypotheses: each step's initial-layer context slice (no bias) and every
-    block's context_layer output."""
+    block's context_layer output (inside a tensor-parallel line, each rank's
+    columns gathered over it)."""
+    ln = sharded.line()
+    ctx = context if ln is None else sharded.copy_to(context, ln)
+
+    def gate(blk):
+        g = blk.context_layer(ctx)
+        return g if ln is None else sharded.gather_from(g, ln)
+
     out = []
     for i in range(flow.cfg.num_layers):
         net = flow.step(i)[2].transform_net
         ni = net.initial_layer.in_features - context.shape[-1]
         out.append({"initial": context @ net.initial_layer.weight[:, ni:].T,
-                    "blocks": [blk.context_layer(context) for blk in net.blocks]})
+                    "blocks": [gate(blk) for blk in net.blocks]})
     return out
 
 
@@ -233,12 +255,18 @@ def _residual_net(net: ResidualNet, x_id: torch.Tensor, cache: dict, train: bool
     """initial Linear on [x_id, ctx]; per block (bn) relu lin0 (bn) relu
     (dropout) lin1, gated by sigmoid(context_layer(ctx)), residual add;
     final Linear. on_bn(bn, t), when given, sees each BatchNorm's input
-    before it is normalised."""
+    before it is normalised. Inside a tensor-parallel line each block's
+    hidden is this rank's columns (`linear_layers.0` and `.1` stored as
+    their blocks, the hidden BatchNorm and the dropout mask on the same
+    columns) and `linear_layers.1`'s partial products are summed over it."""
     ni = x_id.shape[-1]
     w_in = net.initial_layer.weight
     temps = x_id @ w_in[:, :ni].T + cache["initial"] + net.initial_layer.bias
+    ln = sharded.line()
 
-    def norm(bn, t):
+    def norm(bn, t, cols=None):
+        if cols is not None:
+            bn = _BNColumns(bn, cols)
         if on_bn is not None:
             on_bn(bn, t)
         return _batch_norm(bn, t, train)
@@ -246,15 +274,35 @@ def _residual_net(net: ResidualNet, x_id: torch.Tensor, cache: dict, train: bool
     for k, blk in enumerate(net.blocks):
         bns = getattr(blk, "batch_norm_layers", None)
         t = temps if bns is None else norm(bns[0], temps)
-        t = blk.linear_layers[0](torch.relu(t))
+        lin0, lin1 = blk.linear_layers
+        if ln is None:
+            cols = None
+            t = lin0(torch.relu(t))
+        else:
+            cols = ln.cols(lin1.out_features)
+            t = F.linear(sharded.copy_to(torch.relu(t), ln), lin0.weight, lin0.bias)
         if bns is not None:
-            t = norm(bns[1], t)
+            t = norm(bns[1], t, cols)
         t = torch.relu(t)
         if train and p_drop > 0.0:
-            t = dropout(t, p_drop, generator)
-        t = blk.linear_layers[1](t)
+            t = dropout(t, p_drop, generator,
+                        None if cols is None else (cols, lin1.out_features))
+        if ln is None:
+            t = lin1(t)
+        else:
+            t = sharded.reduce_from(F.linear(t, lin1.weight), ln) + lin1.bias
         temps = temps + t * torch.sigmoid(cache["blocks"][k])
     return net.final_layer(temps)
+
+
+class _BNColumns:
+    """A BatchNorm1d's view on the columns of a split hidden (its running
+    statistics are views: an update moves those columns)."""
+
+    def __init__(self, bn: nn.BatchNorm1d, cols: slice):
+        self.weight, self.bias = bn.weight[cols], bn.bias[cols]
+        self.running_mean, self.running_var = bn.running_mean[cols], bn.running_var[cols]
+        self.eps, self.momentum = bn.eps, bn.momentum
 
 
 def _scale_shift(cpl_out: torch.Tensor, nt: int):

@@ -17,7 +17,9 @@ reads no key for them. torch's Linear keeps (out, in) weights; `layers`
 hands the coupling math (in, out) matrices like the JAX package's stacked
 params. Inside `parallel.sharded.tensor_parallel` each coupling net's first
 layer and its `c.0` projection compute this rank's hidden columns and the
-second layer their part of its product, summed over the 'model' line.
+second layer their part of its product, summed over the 'model' line, on
+the blocks of those parameters that the rank stores (`sharded.distribute`:
+`l.0` and `c.0` their rows, `l.1` its columns).
 """
 
 from __future__ import annotations
@@ -184,23 +186,23 @@ def make_cond(flow: RealNVP, feat: torch.Tensor) -> torch.Tensor:
     return feat.reshape(b * cfg.joint_n, -1)
 
 
-def cond_cache(flow: RealNVP, cond: torch.Tensor,
-               kernel_line: sharded.Line | None = None) -> torch.Tensor:
+def cond_cache(flow: RealNVP, cond: torch.Tensor, gather: bool = False) -> torch.Tensor:
     """Per-layer conditioning projections, once per image: (L, 4, B, H),
     layer x (s0, s1, t0, t1) x batch x hidden. An unconditional flow gets
     broadcastable (L, 4, B, 1) zeros.
 
-    kernel_line: the tensor-parallel line of a kernel's caller that reads
+    Inside `parallel.sharded.tensor_parallel` the c.0 projections (s0, t0)
+    are this rank's hidden columns, zero elsewhere; with `gather` they are
+    all-gathered over the line instead, for a kernel's caller that reads
     the cache whole and differentiates it split (`cuda_sampler.
-    sample_fused_diff`): every column is computed, and the c.0 projections
-    read cond through `copy_to`, as the split cache's do, so that the
-    backward sums their cotangent (this rank's columns') over the line."""
+    sample_fused_diff`): the backward keeps this rank's columns of their
+    cotangent, and cond's is summed over the line (`copy_to`)."""
     cfg = flow.cfg
     if not flow.conditional:
         return cond.new_zeros((cfg.n_layers, 4, cond.shape[0], 1))
-    ln = sharded.line() or kernel_line
+    ln = sharded.line()
     if ln is not None:
-        return _split_cond_cache(flow, cond, ln, whole=kernel_line is not None)
+        return _split_cond_cache(flow, cond, ln, gather)
     return torch.stack([
         torch.stack([F.linear(cond, net.c[j].weight, net.c[j].bias)
                      for net, j in ((s, 0), (s, 1), (t, 0), (t, 1))])
@@ -209,24 +211,25 @@ def cond_cache(flow: RealNVP, cond: torch.Tensor,
 
 
 def _split_cond_cache(flow: RealNVP, cond: torch.Tensor, ln: sharded.Line,
-                      whole: bool = False) -> torch.Tensor:
+                      gather: bool = False) -> torch.Tensor:
     """`cond_cache` with the column-parallel `c.0` projections (s0, t0)
-    computed on this rank's hidden columns, zero elsewhere (whole: on
-    every column)."""
+    computed on this rank's hidden columns (the blocks it stores), zero
+    elsewhere (gather: the ranks' columns all-gathered, every layer's in
+    one collective)."""
     h = flow.cfg.h_dim
     cols = ln.cols(h)
     cs = sharded.copy_to(cond, ln)
-
-    def c0(lin):
-        if whole:
-            return F.linear(cs, lin.weight, lin.bias)
-        return F.pad(F.linear(cs, lin.weight[cols], lin.bias[cols]), (cols.start, h - cols.stop))
-
-    return torch.stack([
-        torch.stack([c0(s.c[0]), F.linear(cond, s.c[1].weight, s.c[1].bias),
-                     c0(t.c[0]), F.linear(cond, t.c[1].weight, t.c[1].bias)])
-        for s, t in zip(flow.s, flow.t)
-    ])
+    c0 = torch.stack([torch.stack([F.linear(cs, s.c[0].weight, s.c[0].bias),
+                                   F.linear(cs, t.c[0].weight, t.c[0].bias)])
+                      for s, t in zip(flow.s, flow.t)])
+    if gather:
+        c0 = sharded.gather_from(c0, ln)
+    else:
+        c0 = F.pad(c0, (cols.start, h - cols.stop))
+    c1 = torch.stack([torch.stack([F.linear(cond, s.c[1].weight, s.c[1].bias),
+                                   F.linear(cond, t.c[1].weight, t.c[1].bias)])
+                      for s, t in zip(flow.s, flow.t)])
+    return torch.stack([c0[:, 0], c1[:, 0], c0[:, 1], c1[:, 1]], dim=1)
 
 
 def _lrelu(h):
@@ -242,12 +245,14 @@ def _st_nets(layer: Layer, x_masked: torch.Tensor, cp: torch.Tensor):
             h = _lrelu(h @ w1 + b1 + c1)
             return h @ w2 + b2
     else:
-        cols = ln.cols(layer.s_w0.shape[1])
+        # w0, b0 (the c.0 projection's too) hold this rank's hidden columns,
+        # w1 their rows; the cache holds every column.
+        cols = ln.cols(layer.s_w0.shape[1] * ln.size)
         xs = sharded.copy_to(x_masked, ln)
 
         def mlp(w0, b0, w1, b1, w2, b2, c0, c1):
-            h = _lrelu(xs @ w0[:, cols] + b0[cols] + c0[..., cols])
-            h = _lrelu(sharded.reduce_from(h @ w1[cols], ln) + b1 + c1)
+            h = _lrelu(xs @ w0 + b0 + c0[..., cols])
+            h = _lrelu(sharded.reduce_from(h @ w1, ln) + b1 + c1)
             return h @ w2 + b2
 
     s = torch.tanh(mlp(layer.s_w0, layer.s_b0, layer.s_w1, layer.s_b1,

@@ -154,15 +154,16 @@ def refresh_kernel_weights(net: MHEnt) -> MHEnt:
     """Fold the stem's and stage 1's eval BN and pack the flow for the eval
     kernels (the RealNVP for the samplers, a Glow the Glow sampler takes
     for it; none for the det regressor), from the module's current
-    weights."""
-    net.feat_extractor.res.fold_kernel_weights()
-    flow = net.q_z_giv_i
-    if isinstance(flow, realnvp.RealNVP):
-        net.packed_flow = cuda_sampler.pack(flow)
-    elif flow is not None and cuda_glow_sampler.structural_ok(flow.cfg):
-        net.packed_flow = cuda_glow_sampler.pack(flow)
-    else:
-        net.packed_flow = None
+    weights (whole: a net stored split is gathered for it, collective)."""
+    with sharded.whole(net):
+        net.feat_extractor.res.fold_kernel_weights()
+        flow = net.q_z_giv_i
+        if isinstance(flow, realnvp.RealNVP):
+            net.packed_flow = cuda_sampler.pack(flow)
+        elif flow is not None and cuda_glow_sampler.structural_ok(flow.cfg):
+            net.packed_flow = cuda_glow_sampler.pack(flow)
+        else:
+            net.packed_flow = None
     return net
 
 
@@ -184,14 +185,13 @@ def make_priors(cfg: MHEntConfig, device=None) -> dict:
 def det_head_apply(net: MHEnt, feat: torch.Tensor) -> torch.Tensor:
     """The det head; inside `parallel.sharded.tensor_parallel` its first
     linear computes this rank's columns and the second their part of its
-    product, summed over the 'model' line."""
+    product, summed over the 'model' line, on the blocks the rank stores."""
     ln = sharded.line()
     if ln is None:
         return net.det_head(feat)
     l0, l2 = net.det_head[0], net.det_head[2]
-    cols = ln.cols(l0.out_features)
-    h = torch.relu(F.linear(sharded.copy_to(feat, ln), l0.weight[cols], l0.bias[cols]))
-    return sharded.reduce_from(F.linear(h, l2.weight[:, cols]), ln) + l2.bias
+    h = torch.relu(F.linear(sharded.copy_to(feat, ln), l0.weight, l0.bias))
+    return sharded.reduce_from(F.linear(h, l2.weight), ln) + l2.bias
 
 
 def extract_feat(net: MHEnt, image: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -252,8 +252,10 @@ def sample_q_z(net: MHEnt, feat: torch.Tensor, n: int, temp: float = 1.0,
     coupling math, differentiable), as JAX's `sample_q_z(pipeline=)`; it
     raises for another regressor and with flow_q. The kernels read whole
     weights, so inside `parallel.sharded.tensor_parallel` they run outside
-    the split (`sharded.whole`); the f32 draw's backward recomputes split
-    (`cuda_sampler.TransformDiff`).
+    the split (`sharded.whole`) on the packed weights (whole: folded from
+    gathered ones) and on conditioning caches gathered over the line; the
+    f32 draw packs the transform's gathered weights, and its backward
+    recomputes split on the blocks (`cuda_sampler.TransformDiff`).
 
     Returns z (n * B, 61) and log q (n * B,).
     """
@@ -279,9 +281,8 @@ def sample_q_z(net: MHEnt, feat: torch.Tensor, n: int, temp: float = 1.0,
                 raise RuntimeError("the Glow sampler kernel needs the packed flow "
                                    "(mhent.prepare) and a flow it takes "
                                    f"({flow.cfg}); set_kernels(False) runs the plain flow")
-            with sharded.whole():
-                z_flow, log_q = cuda_glow_sampler.sample_and_log_prob_fused(
-                    flow, net.packed_flow, feat, n, base_noise)
+            z_flow, log_q = cuda_glow_sampler.sample_and_log_prob_fused(
+                flow, net.packed_flow, feat, n, base_noise)
         else:
             z_flow, log_q = glow.sample_and_log_prob(flow, feat, n, noise=base_noise,
                                                      generator=generator, train=differentiable)
@@ -290,15 +291,14 @@ def sample_q_z(net: MHEnt, feat: torch.Tensor, n: int, temp: float = 1.0,
         z_flow, log_q = pipe_lib.sample_pipelined(flow, base_noise, feat, mesh, n_micro,
                                                   n_per_image=n, return_log_prob=True)
     elif flow_q is not None and not differentiable:
-        with sharded.whole():
+        with sharded.whole(flow):
             z_flow, log_q = cuda_sampler_int8.sample_fused_q(flow, flow_q, feat, n, base_noise)
     elif fused and differentiable:
         z_flow, log_q = cuda_sampler.sample_fused_diff(flow, feat, n, base_noise)
     elif fused:
         if net.packed_flow is None:
             raise RuntimeError("the fused sampler needs the packed flow; run mhent.prepare")
-        with sharded.whole():
-            z_flow, log_q = cuda_sampler.sample_fused(flow, net.packed_flow, feat, n, base_noise)
+        z_flow, log_q = cuda_sampler.sample_fused(flow, net.packed_flow, feat, n, base_noise)
     else:
         cproj = realnvp.cond_cache(flow, realnvp.make_cond(flow, feat))
         z_flow, log_q = realnvp.sample(flow, base_noise, cproj=cproj.repeat(1, 1, n, 1))
@@ -446,13 +446,14 @@ def sample_hypotheses(model: ManoModel, net: MHEnt, image: torch.Tensor, n: int 
                       base_noise: torch.Tensor | None = None,
                       generator: torch.Generator | None = None,
                       fold: mano.KeypointFold | None = None, quant=None,
-                      feat: torch.Tensor | None = None) -> dict:
+                      feat: torch.Tensor | None = None, keep_log_q: bool = False) -> dict:
     """Multi-hypothesis inference on a (B, H, W, 3) NHWC image batch.
 
     quant: optional (QuantSpec, qtree) of models/quant.py: the conditioning
     feature comes from the int8 encoder, and with spec.int8_sampler the
     draw runs the int8 sampler on qtree["flow"]. feat: the float feature
     `extract_feat(net, image)` already computed; not with quant.
+    keep_log_q: also return each kept hypothesis's log q (N', B).
 
     Returns th_bt / logs_t (N', B, .), xyz (N', B, 63), uv (N', B, 42) in
     pixels, verts (N', B, 2334) and faces, for the requested mods.
@@ -464,7 +465,7 @@ def sample_hypotheses(model: ManoModel, net: MHEnt, image: torch.Tensor, n: int 
             raise ValueError("sample_hypotheses: feat is the float feature; with quant the "
                              "int8 encoder computes its own")
         spec, qtree = quant
-        with sharded.whole():
+        with sharded.whole(net.feat_extractor):
             feat = quant_mod.encoder_feat(spec, qtree, net.feat_extractor, image)
         if spec.int8_sampler:
             flow_q = qtree.get("flow")
@@ -481,8 +482,11 @@ def sample_hypotheses(model: ManoModel, net: MHEnt, image: torch.Tensor, n: int 
         # Keep the n_quant most likely hypotheses per image.
         idx = torch.topk(log_q.reshape(n, b).T, n_quant).indices  # (B, Q)
         z = torch.take_along_dim(z, idx.T[:, :, None], dim=0)
+        log_q = torch.take_along_dim(log_q.reshape(n, b), idx.T, dim=0)
         n = n_quant
     out = {"th_bt": z[..., :TH_BT], "logs_t": z[..., -3:]}
+    if keep_log_q:
+        out["log_q"] = log_q.reshape(n, b)
     rows = z.reshape(n * b, Z_TOTAL)
     dec = decode(model, cfg, rows[:, :TH_BT], rows[:, -3:], mods=mods, inv_norm=True,
                  fold=fold)

@@ -24,7 +24,8 @@ kernels on the card, and `kernels = False` gives flax's plain statistics.
 `bn_mode` ("stats" or "full") picks the autograd structure around the
 kernels. Inside `parallel.sharded.tensor_parallel` each residual block's
 `conv1` and `bn1` compute this rank's output channels and `conv2` their
-part of its product, summed over the 'model' line (`_split_pair`). The parameters may stay f32 masters while the compute runs in
+part of its product, summed over the 'model' line (`_split_pair`), on the
+blocks of those parameters that the rank stores (`sharded.distribute`). The parameters may stay f32 masters while the compute runs in
 `dtype` (bf16): each conv casts its weight to its input's dtype in the
 forward (flax's `param_dtype` f32 / `dtype` bf16), and `.to` returns the
 very tensor when the dtypes already match, as on the serving path after
@@ -65,25 +66,28 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 def _bn_cols(bn: BatchNorm2d, y: torch.Tensor, cols: slice) -> torch.Tensor:
-    """`bn` on the channels `cols` of its input (y holds those alone); in
-    train mode it updates those channels' running statistics."""
+    """`bn` on the channels `cols` of its input (y holds those alone, and
+    bn's weight and bias are stored as their block); in train mode it
+    updates those channels' running statistics (kept whole)."""
     if bn.training:
-        view = SimpleNamespace(weight=bn.weight[cols], bias=bn.bias[cols], eps=bn.eps,
+        view = SimpleNamespace(weight=bn.weight, bias=bn.bias, eps=bn.eps,
                                momentum=bn.momentum, running_mean=bn.running_mean[cols],
                                running_var=bn.running_var[cols])
         return bn_cuda.batch_norm_train(y, view, bn.mode, bn.kernels)
-    return F.batch_norm(y, bn.running_mean[cols], bn.running_var[cols], bn.weight[cols],
-                        bn.bias[cols], False, 0.0, bn.eps)
+    return F.batch_norm(y, bn.running_mean[cols], bn.running_var[cols], bn.weight, bn.bias,
+                        False, 0.0, bn.eps)
 
 
 def _split_pair(block, x: torch.Tensor, ln: sharded.Line) -> torch.Tensor:
     """relu(bn1(conv1(x))) on this rank's output channels, then conv2 on
-    them: its partial product, summed over the line (Megatron's pair)."""
+    them: its partial product, summed over the line (Megatron's pair). The
+    rank stores conv1's and bn1's output-channel block and conv2's
+    input-channel block."""
     cols = ln.cols(block.conv1.out_channels)
     xs = sharded.copy_to(x, ln)
-    y = block.conv1._conv_forward(xs, block.conv1.weight[cols].to(x.dtype), None)
+    y = block.conv1._conv_forward(xs, block.conv1.weight.to(x.dtype), None)
     y = torch.relu(_bn_cols(block.bn1, y, cols))
-    y = block.conv2._conv_forward(y, block.conv2.weight[:, cols].to(y.dtype), None)
+    y = block.conv2._conv_forward(y, block.conv2.weight.to(y.dtype), None)
     return sharded.reduce_from(y, ln)
 
 

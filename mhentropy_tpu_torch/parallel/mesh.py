@@ -7,7 +7,9 @@ Port of mhentropy_tpu/parallel/mesh.py onto torch.distributed: `make_mesh`
 `hypo_batch_spec` :102 (a rank's hypotheses of the N axis), `_tp_spec`
 :136, `state_sharding` :231, `fsdp_sharding` :118 and `tp_sharding` :217
 (which parameter is split along which dim, on the reference's state_dict
-names), and `fit_devices` :265 with the same errors and choices.
+names), `shard_index` (a rank's block of a parameter under that layout, the
+block JAX's `NamedSharding.devices_indices_map` gives its device), and
+`fit_devices` :265 with the same errors and choices.
 
 XLA inserts the collectives of a sharded jit; here they are explicit, and
 `all_reduce_` / `all_gather` / `broadcast_` / `send` / `recv` wrap them: a
@@ -280,15 +282,35 @@ def state_sharding(mesh: Mesh, named_shapes: dict, fsdp: bool = False, tp: bool 
     return out
 
 
+def shard_index(mesh: Mesh, name: str, shape, fsdp: bool = False, tp: bool = False,
+                min_size: int = 4096, coords: dict | None = None) -> tuple:
+    """This rank's block of parameter `name` (of the whole `shape`) under
+    `state_sharding(mesh, ..., fsdp=, tp=)`: one slice a dim, the 'model'
+    dim's part first, then the 'data' dim's (the two are never the same
+    dim). coords: another rank's mesh coordinates (default: this rank's).
+    The block is the one JAX's `NamedSharding(mesh, spec).
+    devices_indices_map(shape)` gives the device at those coordinates."""
+    coords = mesh.coords if coords is None else coords
+    spec = state_sharding(mesh, {name: shape}, fsdp=fsdp, tp=tp, min_size=min_size)[name]
+    index = [slice(None)] * len(shape)
+    for axis in (MODEL_AXIS, DATA_AXIS):
+        d = spec[axis]
+        if d is not None:
+            per = shape[d] // mesh.shape[axis]
+            i = coords[axis]
+            index[d] = slice(i * per, (i + 1) * per)
+    return tuple(index)
+
+
 def _shapes(net: torch.nn.Module) -> dict:
     return {k: tuple(p.shape) for k, p in net.named_parameters()}
 
 
 def fsdp_sharding(mesh: Mesh, net: torch.nn.Module, min_size: int = 4096) -> dict:
     """{parameter name: dim split over 'data'} of JAX's FSDP layout
-    (parameters, gradients and Adam moments partitioned there), for the
-    parameters the rule splits; the port's `engine.ShardedOptimizer`
-    splits the Adam moments and update on it."""
+    (ZeRO-3: parameters, gradients and Adam moments partitioned there), for
+    the parameters the rule splits; `sharded.distribute(fsdp=True)` stores
+    each such parameter as this rank's block between steps."""
     spec = state_sharding(mesh, _shapes(net), fsdp=True, min_size=min_size)
     return {k: v[DATA_AXIS] for k, v in spec.items() if v[DATA_AXIS] is not None}
 
@@ -331,7 +353,7 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
 def all_gather_many(tensors: list, group, dims: list) -> list:
     """`all_gather` of each tensor (along its dim of `dims`), in one
     collective of their flat concatenation."""
-    if group is None:
+    if group is None or not tensors:
         return list(tensors)
     flat = torch.cat([t.reshape(-1) for t in tensors])
     with _clock("all_gather", flat):
@@ -413,3 +435,19 @@ class ReduceFromGroup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class GatherFromGroup(torch.autograd.Function):
+    """The ranks' parts concatenated along `dim` (each rank computed its
+    part of a tensor that every rank then uses whole, in the same way); the
+    backward keeps this rank's part of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, i = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        return g.chunk(n, ctx.dim)[i].contiguous(), None, None

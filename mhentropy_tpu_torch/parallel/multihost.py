@@ -9,9 +9,11 @@ slice of the dataset, padded by wrapping so that every rank serves the same
 count (a ragged last rank would hang the collectives inside a step), and
 the wrapped duplicates are masked out of the eval metrics by `valid`.
 
-JAX's `global_batch_from_local` stitches the hosts' arrays into one global
-array; the port's steps take a rank's rows themselves (`mesh.shard_batch`),
-so a rank's batch stays its own and there is nothing to stitch.
+`global_batch_from_local` (:106) takes a rank's local batch (global /
+process count rows) and returns the rank's shard of the global batch on
+its device, as JAX's stitched array hands each device its shard. As in
+JAX, the loops do not call it: the port's steps take the global batch
+alike on every rank and keep their rows (`mesh.shard_batch`).
 """
 
 from __future__ import annotations
@@ -94,6 +96,62 @@ def _host_slice(n, process_index, process_count):
     per_host = -(-n // pc)  # ceil
     pos = np.arange(pi * per_host, (pi + 1) * per_host)
     return pos % n, pos < n
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    if isinstance(tree, (np.ndarray, torch.Tensor)):
+        return torch.as_tensor(tree).to(device)
+    return tree
+
+
+def global_batch_from_local(mesh: mesh_lib.Mesh, local_tree, global_batch_size: int | None = None,
+                            device=None):
+    """This rank's shard, on `device`, of the global batch whose rows the
+    ranks hold in rank order as local batches (a tree of tensors or numpy
+    arrays, leading dim global / process count: checked, against
+    global_batch_size when given). In one process it is
+    `shard_batch(mesh, local_tree)`. With one data rank a process (pure
+    data parallelism) a rank's local batch is its shard; otherwise the
+    ranks' batches are all-gathered into the global one first."""
+    _, pc = mesh_lib.world()
+    local = {int(x.shape[0]) for x in _leaves(local_tree) if getattr(x, "ndim", 0)}
+    if len(local) != 1:
+        raise ValueError(f"global_batch_from_local: the leaves' leading dims differ: {local}")
+    b = local.pop() * pc
+    if global_batch_size is not None and b != global_batch_size:
+        raise ValueError(f"global_batch_from_local: a local batch of {b // pc} rows over {pc} "
+                         f"processes is {b}, not the global batch {global_batch_size}")
+    tree = _to_device(local_tree, device)
+    if pc == 1 or mesh.shape[mesh_lib.DATA_AXIS] != pc:
+        tree = _gather_tree(tree, pc)
+        return mesh_lib.shard_batch(mesh, tree)
+    mesh_lib.batch_sharding(mesh, b)  # the global batch divides over 'data'
+    return tree
+
+
+def _gather_tree(tree, pc: int):
+    """The ranks' trees concatenated along the leading dim, rank order."""
+    if pc == 1:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _gather_tree(v, pc) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_gather_tree(v, pc) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.ndim:
+        return mesh_lib.all_gather(tree.contiguous(), dist.group.WORLD, dim=0)
+    return tree
 
 
 def multihost_batches(dataset, global_batch_size: int, shuffle: bool = False, seed: int = 0,

@@ -221,6 +221,14 @@ class Optimizer:
     lr * gamma ** (number of milestones m with k >= m * steps_per_epoch).
     A parameter without a gradient (the sigma head, which no loss reads)
     is skipped: its optax moments and update stay 0 as well.
+
+    It steps a net as `parallel.sharded.distribute` stored it: a split
+    parameter's gradient and Adam moments take its shape, so they are its
+    block as well (tpu.fsdp's ZeRO-3, as JAX's `make_train_step(fsdp=True)`
+    :359-422; tp's 'model' blocks; both, the 2-D layout), and the clip's
+    norm sums the blocks' squares over their ranks. `state_dict` gathers
+    the moments into the 1-process layout, so a checkpoint restores into an
+    unsharded run, and `load_state_dict` takes that layout.
     """
 
     def __init__(self, params, lr: float, milestones, steps_per_epoch: int,
@@ -240,9 +248,9 @@ class Optimizer:
         self.adam.zero_grad(set_to_none=True)
 
     def global_norm(self) -> torch.Tensor:
-        """The norm of every gradient together, the clip's."""
-        grads = [p.grad for p in self.params if p.grad is not None]
-        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        """The norm of every gradient together, the clip's (in the 1-process
+        layout: a split parameter's block is summed over its ranks)."""
+        return sharded.global_norm(self.params)
 
     @torch.no_grad()
     def step(self) -> None:
@@ -257,11 +265,29 @@ class Optimizer:
         self.adam.step()
         self.count += 1
 
+    @torch.no_grad()
     def state_dict(self) -> dict:
-        return {"count": self.count, "adam": self.adam.state_dict()}
+        """{"count", "adam"}, the moments in the 1-process layout (a split
+        parameter's gathered: collective then)."""
+        adam = self.adam.state_dict()
+        split = [(i, p) for i, p in enumerate(self.params)
+                 if sharded.piece(p) is not None and i in adam["state"]]
+        moments = ("exp_avg", "exp_avg_sq")
+        whole = sharded.to_whole([p for _, p in split for _ in moments],
+                                 [adam["state"][i][m] for i, _ in split for m in moments])
+        for j, (i, _) in enumerate(split):
+            adam["state"][i] = {**adam["state"][i],
+                                **dict(zip(moments, whole[2 * j:2 * j + 2]))}
+        return {"count": self.count, "adam": adam}
 
+    @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
-        self.adam.load_state_dict(state["adam"])
+        """`state_dict`'s layout; a split parameter takes its block."""
+        adam = dict(state["adam"])
+        adam["state"] = {i: {k: sharded.to_block(self.params[i], v)
+                             if k in ("exp_avg", "exp_avg_sq") else v for k, v in st.items()}
+                         for i, st in state["adam"]["state"].items()}
+        self.adam.load_state_dict(adam)
         self.count = int(state["count"])
 
     @torch.no_grad()
@@ -277,110 +303,9 @@ class Optimizer:
                 continue
             self.adam.state[p] = {
                 "step": torch.tensor(float(count)),
-                "exp_avg": torch.empty_like(p).copy_(moments["exp_avg"]),
-                "exp_avg_sq": torch.empty_like(p).copy_(moments["exp_avg_sq"]),
-            }
+                **{m: torch.empty_like(p).copy_(sharded.to_block(p, moments[m]))
+                   for m in ("exp_avg", "exp_avg_sq")}}
         self.count = count
-
-
-class ShardedOptimizer(Optimizer):
-    """`Optimizer` with its state sharded over the mesh's 'data' axis on
-    the rule of `mesh.fsdp_sharding` (`tpu.fsdp`). JAX's `make_train_step(
-    fsdp=True)` shards the parameters, gradients and moments (ZeRO-3);
-    here every rank keeps the whole parameters and the whole summed
-    gradients, as under DP, and only the optimizer's state and work are
-    split (ZeRO-1): each split parameter's Adam moments are this rank's
-    shard, and Adam steps this rank's shard of the parameter in place (a
-    view of it, not a copy). `step` clips with the norm whose square is the
-    shards' squares summed over 'data' plus the whole parameters' once,
-    steps Adam on the shards and all-gathers them into the parameters.
-    `state_dict` gathers the moments into the 1-process layout, so a
-    checkpoint restores into an unsharded run, and `load_state_dict` takes
-    that layout."""
-
-    def __init__(self, net: torch.nn.Module, mesh: mesh_lib.Mesh, lr: float, milestones,
-                 steps_per_epoch: int, gamma: float = 0.1, max_norm: float = 1.0,
-                 min_size: int = 4096):
-        self.named = list(net.named_parameters())
-        self.split = mesh_lib.fsdp_sharding(mesh, net, min_size)
-        self.group = mesh.group(DATA_AXIS)
-        self.n, self.i = mesh.shape[DATA_AXIS], mesh.index(DATA_AXIS)
-        self.shards = {k: p.detach().chunk(self.n, self.split[k])[self.i]
-                       for k, p in self.named if k in self.split}
-        self._settings = (lr, milestones, steps_per_epoch, gamma, max_norm)
-        super().__init__([self.shards.get(k, p) for k, p in self.named], lr, milestones,
-                         steps_per_epoch, gamma=gamma, max_norm=max_norm)
-
-    def zero_grad(self) -> None:
-        super().zero_grad()
-        for _, p in self.named:
-            p.grad = None
-
-    def global_norm(self) -> torch.Tensor:
-        sq_split = sq_whole = torch.zeros((), device=self.params[0].device)
-        for k, p in self.named:
-            g = self.shards[k].grad if k in self.shards else p.grad
-            if g is None:
-                continue
-            if k in self.shards:
-                sq_split = sq_split + g.float().pow(2).sum()
-            else:
-                sq_whole = sq_whole + g.float().pow(2).sum()
-        return torch.sqrt(mesh_lib.all_reduce_(sq_split, self.group) + sq_whole)
-
-    @torch.no_grad()
-    def step(self) -> None:
-        for k, p in self.named:
-            if k in self.shards:
-                self.shards[k].grad = (None if p.grad is None
-                                       else p.grad.chunk(self.n, self.split[k])[self.i].clone())
-        super().step()
-        names = list(self.shards)
-        full = mesh_lib.all_gather_many([self.shards[k] for k in names], self.group,
-                                        [self.split[k] for k in names])
-        params = dict(self.named)
-        for k, t in zip(names, full):
-            params[k].copy_(t)
-
-    def _replicated(self) -> Optimizer:
-        return Optimizer([p for _, p in self.named], *self._settings[:3],
-                         gamma=self._settings[3], max_norm=self._settings[4])
-
-    @torch.no_grad()
-    def state_dict(self) -> dict:
-        full = self._replicated()
-        for k, p in self.named:
-            st = self.adam.state.get(self.shards.get(k, p))
-            if not st:
-                continue
-            if k in self.shards:
-                st = {"step": st["step"].clone(), **dict(zip(
-                    ("exp_avg", "exp_avg_sq"),
-                    mesh_lib.all_gather_many([st["exp_avg"], st["exp_avg_sq"]], self.group,
-                                             [self.split[k]] * 2)))}
-            full.adam.state[p] = st
-        full.count = self.count
-        return full.state_dict()
-
-    @torch.no_grad()
-    def load_moments(self, named_params: dict, state: dict) -> None:
-        full = self._replicated()
-        full.load_moments(named_params, state)
-        self.load_state_dict(full.state_dict())
-
-    @torch.no_grad()
-    def load_state_dict(self, state: dict) -> None:
-        full = self._replicated()
-        full.load_state_dict(state)
-        for k, p in self.named:
-            st = full.adam.state.get(p)
-            if st and k in self.shards:
-                st = {"step": st["step"],
-                      **{m: st[m].chunk(self.n, self.split[k])[self.i].clone()
-                         for m in ("exp_avg", "exp_avg_sq")}}
-            if st:
-                self.adam.state[self.shards.get(k, p)] = st
-        self.count = full.count
 
 
 def make_optimizer(net: torch.nn.Module, lr: float, milestones, steps_per_epoch: int,
@@ -412,12 +337,17 @@ def make_train_step(model: ManoModel, net: mhent.MHEnt, optimizer: Optimizer,
     train-mode BN takes the global batch's statistics, the glow regressor's
     dropout masks are the global batch's (`glow.global_rows`), a rank's
     loss is its share of the global batch's, the gradients are summed over the ranks
-    (`sharded.sync_grads`), so that the optimizer (a `ShardedOptimizer`
-    under tpu.fsdp) steps on the global gradient on every rank: the step of
-    the 1-process run on the global batch. tp: the Megatron split over
-    'model' (`sharded.tensor_parallel`); pipe: the draw through the GPipe
-    schedule over 'pipe' in n_micro microbatches (realnvp regressor only).
-    The aux values are the global batch's.
+    (`sharded.sync_grads`), so that the optimizer steps on the global
+    gradient on every rank: the step of the 1-process run on the global
+    batch. The step runs the net as its builder stored it
+    (`sharded.distribute`; `sharded.layout(net)`): tpu.fsdp's 'data' blocks
+    are gathered for the forward and backward and keep their part of the
+    summed gradients (`sharded.compute`, `sharded.sync_grads`); tp's
+    'model' blocks compute the Megatron split over 'model'
+    (`sharded.tensor_parallel`). tp=True asks for that split, and raises
+    for a net not stored split over 'model'. pipe:
+    the draw through the GPipe schedule over 'pipe' in n_micro microbatches
+    (realnvp regressor only). The aux values are the global batch's.
     """
     if fold is None:
         fold = mano_lib.fold_keypoints(model)
@@ -443,8 +373,20 @@ def make_train_step(model: ManoModel, net: mhent.MHEnt, optimizer: Optimizer,
     return step_fn
 
 
+def _split_tp(net: torch.nn.Module, tp: bool) -> bool:
+    """Whether the net is stored split over 'model' (`sharded.distribute`);
+    tp asks for it, and raises if it is not."""
+    lay = sharded.layout(net)
+    split = lay is not None and lay.tp
+    if tp and not split:
+        raise ValueError("tp: the net is not stored split over 'model'; call "
+                         "sharded.distribute(net, mesh, tp=True) where it is built")
+    return split
+
+
 def _sharded_train_step(model, net, optimizer, fold, generator, mesh, tp, pipe, n_micro):
-    tp_names = set(mesh_lib.tp_sharding(mesh, net)) if tp else set()
+    tp = _split_tp(net, tp)
+    partial = sharded.partial_names(net)
     pipeline = (mesh, n_micro) if pipe and mesh.shape[PIPE_AXIS] > 1 else None
     pipe_names = pipe_lib.stage_names(net) if pipeline is not None else set()
     group = mesh.group(DATA_AXIS)
@@ -456,24 +398,19 @@ def _sharded_train_step(model, net, optimizer, fold, generator, mesh, tp, pipe, 
         noise = mesh_lib.shard_rows(mesh, noise, n_train, b, hypo=False)
         image, target = _prep_batch(image, target)
         optimizer.zero_grad()
-        with bn_cuda.global_batch(group), sharded.tensor_parallel(mesh if tp else None), \
+        with sharded.compute(net), bn_cuda.global_batch(group), \
+                sharded.tensor_parallel(mesh if tp else None), \
                 glow.global_rows(n_train, b, mesh_lib.batch_sharding(mesh, b)):
             out = mhent.reverse_kld(model, net, target, image, base_noise=noise, train=True,
                                     generator=generator, fold=fold, pipeline=pipeline)
-            lp = out["log_p"]
-            if "valid" in target:
-                v = target["valid"]
-                den = mesh_lib.all_reduce_(v.sum().detach(), group) + 1e-16
-                loss = -(lp * v).sum() / den
-            else:
-                loss = -lp.sum() / b
+            loss = _global_loss(out["log_p"], target, b, group)
             loss.backward()
-        if pipeline is not None:
-            pipe_lib.drain()
-        sharded.sync_grads(net, mesh, tp_names, pipe_names)
+            if pipeline is not None:
+                pipe_lib.drain()
+            sharded.sync_grads(net, mesh, partial, pipe_names)
         optimizer.step()
-        if tp_names:
-            sharded.sync_split_stats(net, mesh, tp_names)
+        if tp:
+            sharded.sync_split_stats(net, mesh)
         h_q = out.get("h_q_z_giv_i")
         sums = torch.stack([loss.detach(), out["th_norm"].detach().sum() / (n_train * b),
                             out["bt_norm"].detach().sum() / (n_train * b),
@@ -483,6 +420,17 @@ def _sharded_train_step(model, net, optimizer, fold, generator, mesh, tp, pipe, 
         return dict(zip(("loss", "th_norm", "bt_norm", "h_q", "q_log_p"), sums.unbind()))
 
     return step_fn
+
+
+def _global_loss(lp: torch.Tensor, target: dict, b: int, group) -> torch.Tensor:
+    """This rank's share of the global batch's -mean log p (a padded tail
+    batch's padding masked out over the global valid count): summed over
+    the ranks, the 1-process loss."""
+    if "valid" in target:
+        v = target["valid"]
+        den = mesh_lib.all_reduce_(v.sum().detach(), group) + 1e-16
+        return -(lp * v).sum() / den
+    return -lp.sum() / b
 
 
 def make_eval_step(model: ManoModel, net: mhent.MHEnt, n: int, temp: float,
@@ -508,9 +456,13 @@ def make_eval_step(model: ManoModel, net: mhent.MHEnt, n: int, temp: float,
     WH and diversity need every hypothesis, so the samples are gathered
     over 'hypo' and 'data' (and log p over 'data') and every rank scores
     the global batch: the metrics are the 1-process step's on every rank.
-    A top-n_quant filter needs every hypothesis's log q, so it raises with
-    hypotheses split. tp: the Megatron split over 'model'; the kernels read
-    whole weights.
+    With hypotheses split, a top-n_quant filter gathers each rank's log q
+    with its hypotheses over 'hypo' and keeps the n_quant most likely of all
+    n, as one process does. The net evaluates in place, as its builder
+    stored it (`sharded.distribute`): its 'data' blocks gathered for the
+    call (`sharded.compute`), its 'model' blocks computing the Megatron
+    split over 'model'; the kernels read whole weights (`sharded.whole`).
+    tp=True asks for that split, and raises for a net not stored split.
     """
     if fold is None:
         fold = mano_lib.fold_keypoints(model)
@@ -544,12 +496,9 @@ def make_eval_step(model: ManoModel, net: mhent.MHEnt, n: int, temp: float,
 
 def _sharded_eval_step(model, net, n, temp, n_quant, quant_spec, fold, generator, mesh, tp):
     n_quant = n if n_quant is None else n_quant
+    tp = _split_tp(net, tp)
     n_hypo = mesh.shape[HYPO_AXIS]
-    if n_quant < n and n_hypo > 1:
-        raise NotImplementedError(
-            f"the top-{n_quant} filter of {n} hypotheses needs every hypothesis's log q; with "
-            f"tpu.mesh_hypo {n_hypo} each rank draws {n // n_hypo}: leave training.test_quant "
-            f"unset")
+    gather_q = n_quant < n and n_hypo > 1
     hypo_group, data_group = mesh.group(HYPO_AXIS), mesh.group(DATA_AXIS)
     n_train = net.cfg.n_train_hypotheses
 
@@ -559,7 +508,7 @@ def _sharded_eval_step(model, net, n, temp, n_quant, quant_spec, fold, generator
         full_target = _prep_target(target)
         image, target = _prep_batch(*mesh_lib.shard_batch(mesh, (image, target)))
         n_mine = n // n_hypo
-        with sharded.tensor_parallel(mesh if tp else None), \
+        with sharded.compute(net), sharded.tensor_parallel(mesh if tp else None), \
                 glow.global_rows(n_train, b, mesh_lib.batch_sharding(mesh, b)):
             feat = mhent.extract_feat(net, image)
             out = mhent.reverse_kld(model, net, target, image,
@@ -567,12 +516,20 @@ def _sharded_eval_step(model, net, n, temp, n_quant, quant_spec, fold, generator
                                                                    hypo=False),
                                     generator=generator, fold=fold, feat=feat)
             samples = mhent.sample_hypotheses(
-                model, net, image, n=n_mine, n_quant=min(n_quant, n_mine), temp=temp,
-                mods=("xyz", "uv"), base_noise=mesh_lib.shard_rows(mesh, hypo_noise, n, b),
-                fold=fold, quant=(quant_spec, qtree) if quant_spec is not None else None,
-                feat=feat if quant_spec is None else None)
-        output = {k: mesh_lib.all_gather(mesh_lib.all_gather(samples[k], hypo_group, dim=0),
-                                         data_group, dim=1) for k in ("xyz", "uv")}
+                model, net, image, n=n_mine, n_quant=None if gather_q else min(n_quant, n_mine),
+                temp=temp, mods=("xyz", "uv"),
+                base_noise=mesh_lib.shard_rows(mesh, hypo_noise, n, b), fold=fold,
+                quant=(quant_spec, qtree) if quant_spec is not None else None,
+                feat=feat if quant_spec is None else None, keep_log_q=gather_q)
+        keys = ("xyz", "uv", "log_q") if gather_q else ("xyz", "uv")
+        output = dict(zip(keys, mesh_lib.all_gather_many([samples[k] for k in keys], hypo_group,
+                                                         [0] * len(keys))))
+        if gather_q:
+            # The n_quant most likely of all n hypotheses of each image, as
+            # sample_hypotheses keeps them in one process.
+            idx = torch.topk(output.pop("log_q").T, n_quant).indices.T[:, :, None]
+            output = {k: torch.take_along_dim(v, idx, dim=0) for k, v in output.items()}
+        output = {k: mesh_lib.all_gather(v, data_group, dim=1) for k, v in output.items()}
         output["log_p"] = mesh_lib.all_gather(out["log_p"], data_group, dim=0)
         total, _, mets = metrics_lib.mhent_metrics(output, full_target,
                                                    image_size=net.cfg.image_size)
@@ -591,13 +548,25 @@ def _masked_loss(lp: torch.Tensor, target: dict) -> torch.Tensor:
     return -lp.mean()
 
 
-def make_rle_train_step(net: rle.RLE, optimizer: Optimizer):
+def make_rle_train_step(net: rle.RLE, optimizer: Optimizer, mesh: mesh_lib.Mesh | None = None):
     """One optimisation step of the RLE density loss -log p.
 
     Returns step_fn(image, target, noise, base_noise) -> aux {loss, sigma_i}
     as 0-d tensors on the device; noise and base_noise as
     `rle.loss_and_predict` takes them. The net must be in train mode.
+
+    mesh: a `parallel.mesh.Mesh` of more than one rank (JAX's
+    `make_rle_train_step(..., mesh)`, :249-277): the step takes the global
+    batch and its whole draws, alike on every rank; each rank computes its
+    'data' rows, train-mode BN takes the global batch's statistics (the
+    BN-sum kernel's sums all-reduced, `bn_cuda.global_batch`), a rank's
+    loss is its share of the global valid-masked mean, and the gradients
+    are summed over 'data' before the optimizer steps: the 1-process step
+    on the global batch, its aux the global batch's.
     """
+    if mesh is not None and mesh.size > 1:
+        return _sharded_rle_train_step(net, optimizer, mesh)
+
     def step_fn(image, target, noise, base_noise):
         image, target = _prep_batch(image, target)
         out = rle.loss_and_predict(net, image, target, noise=noise, base_noise=base_noise,
@@ -611,25 +580,71 @@ def make_rle_train_step(net: rle.RLE, optimizer: Optimizer):
     return step_fn
 
 
-def make_rle_eval_step(net: rle.RLE):
+def _rle_shard(mesh, net, image, target, noise, base_noise):
+    """This rank's 'data' rows of an RLE batch and of its two draws."""
+    b = image.shape[0]
+    rows = mesh_lib.batch_sharding(mesh, b)
+    k1, d = net.cfg.k1, net.cfg.flow.dim
+    base = base_noise.reshape(k1, b, -1, d)[:, rows].reshape(k1, -1, d)
+    image, target = _prep_batch(*mesh_lib.shard_batch(mesh, (image, target)))
+    return image, target, noise[rows], base
+
+
+def _sharded_rle_train_step(net, optimizer, mesh):
+    group = mesh.group(DATA_AXIS)
+
+    def step_fn(image, target, noise, base_noise):
+        b = image.shape[0]
+        image, target, noise, base_noise = _rle_shard(mesh, net, image, target, noise,
+                                                      base_noise)
+        optimizer.zero_grad()
+        with bn_cuda.global_batch(group):
+            out = rle.loss_and_predict(net, image, target, noise=noise, base_noise=base_noise,
+                                       train=True)
+            loss = _global_loss(out["log_p"], target, b, group)
+            loss.backward()
+        sharded.sync_grads(net, mesh)
+        optimizer.step()
+        # sigma_i is a mean over the rows: each rank's weighted by its rows.
+        sums = torch.stack([loss.detach(), out["sigma_i"] * image.shape[0] / b])
+        return dict(zip(("loss", "sigma_i"), mesh_lib.all_reduce_(sums, group).unbind()))
+
+    return step_fn
+
+
+def make_rle_eval_step(net: rle.RLE, mesh: mesh_lib.Mesh | None = None):
     """The RLE eval step: log p and the K1 draws scored by the BH / WH /
     diversity metrics, plus loss_total and sigma_i.
 
     Returns eval_fn(image, target, noise, base_noise) -> {metric: 0-d tensor}.
+    mesh: a `parallel.mesh.Mesh` of more than one rank (JAX's
+    `make_rle_eval_step(..., mesh)`, :280-301): each rank runs its 'data'
+    rows of the global batch; log p and the draws are gathered over 'data'
+    and every rank scores the global batch, sigma_i the global batch's.
     """
+    sharded_mesh = mesh if mesh is not None and mesh.size > 1 else None
+    group = mesh.group(DATA_AXIS) if sharded_mesh is not None else None
+
     @torch.inference_mode()
     def eval_fn(image, target, noise, base_noise):
-        image, target = _prep_batch(image, target)
+        b = image.shape[0]
+        full_target = _prep_target(target)
+        if sharded_mesh is None:
+            image, target = _prep_batch(image, target)
+        else:
+            image, target, noise, base_noise = _rle_shard(sharded_mesh, net, image, target,
+                                                          noise, base_noise)
         out = rle.loss_and_predict(net, image, target, noise=noise, base_noise=base_noise)
-        output = {"log_p": out["log_p"]}
+        output = {"log_p": mesh_lib.all_gather(out["log_p"], group, dim=0)}
         for k in ("xyz", "uv"):
             if k in out:
-                output[k] = out[k].reshape(*out[k].shape[:2], -1)
-        total, _, mets = metrics_lib.mhent_metrics(output, target,
+                output[k] = mesh_lib.all_gather(out[k].reshape(*out[k].shape[:2], -1), group,
+                                                dim=1)
+        total, _, mets = metrics_lib.mhent_metrics(output, full_target,
                                                    image_size=net.cfg.image_size)
         mets = {k: v.mean() for k, v in mets.items()}
         mets["loss_total"] = total
-        mets["sigma_i"] = out["sigma_i"]
+        mets["sigma_i"] = mesh_lib.all_reduce_(out["sigma_i"] * image.shape[0] / b, group)
         return mets
 
     return eval_fn
@@ -666,8 +681,11 @@ class Experiment:
     (:527-536: `fit_devices` on the batch, then `make_mesh`), reads
     tpu.fsdp, and runs the sharded train and eval steps on it: every rank
     iterates the same global batches and draws the same noise (one seed),
-    and computes its share of each step. Rank 0 alone writes the log, the
-    scalars and the checkpoints.
+    and computes its share of each step. An MHEnt is stored split at
+    construction (`sharded.distribute`: tpu.fsdp's ZeRO-3 over 'data', tp's
+    blocks over 'model', the glow regressor's blocks too); the RLE mode is
+    data-parallel. Checkpoints hold the 1-process layout. Rank 0 alone
+    writes the log, the scalars and the checkpoints.
     """
 
     _live: "weakref.WeakSet" = None  # initialised below the class
@@ -686,12 +704,6 @@ class Experiment:
         if size > 1 or math.prod(shape.values()) > 1:
             n_dev = mesh_lib.fit_devices(cfg.training.batch_size, n_available=size, **shape)
             self.mesh = mesh_lib.make_mesh(n_dev, **shape)
-            if not self.integrated:
-                raise NotImplementedError("the RLE mode runs in one process: its steps take no "
-                                          "mesh")
-            if self.tp and cfg.network.regressor == "glow":
-                raise NotImplementedError("tpu.tp splits the realnvp and det regressors; the "
-                                          "glow regressor's blocks are not split")
         os.makedirs(cfg.model_dir, exist_ok=True)
         if self.rank == 0:
             self.log = get_logger(os.path.join(cfg.model_dir, f"info_{cfg.training.mode}.log"),
@@ -726,6 +738,10 @@ class Experiment:
             self._pending_opt = ckpt.get("optimizer")
             self.step = int(ckpt.get("step", 0))
         self.net = self._lib.prepare(net, self.device, masters=self.masters)
+        if self.mesh is not None and self.integrated:
+            # Stored split from here on (tpu.fsdp's ZeRO-3, tp's blocks); the
+            # RLE mode is data-parallel, as JAX's RLE steps.
+            sharded.distribute(self.net, self.mesh, fsdp=self.fsdp, tp=self.tp)
         self.gen = torch.Generator(device=self.device).manual_seed(self.seed)
         self.quant_spec = None
         self.qtree = None
@@ -828,8 +844,6 @@ class Experiment:
 
     def _get_optimizer(self, steps_per_epoch: int) -> Optimizer:
         t = self.cfg.training
-        if self.fsdp and self.mesh is not None and self.mesh.shape[DATA_AXIS] > 1:
-            return ShardedOptimizer(self.net, self.mesh, t.lr, t.milestones, steps_per_epoch)
         return make_optimizer(self.net, t.lr, t.milestones, steps_per_epoch)
 
     def _ensure_state(self, steps_per_epoch: int) -> None:
@@ -857,7 +871,8 @@ class Experiment:
             self._train_step = (
                 make_train_step(self.model, self.net, self.optimizer, fold=self.fold,
                                 generator=self.gen, mesh=self.mesh, tp=self.tp, pipe=self.pp)
-                if self.integrated else make_rle_train_step(self.net, self.optimizer))
+                if self.integrated else make_rle_train_step(self.net, self.optimizer,
+                                                            mesh=self.mesh))
 
     def _load_optimizer(self, state: dict) -> None:
         """A .pth's optimizer: the port's own state_dict, or Adam moments by
@@ -1020,13 +1035,13 @@ class Experiment:
                                   quant_spec=spec, fold=self.fold, generator=self.gen,
                                   mesh=self.mesh, tp=self.tp)
         else:
-            step = make_rle_eval_step(self.net)
+            step = make_rle_eval_step(self.net, mesh=self.mesh)
         qtree = None
         batch_mets = []
         for image, target in data_common.prefetch(
                 data_common.batches(data, bs, pad_remainder=True, device=self.device)):
             if spec is not None and qtree is None:
-                with torch.inference_mode():
+                with torch.inference_mode(), sharded.whole(self.net):
                     calib = _prep_image(image, target)
                     res = self.net.feat_extractor.res
                     qtree = quant_mod.prepare(spec, res, quant_mod.calibrate(spec, res, calib))

@@ -12,6 +12,11 @@ import pytest
 import torch
 
 from mhentropy_tpu_torch import bench, profile_step
+from mhentropy_tpu_torch.core import mano
+from mhentropy_tpu_torch.flows.realnvp import RealNVPConfig
+from mhentropy_tpu_torch.models import mhent
+from mhentropy_tpu_torch.models.encoder import EncoderConfig
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 BENCH_FIELDS = ("metric", "value", "unit", "vs_baseline", "rounds", "spread_pct", "model_flops",
                 "mfu", "int8_serving", "int8_speedup", "eval_shape_n200_b64",
@@ -19,8 +24,20 @@ BENCH_FIELDS = ("metric", "value", "unit", "vs_baseline", "rounds", "spread_pct"
                 "skipped", "compile_s", "budget_s", "device_kind")
 
 
+def _small_build(dev, tiny: bool = False):
+    """The bench's model at the smallest geometry its sections take
+    (resnet18 at 32 px, RealNVP 1 x 2 x 32): the line's fields do not depend
+    on the model; test_step_flops_counts_the_plain_path keeps --tiny's."""
+    cfg = mhent.MHEntConfig(
+        encoder=EncoderConfig(backbone="resnet18", n_latent=(32, 32), dtype="float32"),
+        flow=RealNVPConfig(dim=45, cond_dim=32, h_dim=32, num_steps=1), feat_dim=32,
+        image_size=32)
+    return mano.synthetic_mano_model(0, device=dev), mhent.prepare(mhent.init(cfg, seed=0), dev)
+
+
 @pytest.fixture
 def tiny_sections(monkeypatch):
+    monkeypatch.setattr(bench, "build", _small_build)
     monkeypatch.setattr(bench, "EVAL_SHAPE", (6, 2))
     monkeypatch.setattr(bench, "SERVE_B1", (6, 1))
     monkeypatch.setattr(bench, "TRAIN_BATCH", 2)

@@ -25,6 +25,7 @@ import torch
 
 from mhentropy_tpu.models import bn_pallas
 from mhentropy_tpu_torch.models import bn_cuda, resnet
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 FORMS = [("stats", True), ("full", True), ("stats", False)]
 

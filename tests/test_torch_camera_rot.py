@@ -11,6 +11,7 @@ import torch
 from mhentropy_tpu.core import camera as jcamera
 from mhentropy_tpu.core import rotations as jrotations
 from mhentropy_tpu_torch.core import camera, rotations
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 B, K = 5, 21
 TOL = 1e-5

@@ -21,6 +21,7 @@ from mhentropy_tpu_torch.models import mhent, rle
 from mhentropy_tpu_torch.train import engine
 from mhentropy_tpu_torch.utils import logging as tlogging
 from mhentropy_tpu_torch.utils.config import load_cfg
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

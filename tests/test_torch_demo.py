@@ -12,6 +12,7 @@ from mhentropy_tpu_torch import train_synthetic_demo as demo
 from mhentropy_tpu_torch.flows.realnvp import RealNVPConfig
 from mhentropy_tpu_torch.models.encoder import EncoderConfig
 from mhentropy_tpu_torch.models.mhent import MHEntConfig
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 
 def test_demo_runs_on_the_cpu_and_needs_a_card_by_default(monkeypatch, capsys):

@@ -43,6 +43,7 @@ from mhentropy_tpu_torch.flows.realnvp import RealNVPConfig
 from mhentropy_tpu_torch.models import mhent, quant
 from mhentropy_tpu_torch.models.encoder import EncoderConfig
 from mhentropy_tpu_torch.train import engine, metrics
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 B, N, IMG, TEMP = 2, 4, 64, 0.8
 
@@ -293,7 +294,7 @@ def test_run_cli_evaluates_tiny_config_on_cpu(tmp_path, capsys):
         "dataset: {dataset_name: ho3d, image_size: [32, 32]}\n"
         "network: {enc_type: MHEnt, num_latent: 16, backbone: resnet18, h_dims: [32, 32],\n"
         "          num_steps: 1}\n"
-        "training: {mode: baseline_VAE, batch_size: 4, epochs: 0, test_samples: 3, seed: 1,\n"
+        "training: {mode: baseline_VAE, batch_size: 8, epochs: 0, test_samples: 3, seed: 1,\n"
         "           n_train_hypotheses: 2}\n"
         "tpu: {compute_dtype: float32, quantize_encoder: true}\n"
         f"model_dir: {tmp_path / 'eval'}/\n")

@@ -42,6 +42,7 @@ from mhentropy_tpu_torch.models import (mhent, quant, resnet, stage1_cuda, stage
                                         stage2_int8_cuda, stem_cuda, stem_int8_cuda)
 from mhentropy_tpu_torch.models.encoder import EncoderConfig
 from tools import export as jexport
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 B, N, IMG, TEMP = 2, 4, 64, 0.8
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -76,7 +77,8 @@ def setup():
         encoder=JEncoderConfig(backbone="resnet18", n_latent=(32, 32), dtype="float32"),
         flow=JRealNVPConfig(dim=45, cond_dim=32, h_dim=32, num_steps=2),
         feat_dim=32, image_size=IMG)
-    params, stats = jmhent.init(jax.random.key(0), jcfg)
+    # Jitted, the init compiles once instead of op by op (the same values).
+    params, stats = jax.jit(lambda k: jmhent.init(k, jcfg))(jax.random.key(0))
     params, stats = _randomise(params, stats, 1)
     net = mhent.MHEnt(_cfg())
     net.load_state_dict(from_jax(params, stats), strict=True)

@@ -17,6 +17,7 @@ import torch
 
 from mhentropy_tpu_torch import int8_gemm_probe
 from tools import mosaic_int8_probe
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture

@@ -29,6 +29,7 @@ from mhentropy_tpu.flows import glow as jglow
 from mhentropy_tpu.flows import pallas_glow_sampler as jpgs
 from mhentropy_tpu_torch.convert import glow_config_of, glow_from_jax, load_prohmr_smpl_flow
 from mhentropy_tpu_torch.flows import cuda_glow_sampler, glow
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # (features, hidden, layers, context): the MHEnt Glow's D = 45, the ProHMR D = 144.

@@ -21,6 +21,7 @@ import torch
 from mhentropy_tpu.flows import glow as jglow
 from mhentropy_tpu_torch.convert import glow_config_of, glow_from_jax, load_prohmr_smpl_flow
 from mhentropy_tpu_torch.flows import glow
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 D, H, LAYERS, CTX = 12, 32, 3, 8
 

@@ -23,6 +23,7 @@ from mhentropy_tpu_torch.core import lbs_cuda, mano
 from mhentropy_tpu_torch.flows.realnvp import RealNVPConfig
 from mhentropy_tpu_torch.models import mhent
 from mhentropy_tpu_torch.models.encoder import EncoderConfig
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

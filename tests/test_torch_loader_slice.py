@@ -41,6 +41,7 @@ from mhentropy_tpu_torch.models.encoder import EncoderConfig
 from mhentropy_tpu_torch.train import engine, metrics
 from mhentropy_tpu_torch.utils.config import load_cfg
 from tests import fixtures_data
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 B, N, IMG, TEMP, NT = 2, 4, 64, 0.8, 2
 TOL = 1e-4

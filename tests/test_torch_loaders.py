@@ -24,6 +24,7 @@ from mhentropy_tpu.data import mixed as jmixed
 from mhentropy_tpu.data import rhd as jrhd
 from mhentropy_tpu_torch.data import cached, common, freihand, ho3d, mixed, rhd
 from tests import fixtures_data
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 LOADERS = {"rhd": (jrhd, rhd), "freihand": (jfreihand, freihand), "ho3d": (jho3d, ho3d),
            "mixed": (jmixed, mixed)}

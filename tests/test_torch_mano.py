@@ -14,6 +14,7 @@ from mhentropy_tpu.core import camera as jcamera
 from mhentropy_tpu.core import mano as jmano
 from mhentropy_tpu.core import rotations as jrot
 from mhentropy_tpu_torch.core import camera, mano, rotations
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 MM_TOL = 0.02
 

@@ -38,6 +38,7 @@ from mhentropy_tpu_torch.train import engine
 from mhentropy_tpu_torch.utils.config import load_cfg
 from tests.test_torch_train import _configs, _o1
 from tools.convert_torch import load_torch_checkpoint
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 IMG, B, N = 32, 2, 4
 TOL = 1e-4

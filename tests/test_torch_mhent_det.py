@@ -31,6 +31,7 @@ from mhentropy_tpu_torch.flows.realnvp import RealNVPConfig
 from mhentropy_tpu_torch.models import mhent
 from mhentropy_tpu_torch.models.encoder import EncoderConfig
 from mhentropy_tpu_torch.train import engine, metrics
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 IMG, B = 64, 4
 

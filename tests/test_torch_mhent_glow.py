@@ -45,6 +45,7 @@ from mhentropy_tpu_torch.models import mhent, prohmr
 from mhentropy_tpu_torch.models.encoder import EncoderConfig
 from mhentropy_tpu_torch.train import engine
 from tools.convert_torch import load_torch_checkpoint
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 IMG, B, N = 32, 4, 3
 GLOW = dict(regressor="glow", feat_dim=32, image_size=IMG, n_train_hypotheses=2,

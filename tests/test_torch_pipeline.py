@@ -11,7 +11,11 @@ across the frameworks the f32 products round apart by a few 1e-7),
 gradients 1e-5 of each tensor's largest entry (tests/test_pipeline.py's).
 One train step with the draw pipelined (engine.make_train_step(pipe=True))
 against the port's 1-process step: loss 1e-5 relative, the global
-gradient 1e-4 of each tensor's largest entry.
+gradient 1e-4 of each tensor's largest entry. One train step in the 2-D
+layout (ZeRO-3 over 2 data ranks and tensor parallelism over 2 model
+ranks at once) against the 1-process step, at the DP case's batch of 8:
+the loss and the global gradient within the DP case's 1e-4
+(tests/test_torch_parallel.py).
 """
 
 import jax
@@ -26,6 +30,7 @@ from mhentropy_tpu_torch.flows import realnvp
 from mhentropy_tpu_torch.models import mhent
 from mhentropy_tpu_torch.parallel import mesh as mesh_lib
 from tests import torch_dist
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 ROWS, N_MICRO, TEMP = 8, 2, 0.8
 
@@ -54,13 +59,17 @@ def setup():
     pipe_inputs = dict(cfg=mcfg, state=mhent.init(mcfg, seed=0).state_dict(), lr=1e-3,
                        image=image, target=target,
                        noise=np.random.RandomState(4).randn(1, 2 * 4, 45).astype(np.float32))
+    # The 2-D layout's step at the DP case's batch of 8 (2 data ranks).
+    image8, target8 = torch_dist.numpy_batch(8)
+    layout_inputs = dict(pipe_inputs, image=image8, target=target8,
+                         noise=np.random.RandomState(5).randn(1, 2 * 8, 45).astype(np.float32))
     pcfg = realnvp.RealNVPConfig(dim=45, cond_dim=32, h_dim=32, num_steps=2)
     inputs = dict(flow_cfg=pcfg, flow_state=realnvp_state_dict(jax.tree.map(np.asarray, params)),
                   x=np.array(x), feat=np.array(feat), n_micro=N_MICRO,
                   z0=np.array(jax.random.normal(key, (ROWS, 45))) * TEMP,
-                  pipe_inputs=pipe_inputs)
+                  pipe_inputs=pipe_inputs, layout_inputs=layout_inputs)
     # The group runs while this process computes the references.
-    group = torch_dist.Group(4, ["pipeline", "pipe_step"], inputs)
+    group = torch_dist.Group(4, ["pipeline", "pipe_step", "fsdp_tp"], inputs)
     cproj = jrealnvp.cond_cache(params, cfg, jrealnvp.make_cond(params, cfg, feat))
 
     def loss_inv(p):
@@ -80,6 +89,7 @@ def setup():
             "sample_grads": _grads_sd(jax.grad(loss_sample)(params))}
     want = jax.tree.map(np.asarray, want)
     one = torch_dist.train_once(pipe_inputs)
+    one["layout"] = torch_dist.train_once(layout_inputs)
     return want, group.results(), one, inputs
 
 
@@ -131,6 +141,32 @@ def test_pipelined_train_step_matches_one_process(setup):
     assert set(g["grads"]) >= set(w["grads"])
     for k, v in w["grads"].items():
         _close(g["grads"][k].numpy(), v.numpy(), 1e-4, k)
+
+
+def test_fsdp_tp_step_matches_one_process(setup):
+    """The 2-D layout: each parameter that both rules split is stored as a
+    quarter, a parameter one rule splits as a half; the step is the
+    1-process step's."""
+    _, got, one, _ = setup
+    g, w = got["fsdp_tp"], one["layout"]
+    for k in w["aux"][0]:
+        assert abs(g["aux"][0][k] - w["aux"][0][k]) <= 1e-4 * abs(w["aux"][0][k]), k
+    assert set(g["grads"]) == set(w["grads"])
+    for k, v in w["grads"].items():
+        _close(g["grads"][k].numpy(), v.numpy(), 1e-4, k)
+    shapes = {k: tuple(v.shape) for k, v in w["state"].items()}
+    spec = mesh_lib.state_sharding(type("M", (), {"shape": {"data": 2, "hypo": 1, "model": 2,
+                                                            "pipe": 1}}),
+                                   {k: shapes[k] for k in g["stored"]}, fsdp=True, tp=True)
+    both = [k for k, s in spec.items() if s["data"] is not None and s["model"] is not None]
+    assert both
+    for k, s in spec.items():
+        parts = (2 if s["data"] is not None else 1) * (2 if s["model"] is not None else 1)
+        assert g["stored"][k]["param"] * parts == int(np.prod(shapes[k])), k
+        # The sigma head, which no loss reads, has no gradient and no moments.
+        assert g["stored"][k].get("exp_avg", g["stored"][k]["param"]) == \
+            g["stored"][k]["param"], k
+    assert sum("exp_avg" in v for v in g["stored"].values()) > len(g["stored"]) // 2
 
 
 def test_pipeline_refusals():

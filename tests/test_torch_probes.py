@@ -36,6 +36,7 @@ from mhentropy_tpu.models import stem_pallas
 from mhentropy_tpu_torch import stage1_probe, stem_cost_attrib, stem_probe
 from tools import stage1_probe as jstage1_probe
 from tools import stem_cost_attrib as jstem_cost_attrib
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 ROWS = stem_probe.ROWS
 

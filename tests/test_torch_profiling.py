@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from mhentropy_tpu_torch.utils import profiling
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 
 def test_time_fn_returns_seconds_and_the_last_result():

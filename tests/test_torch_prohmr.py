@@ -38,6 +38,7 @@ from mhentropy_tpu_torch.flows import cuda_glow_sampler
 from mhentropy_tpu_torch.flows.glow import GlowConfig
 from mhentropy_tpu_torch.models import prohmr, quant
 from mhentropy_tpu_torch.models.encoder import EncoderConfig
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 B, N, IMG = 2, 4, 32
 KEYS = ("pose_6d", "log_q", "verts", "joints3d", "uv", "betas", "cam")

@@ -23,6 +23,7 @@ from mhentropy_tpu.models import quant as jquant
 from mhentropy_tpu_torch.convert import _resnet, qtree_from_jax
 from mhentropy_tpu_torch.models import quant
 from mhentropy_tpu_torch.models.encoder import Encoder, EncoderConfig
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 IMG = 64
 

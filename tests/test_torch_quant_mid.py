@@ -43,6 +43,8 @@ from mhentropy_tpu.models import stem_int8 as jstem_int8
 from mhentropy_tpu_torch.convert import _resnet, qtree_from_jax
 from mhentropy_tpu_torch.models import quant, stage2_int8_cuda, stem_int8_cuda
 from mhentropy_tpu_torch.models.encoder import Encoder, EncoderConfig
+from tests import torch_dist
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 IMG = 256
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -177,9 +179,9 @@ def test_pallas_mid_modes_that_raise(mode, error):
 
 def test_bench_quant_runs_on_the_cpu():
     """The JAX tool's argv, at a tiny geometry: one JSON line per side."""
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS=str(torch_dist.TEST_THREADS))
     proc = subprocess.run(
-        [sys.executable, "-m", "mhentropy_tpu_torch.bench_quant", "4", "1", "2", "1", "mid",
+        [sys.executable, "-m", "mhentropy_tpu_torch.bench_quant", "4", "1", "1", "1", "mid",
          "--device", "cpu", "--tiny"], cwd=REPO, env=env, capture_output=True, text=True,
         timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]

@@ -21,6 +21,7 @@ from mhentropy_tpu.flows import priors as jpriors
 from mhentropy_tpu.flows import realnvp as jrealnvp
 from mhentropy_tpu_torch.convert import realnvp_state_dict
 from mhentropy_tpu_torch.flows import priors, realnvp
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 TOL = 1e-4
 B, K = 3, 21

@@ -36,6 +36,7 @@ from mhentropy_tpu_torch.train import engine
 from mhentropy_tpu_torch.train.engine import Experiment
 from mhentropy_tpu_torch.utils.config import load_cfg
 from tests.test_torch_repairs import full_schema
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -26,6 +26,7 @@ from mhentropy_tpu.core import render as jrender
 from mhentropy_tpu.models import mhent as jmhent
 from mhentropy_tpu_torch.core import camera, mano, render
 from mhentropy_tpu_torch.models import mhent
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 B, V, S = 3, 778, 64
 TOL = 1e-5

@@ -24,6 +24,7 @@ from mhentropy_tpu_torch.models import mhent
 from mhentropy_tpu_torch.train import engine
 from mhentropy_tpu_torch.utils.config import make_cfg
 from tests.test_torch_export import _case
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 TINY = {"dataset": {"dataset_name": "ho3d", "image_size": [32, 32]},
         "network": {"enc_type": "MHEnt", "num_latent": 32, "backbone": "resnet18",

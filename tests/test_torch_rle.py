@@ -49,6 +49,7 @@ from mhentropy_tpu_torch.models.encoder import EncoderConfig
 from mhentropy_tpu_torch.train import engine
 from mhentropy_tpu_torch.utils.config import load_cfg
 from tools.convert_torch import load_rle_checkpoint
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 IMG, B, LR = 64, 2, 1e-6
 FLOW = dict(dim=3, h_dim=32, num_steps=2, joint_n=21, tsfm_on="x")

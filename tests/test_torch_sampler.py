@@ -18,6 +18,7 @@ from mhentropy_tpu.flows import pallas_sampler as ps
 from mhentropy_tpu.flows import realnvp as jrealnvp
 from mhentropy_tpu_torch.convert import realnvp_state_dict
 from mhentropy_tpu_torch.flows import cuda_sampler, realnvp
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 TOL = 1e-4
 CFG = dict(dim=45, cond_dim=32, h_dim=64, num_steps=2)
@@ -119,6 +120,38 @@ def test_sample_fused_orders_rows_like_the_flow():
     x_ref, lp_ref = realnvp.sample(flow, z0, cproj=cp)
     np.testing.assert_allclose(_np(x), _np(x_ref), atol=1e-5)
     np.testing.assert_allclose(_np(lp), _np(lp_ref), atol=1e-5)
+
+
+def test_draw_without_gradients_reuses_the_pack_until_a_weight_changes():
+    """sample_fused_diff without gradients (the eval's reverse-KL term)
+    draws on `packed_now`: the autograd route's draw bit for bit, one pack
+    while the weights stay, a new one after an optimizer step moves them
+    (and the draw follows the new weights, 1e-5 of the autograd route's)."""
+    _, params = _jax_flow(8)
+    flow = _port_flow(params)
+    rng = np.random.RandomState(9)
+    b, n = 3, 5
+    feat = torch.from_numpy(rng.randn(b, 32).astype(np.float32))
+    z0 = torch.from_numpy(rng.randn(n * b, 45).astype(np.float32))
+    want = cuda_sampler.sample_fused_diff(flow, feat, n, z0)
+    with torch.inference_mode():
+        got = cuda_sampler.sample_fused_diff(flow, feat, n, z0)
+        first = cuda_sampler.packed_now(flow)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w.detach())
+    before = got[0]
+    with torch.no_grad():
+        assert cuda_sampler.packed_now(flow) is first
+    opt = torch.optim.SGD(flow.parameters(), lr=0.1)
+    (want[0].square().sum() + want[1].sum()).backward()
+    opt.step()
+    with torch.no_grad():
+        assert cuda_sampler.packed_now(flow) is not first
+        got = cuda_sampler.sample_fused_diff(flow, feat, n, z0)
+    want = cuda_sampler.sample_fused_diff(flow, feat, n, z0)
+    assert not torch.equal(got[0], before)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), atol=1e-5)
 
 
 def test_pack_pads_with_pass_through_dims():

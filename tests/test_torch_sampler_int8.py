@@ -21,6 +21,7 @@ from mhentropy_tpu.flows import realnvp as jrealnvp
 from mhentropy_tpu_torch.convert import flowq_from_jax, realnvp_state_dict
 from mhentropy_tpu_torch.flows import cuda_sampler_int8 as q8
 from mhentropy_tpu_torch.flows import cuda_sampler, realnvp
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 D = 45
 

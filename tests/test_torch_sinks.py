@@ -27,6 +27,7 @@ from mhentropy_tpu_torch import run
 from mhentropy_tpu_torch.flows import glow
 from mhentropy_tpu_torch.train import engine
 from mhentropy_tpu_torch.utils import logging as tlogging
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 
 def _records(path):

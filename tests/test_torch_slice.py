@@ -30,6 +30,7 @@ from mhentropy_tpu_torch.flows.realnvp import RealNVPConfig
 from mhentropy_tpu_torch.models import mhent
 from mhentropy_tpu_torch.models.encoder import EncoderConfig
 from mhentropy_tpu_torch.utils.config import make_cfg
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 B, N, IMG, TEMP = 2, 4, 64, 0.8
 

@@ -18,6 +18,7 @@ import torch
 from mhentropy_tpu.core import rotations as jrot
 from mhentropy_tpu.core import smpl as jsmpl
 from mhentropy_tpu_torch.core import lbs_cuda, rotations, smpl
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 ATOL_M = 2e-5  # 0.02 mm
 

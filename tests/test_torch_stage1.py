@@ -15,6 +15,7 @@ import torch
 
 from mhentropy_tpu.models import stage1_pallas
 from mhentropy_tpu_torch.models import resnet, stage1_cuda
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 TOL = 2e-4
 

@@ -17,6 +17,7 @@ import torch
 
 from mhentropy_tpu.models import stage1_int8 as jstage1_int8
 from mhentropy_tpu_torch.models import quant, stage1_int8_cuda
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 H = W = 16
 

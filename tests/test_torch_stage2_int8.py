@@ -28,6 +28,7 @@ import torch
 
 from mhentropy_tpu.models import stage2_int8 as jstage2_int8
 from mhentropy_tpu_torch.models import stage2_int8_cuda
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 TEST_GEOM = (8, 16, 32, 2, 32)
 

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from mhentropy_tpu_torch.models import resnet, stem_cuda
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 TOL = 1e-4
 

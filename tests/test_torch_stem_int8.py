@@ -23,6 +23,7 @@ import torch
 
 from mhentropy_tpu.models import stem_int8 as jstem_int8
 from mhentropy_tpu_torch.models import stem_int8_cuda
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 
 def _params(key):

@@ -55,6 +55,7 @@ from mhentropy_tpu_torch.models import mhent
 from mhentropy_tpu_torch.models.encoder import EncoderConfig
 from mhentropy_tpu_torch.train import engine
 from tools.convert_torch import load_torch_checkpoint
+from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
 IMG, B, LR = 64, 4, 1e-6
 

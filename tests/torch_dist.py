@@ -16,11 +16,26 @@ import tempfile
 import time
 
 import numpy as np
+import pytest
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
 N_THREADS = 1
+# torch's intra-op threads while a port test module runs: the suite's
+# workers run side by side on the machine's cores, and a worker each
+# spinning up one thread a core oversubscribes them many times over.
+TEST_THREADS = 2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_torch_threads():
+    """TEST_THREADS torch threads for the module that imports this fixture
+    (autouse), the process's count again after it."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(TEST_THREADS)
+    yield
+    torch.set_num_threads(prev)
 
 
 def free_port() -> int:
@@ -150,15 +165,17 @@ def batch(inputs: dict):
 
 def train_once(inputs: dict, mesh=None, fsdp: bool = False, tp: bool = False, steps: int = 1,
                bn_mode: str = "stats", kernels: bool = True):
-    """steps train steps from inputs["state"]: ([aux], state dict, the
-    optimizer's state_dict in the 1-process layout)."""
+    """steps train steps from inputs["state"]: ([aux], state dict, global
+    gradients and the optimizer's state_dict, all in the 1-process layout;
+    with fsdp or tp, each split parameter's stored numel and its
+    gradient's and Adam moments')."""
+    from mhentropy_tpu_torch.parallel import sharded
     from mhentropy_tpu_torch.train import engine
 
     model, net = build(dict(inputs, bn_mode=bn_mode, kernels=kernels), train=True)
-    if fsdp:
-        opt = engine.ShardedOptimizer(net, mesh, inputs["lr"], [100], 10)
-    else:
-        opt = engine.make_optimizer(net, inputs["lr"], [100], 10)
+    if fsdp or tp:
+        sharded.distribute(net, mesh, fsdp=fsdp, tp=tp)
+    opt = engine.make_optimizer(net, inputs["lr"], [100], 10)
     step = engine.make_train_step(model, net, opt, mesh=mesh, tp=tp,
                                   generator=torch.Generator().manual_seed(17))
     image, target = batch(inputs)
@@ -168,20 +185,27 @@ def train_once(inputs: dict, mesh=None, fsdp: bool = False, tp: bool = False, st
         auxes.append({k: float(v) for k, v in aux.items()})
         if i == 0:
             first = copy.deepcopy(opt.state_dict())
-    state = {k: v.detach().clone() for k, v in net.state_dict().items()}
-    grads = {k: p.grad.clone() for k, p in net.named_parameters() if p.grad is not None}
-    out = {"aux": auxes, "state": state, "grads": grads, "opt": opt.state_dict(),
+    out = {"aux": auxes, "grads": sharded.gathered_grads(net), "opt": opt.state_dict(),
            "opt_first": first}
-    if fsdp:
-        out["shard_numel"] = {k: s.numel() for k, s in opt.shards.items()}
+    if fsdp or tp:
+        # A parameter without a gradient (the sigma head) has no moments.
+        out["stored"] = {k: {"param": p.numel(), **({} if p.grad is None else {
+            "grad": p.grad.numel(),
+            **{m: opt.adam.state[p][m].numel() for m in ("exp_avg", "exp_avg_sq")}})}
+            for k, p in net.named_parameters() if sharded.piece(p) is not None}
+    out["state"] = {k: v.detach().clone() for k, v in net.state_dict().items()}
     return out
 
 
-def eval_once(inputs: dict, mesh=None, tp: bool = False) -> dict:
+def eval_once(inputs: dict, mesh=None, tp: bool = False, n_quant=None) -> dict:
+    from mhentropy_tpu_torch.parallel import sharded
     from mhentropy_tpu_torch.train import engine
 
     model, net = build(inputs, train=False)
-    step = engine.make_eval_step(model, net, inputs["n"], 0.8, mesh=mesh, tp=tp)
+    if tp:
+        sharded.distribute(net, mesh, tp=True)
+    step = engine.make_eval_step(model, net, inputs["n"], 0.8, n_quant=n_quant, mesh=mesh, tp=tp,
+                                 generator=torch.Generator().manual_seed(19))
     image, target = batch(inputs)
     mets = step(image, target, torch.from_numpy(inputs["kld_noise"]),
                 torch.from_numpy(inputs["hypo_noise"]))
@@ -197,10 +221,11 @@ def draw_grads(inputs: dict, mesh=None, fused: bool = True) -> dict:
     plain draw, inside `sharded.tensor_parallel(mesh)`. Returns the
     gradients of a loss of it, summed as the train step sums them."""
     from mhentropy_tpu_torch.flows import cuda_sampler, realnvp
-    from mhentropy_tpu_torch.parallel import mesh as mesh_lib
     from mhentropy_tpu_torch.parallel import sharded
 
     _, net = build(inputs, train=True)
+    if mesh is not None:
+        sharded.distribute(net, mesh, tp=True)
     flow = net.q_z_giv_i
     w = torch.from_numpy(inputs["draw_w"])
     layer = torch.nn.Linear(w.shape[1], w.shape[0])
@@ -220,8 +245,8 @@ def draw_grads(inputs: dict, mesh=None, fused: bool = True) -> dict:
             x, lp = realnvp.sample(flow, noise, cproj=cproj.repeat(1, 1, n, 1))
         ((x ** 2).sum() + lp.sum()).backward()
     if mesh is not None:
-        sharded.sync_grads(both, mesh, {f"net.{k}" for k in mesh_lib.tp_sharding(mesh, net)})
-    return {k: p.grad.clone() for k, p in both.named_parameters() if p.grad is not None}
+        sharded.sync_grads(both, mesh)
+    return sharded.gathered_grads(both)
 
 
 # --- the cases a group runs ----------------------------------------------------
@@ -246,22 +271,157 @@ def case_dp_glow(inputs):
 
 
 def case_fsdp(inputs):
-    return train_once(inputs, _mesh(), fsdp=True, steps=2)
+    """ZeRO-3 for two steps, and data parallelism beside it."""
+    mesh = _mesh()
+    return {"zero3": train_once(inputs, mesh, fsdp=True, steps=2),
+            "dp": train_once(inputs, mesh, steps=2)}
 
 
 def case_tp(inputs):
     return train_once(inputs, _mesh(tp=2), tp=True)
 
 
+def case_glow_tp(inputs):
+    """The glow regressor at tp = 2: one train step and the eval step."""
+    glow = dict(inputs, **inputs["glow"])
+    return {"train": train_once(glow, _mesh(tp=2), tp=True),
+            "eval": eval_once(glow, _mesh(tp=2), tp=True)}
+
+
+def glow_bn_once(inputs: dict, mesh=None) -> dict:
+    """A Glow with BatchNorm in its coupling nets (inputs["glow_bn"]): the
+    train-mode log-prob's gradients (dropout masks from a seeded
+    generator) and one `bn_stats_update`, inside `sharded.tensor_parallel`
+    of `mesh` with the split blocks stored split; the gradients and the
+    state in the 1-process layout."""
+    from mhentropy_tpu_torch.flows import glow
+    from mhentropy_tpu_torch.parallel import sharded
+
+    g = inputs["glow_bn"]
+    flow = glow.ConditionalGlow(g["cfg"])
+    flow.load_state_dict(g["state"])
+    x, ctx = torch.from_numpy(g["x"]), torch.from_numpy(g["ctx"])
+    if mesh is not None:
+        sharded.distribute(flow, mesh, tp=True)
+    with sharded.tensor_parallel(mesh):
+        lp = glow.log_prob(flow, x, ctx, train=True, generator=torch.Generator().manual_seed(3))
+        (-lp.sum()).backward()
+        glow.bn_stats_update(flow, x, ctx)
+    if mesh is not None:
+        sharded.sync_grads(flow, mesh, sharded.partial_names(flow))
+        sharded.sync_split_stats(flow, mesh)
+    return {"log_p": lp.detach(), "grads": sharded.gathered_grads(flow),
+            "state": {k: v.clone() for k, v in flow.state_dict().items()}}
+
+
+def case_glow_bn_tp(inputs):
+    return glow_bn_once(inputs, _mesh(tp=2))
+
+
+def case_fsdp_tp(inputs):
+    """ZeRO-3 over 'data' and tensor parallelism over 'model' at once (the
+    2-D layout), on inputs["layout_inputs"]."""
+    return train_once(inputs["layout_inputs"], _mesh(tp=2), fsdp=True, tp=True)
+
+
+def rle_build(inputs: dict, train: bool):
+    """The RLE of inputs["rle"] on the CPU (kernels off: the plain BN sums
+    under the data-parallel statistics)."""
+    from mhentropy_tpu_torch.models import rle
+
+    r = inputs["rle"]
+    net = rle.RLE(r["cfg"])
+    rle.load_checkpoint(net, r["state"])
+    return net.train(train)
+
+
+def rle_once(inputs: dict, mesh=None) -> dict:
+    """Two RLE train steps and one eval step from inputs["rle"]:
+    ([aux], the first step's global gradients (clipped), state dict,
+    metrics)."""
+    from mhentropy_tpu_torch.parallel import sharded
+    from mhentropy_tpu_torch.train import engine
+
+    r = inputs["rle"]
+    net = rle_build(inputs, True)
+    opt = engine.make_optimizer(net, r["lr"], [1], steps_per_epoch=1)
+    step = engine.make_rle_train_step(net, opt, mesh=mesh)
+    image = torch.from_numpy(r["image"])
+    target = {k: torch.from_numpy(v) for k, v in r["target"].items()}
+    auxes, grads = [], None
+    for noise, base in r["draws"]:
+        aux = step(image, target, torch.from_numpy(noise), torch.from_numpy(base))
+        auxes.append({k: float(v) for k, v in aux.items()})
+        if grads is None:
+            grads = {k: g.clone() for k, g in sharded.gathered_grads(net).items()}
+    out = {"aux": auxes, "grads": grads,
+           "state": {k: v.detach().clone() for k, v in net.state_dict().items()}}
+    noise, base = r["eval_draws"]
+    mets = engine.make_rle_eval_step(net.eval(), mesh=mesh)(
+        image, target, torch.from_numpy(noise), torch.from_numpy(base))
+    out["eval"] = {k: float(v) for k, v in mets.items()}
+    return out
+
+
+def case_rle(inputs):
+    return rle_once(inputs, _mesh())
+
+
+def case_experiments(inputs):
+    """run.py's Experiment on the group for each YAML of
+    inputs["experiments"] (glow at tp = 2, the RLE mode on 2 data ranks,
+    hypotheses over 2 hypo ranks with a top-test_quant filter): the
+    summaries of their last eval."""
+    from mhentropy_tpu_torch.train.engine import Experiment
+    from mhentropy_tpu_torch.utils.config import load_cfg
+
+    out = {}
+    for name, (yaml, model_dir) in inputs["experiments"].items():
+        cfg = load_cfg(yaml)
+        cfg.model_dir = model_dir
+        with Experiment(cfg, device="cpu") as exp:
+            out[name] = exp.train_baseline()
+    return out
+
+
+def draw_without_grads(inputs: dict, mesh) -> dict:
+    """The draw of `draw_grads` with the flow stored split over 'model',
+    inside `sharded.tensor_parallel(mesh)`: through the f32 sampler's route
+    without gradients (the eval's reverse-KL term, on
+    `cuda_sampler.packed_now`) twice, and under autograd; whether the
+    second draw without gradients reused the first one's pack."""
+    from mhentropy_tpu_torch.flows import cuda_sampler
+    from mhentropy_tpu_torch.parallel import sharded
+
+    _, net = build(inputs, train=True)
+    sharded.distribute(net, mesh, tp=True)
+    flow = net.q_z_giv_i
+    w, b = torch.from_numpy(inputs["draw_w"]), torch.from_numpy(inputs["draw_b"])
+    feat = torch.from_numpy(inputs["draw_feat"]) @ w.T + b
+    n = inputs["cfg"].n_train_hypotheses
+    noise = torch.from_numpy(inputs["noise"][0])
+    with sharded.tensor_parallel(mesh):
+        with torch.inference_mode():
+            first = cuda_sampler.sample_fused_diff(flow, feat, n, noise)
+            packed = cuda_sampler.packed_now(flow)
+            again = cuda_sampler.sample_fused_diff(flow, feat, n, noise)
+            reused = cuda_sampler.packed_now(flow) is packed
+        grad = [t.detach() for t in cuda_sampler.sample_fused_diff(flow, feat, n, noise)]
+    return {"no_grad": [t.clone() for t in first], "again": [t.clone() for t in again],
+            "grad": grad, "reused": reused}
+
+
 def case_tp_draw(inputs):
     """The f32 sampler's autograd route under tp = 2 (the kernel path of the
-    train step's draw on the card)."""
-    return draw_grads(inputs, _mesh(tp=2))
+    train step's draw on the card), and its draw without gradients."""
+    mesh = _mesh(tp=2)
+    return {"grads": draw_grads(inputs, mesh), "no_grad": draw_without_grads(inputs, mesh)}
 
 
 def case_eval(inputs):
     return {"hypo": eval_once(inputs, _mesh(hypo=2)), "data": eval_once(inputs, _mesh()),
-            "tp": eval_once(inputs, _mesh(tp=2), tp=True)}
+            "tp": eval_once(inputs, _mesh(tp=2), tp=True),
+            "hypo_quant": eval_once(inputs, _mesh(hypo=2), n_quant=inputs["n_quant"])}
 
 
 def export_blob(inputs: dict, world: int) -> bytes:
@@ -316,7 +476,21 @@ def case_multihost(inputs):
     gathered = [(mesh_lib.all_gather(torch.as_tensor(np.asarray(img)), dist.group.WORLD),
                  mesh_lib.all_gather(torch.as_tensor(np.asarray(t["valid"])), dist.group.WORLD))
                 for img, t in multihost.multihost_batches(data, inputs["mh_batch"])]
-    return {"batches": gathered, "rank_indices": multihost.host_shard_indices(inputs["mh_n"])}
+    # A rank's local batch (its rows in rank order) as its shard of the
+    # global one, on a data mesh and on a hypo mesh.
+    image, target = numpy_batch(4, 16, seed=6)
+    rows = slice(2 * dist.get_rank(), 2 * dist.get_rank() + 2)
+    local = (image[rows], {k: v[rows] for k, v in target.items()})
+    full = (torch.from_numpy(image), {k: torch.from_numpy(v) for k, v in target.items()})
+    same = {}
+    for name, mesh in (("data", mesh_lib.make_mesh()), ("hypo", mesh_lib.make_mesh(hypo=2))):
+        got = multihost.global_batch_from_local(mesh, local, global_batch_size=4)
+        want = mesh_lib.shard_batch(mesh, full)
+        eq = torch.equal(got[0], want[0]) and set(got[1]) == set(want[1]) and all(
+            torch.equal(got[1][k], v) for k, v in want[1].items())
+        same[name] = mesh_lib.all_gather(torch.tensor([eq]), dist.group.WORLD).tolist()
+    return {"batches": gathered, "rank_indices": multihost.host_shard_indices(inputs["mh_n"]),
+            "global_from_local": same}
 
 
 def case_pipeline(inputs):
