@@ -139,10 +139,16 @@ def load_reference_state(net: torch.nn.Module, state: dict) -> dict:
     "decoderPose": ...}, the port's own .pth too) or a bare state dict. The
     `mano_dec.*` buffers are dropped; any other key the net lacks, and any
     key of the net's that is missing, raises (strict=True)."""
-    sd = state.get("encoderRGB", state)
-    sd = {k: v for k, v in sd.items() if not k.startswith(REFERENCE_ONLY_PREFIXES)}
+    sd = reference_state(state)
     net.load_state_dict(sd, strict=True)
     return sd
+
+
+def reference_state(state: dict) -> dict:
+    """The MHEnt's state in a reference checkpoint (see
+    `load_reference_state`), its `mano_dec.*` buffers dropped."""
+    sd = state.get("encoderRGB", state)
+    return {k: v for k, v in sd.items() if not k.startswith(REFERENCE_ONLY_PREFIXES)}
 
 
 def rle_from_jax(params: dict, batch_stats: dict) -> dict:

@@ -731,6 +731,11 @@ class Experiment:
         self.step = 0
         self.losses = []  # every train step's loss, read on the host at log points
         self._pending_opt = None
+        # A load_model asked for before the train state exists, applied when
+        # it is built (JAX :670-680): the optimizer (_ensure_state) or the
+        # first eval_loop.
+        self._pending_restore = None
+        self._state_built = False
         self._lib = mhent if self.integrated else rle
         net = self._lib.init(self.model_cfg, seed=self.seed)
         if cfg.training.pth:
@@ -742,6 +747,8 @@ class Experiment:
             # Stored split from here on (tpu.fsdp's ZeRO-3, tp's blocks); the
             # RLE mode is data-parallel, as JAX's RLE steps.
             sharded.distribute(self.net, self.mesh, fsdp=self.fsdp, tp=self.tp)
+        if self.rank == 0:
+            self._dump_models_txt()
         self.gen = torch.Generator(device=self.device).manual_seed(self.seed)
         self.quant_spec = None
         self.qtree = None
@@ -761,20 +768,83 @@ class Experiment:
         return False
 
     @staticmethod
-    def _restore(net, path: str) -> dict:
+    def _restore(net, path: str, mod_names=None) -> dict:
         """Load a .pth in the reference's schema into net (an MHEnt:
         {"encoderRGB": state_dict, ...} or a bare state_dict; an RLE:
-        {"encoderRGB", "p_nf"}); returns the checkpoint dict."""
+        {"encoderRGB", "p_nf"}); returns the checkpoint dict. mod_names:
+        only the state of those top-level modules of net (e.g.
+        ["det_head"]) is loaded, each whole; a named module the checkpoint
+        lacks keeps its state, with a warning, as JAX's `_merge_params`
+        skips it."""
         if not path.endswith(".pth"):
             raise NotImplementedError(
                 f"{path!r}: orbax checkpoints are read by the JAX package only; convert this "
                 f"one with `python orbax_to_pth.py {path} out.pth` and pass the .pth")
         ckpt = torch.load(path, map_location="cpu")
-        if isinstance(net, rle.RLE):
-            rle.load_checkpoint(net, ckpt)
-        else:
-            convert.load_reference_state(net, ckpt)
+        if mod_names is None:
+            if isinstance(net, rle.RLE):
+                rle.load_checkpoint(net, ckpt)
+            else:
+                convert.load_reference_state(net, ckpt)
+            return ckpt
+        state = ({f"{m}.{k}": v for m in ("encoderRGB", "p_nf") for k, v in ckpt.get(m, {}).items()}
+                 if isinstance(net, rle.RLE) else convert.reference_state(ckpt))
+        state = {k: v for k, v in state.items() if k.split(".", 1)[0] in set(mod_names)}
+        found = {k.split(".", 1)[0] for k in state}
+        for name in sorted(set(mod_names) - found):
+            logging.getLogger(__name__).warning(f"{path}: no module {name!r}; keeping its state")
+        missing, unexpected = net.load_state_dict(state, strict=False)
+        missing = [k for k in missing if k.split(".", 1)[0] in found]
+        if missing or unexpected:
+            raise RuntimeError(f"{path}: modules {sorted(found)} do not match the net: missing "
+                               f"{missing[:5]}, unexpected {unexpected[:5]}")
         return ckpt
+
+    def load_model(self, path: str, mod_names=None) -> None:
+        """Restore a .pth (JAX's `load_model`): the whole net, or with
+        mod_names only those top-level modules (the port's names:
+        feat_extractor, q_z_giv_i, det_head; encoderRGB, p_nf in the RLE
+        mode). Weights and buffers only, not the optimizer or the step. Asked
+        for before the train state exists (no `_ensure_state` or eval_loop
+        yet), it is queued and applied when that state is built, as in JAX.
+        A net stored split loads through its layout's hook (each rank its
+        block)."""
+        if not self._state_built:
+            self._pending_restore = (path, mod_names)
+            self.log.info(f"queued restore of {path} until state init")
+            return
+        path = os.path.abspath(path)
+        self._restore(self.net, path, mod_names)
+        self.net = self._lib.prepare(self.net, self.device, masters=self.masters)
+        self.log.info(f"load torch model from {path}")
+
+    def _apply_pending_restore(self) -> None:
+        self._state_built = True
+        if self._pending_restore is not None:
+            pending, self._pending_restore = self._pending_restore, None
+            self.load_model(*pending)
+
+    def _dump_models_txt(self) -> None:
+        """model_dir/models.txt as JAX writes it (:764-783): the model
+        config, each top-level module's parameter count, the total and the
+        BN statistics' entries. Counts are of the whole tensors (a split
+        parameter by its whole shape); the RealNVP coupling masks count as
+        parameters, as in JAX's parameter tree."""
+        def count(module) -> int:
+            n = sum(math.prod(pc.full) if (pc := sharded.piece(p)) is not None else p.numel()
+                    for p in module.parameters())
+            return n + sum(b.numel() for k, b in module.named_buffers()
+                           if k.rsplit(".", 1)[-1] == "mask")
+
+        lines = [repr(self.model_cfg), ""]
+        for name, sub in self.net.named_children():
+            lines.append(f"{name}: {count(sub):,} params")
+        lines.append(f"total: {count(self.net):,} params")
+        stats = sum(b.numel() for k, b in self.net.named_buffers()
+                    if k.endswith(("running_mean", "running_var")))
+        lines.append(f"batch_stats: {stats:,} entries")
+        with open(os.path.join(self.cfg.model_dir, "models.txt"), "w") as fp:
+            fp.write("\n".join(lines) + "\n")
 
     def _draws(self, target: dict, bs: int):
         """One step's noise: the reverse-KL draw's (n_train_hypotheses * B,
@@ -873,6 +943,7 @@ class Experiment:
                                 generator=self.gen, mesh=self.mesh, tp=self.tp, pipe=self.pp)
                 if self.integrated else make_rle_train_step(self.net, self.optimizer,
                                                             mesh=self.mesh))
+        self._apply_pending_restore()
 
     def _load_optimizer(self, state: dict) -> None:
         """A .pth's optimizer: the port's own state_dict, or Adam moments by
@@ -992,13 +1063,14 @@ class Experiment:
 
     def eval(self, name: str | None = None):
         """Evaluate checkpoint `name` (a reference .pth), or the weights at
-        hand when None (training.pth was restored at construction)."""
-        if name and name != self.cfg.training.pth:
+        hand when None (training.pth was restored at construction). The
+        named checkpoint goes through `load_model`, so it replaces a restore
+        still queued, as in JAX: the metrics are those of `name`."""
+        if name:
             if not os.path.isfile(os.path.abspath(name)):
                 raise FileNotFoundError(f"eval(name={name!r}): no checkpoint at "
                                         f"{os.path.abspath(name)}")
-            self._restore(self.net, name)
-            self.net = self._lib.prepare(self.net, self.device, masters=self.masters)
+            self.load_model(name)
         _, eval_data = self.make_datasets(which=("eval",))
         return self.eval_loop(eval_data)
 
@@ -1022,6 +1094,7 @@ class Experiment:
         AverageMeters take them, printed as its summary line. With
         tpu.quantize_encoder the int8 qtree is calibrated on the first batch
         (the sampler at this eval's temp)."""
+        self._apply_pending_restore()
         self.net.eval()
         if self.masters:
             self._lib.refresh_kernel_weights(self.net)

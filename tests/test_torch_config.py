@@ -1,5 +1,11 @@
-"""The port's reading of `network.enc_type` and its eval summary, against the
-JAX package's.
+"""The port's config loader, its reading of `network.enc_type` and its eval
+summary, against the JAX package's.
+
+The loader keeps JAX's whole schema and merge rules: every shipped YAML
+loads to JAX's values on every key of the schema, and an overlay that the
+JAX loader refuses (an unknown key, a quoted bool, a string for a number,
+a non-integral float for an int, a group set to null) raises the same
+exception class in the port's.
 
 The JAX Experiment builds the integrated MHEnt only for enc_type "MHEnt"
 (train/engine.py:510) and otherwise its non-integrated RLE mode, which it
@@ -13,6 +19,7 @@ import os
 
 import pytest
 import torch
+import yaml
 
 from mhentropy_tpu.train import engine as jengine
 from mhentropy_tpu.utils import config as jconfig
@@ -20,6 +27,7 @@ from mhentropy_tpu.utils.logging import AverageMeter as JAverageMeter
 from mhentropy_tpu_torch.models import mhent, rle
 from mhentropy_tpu_torch.train import engine
 from mhentropy_tpu_torch.utils import logging as tlogging
+from mhentropy_tpu_torch.utils import config as tconfig
 from mhentropy_tpu_torch.utils.config import load_cfg
 from tests.torch_dist import few_torch_threads  # noqa: F401 (autouse)
 
@@ -28,6 +36,76 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _config(name):
     return os.path.join(REPO, "configs", name)
+
+
+def _schema_values(cfg) -> dict:
+    """Every key of the schema and every key an open group took, as plain
+    values; model_dir's random default (and the paths under it) by its
+    pattern."""
+    out = yaml.safe_load(cfg.dump())
+    for key in ("model_dir", "pretrain_model", "final_model"):
+        out[key] = out[key].replace(cfg.model_dir, "<model_dir>/") \
+            if cfg.model_dir.startswith("./model/") else out[key]
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(f for f in os.listdir(os.path.join(REPO, "configs"))
+                                        if f.endswith(".yaml")))
+def test_shipped_yaml_loads_to_jax_values_on_every_key(name):
+    path = _config(name)
+    ours, theirs = load_cfg(path), jconfig.update_cfg(path)
+    assert _schema_values(ours) == _schema_values(theirs)
+    assert list(ours) == list(theirs)
+    for group in tconfig.OPEN_GROUPS:
+        assert list(ours[group]) == list(theirs[group]), group
+
+
+BAD_OVERLAYS = {
+    "quoted_bool": "tpu: {fsdp: 'false'}\n",
+    "unknown_group": "trainng: {lr: 1.0}\n",
+    "unknown_dataset_key": "dataset: {image_sizes: [64, 64]}\n",
+    "string_for_float": "training: {lr: 1e-3}\n",
+    "fractional_int": "tpu: {tp: 2.5}\n",
+    "fractional_int_default": "info_interval: 0.5\n",
+    "null_group": "tpu:\n",
+    "null_network": "network: null\n",
+    "string_for_int": "training: {batch_size: '64'}\n",
+    "bool_for_int": "tpu: {mesh_hypo: true}\n",
+    "mode_string_for_bool": "tpu: {fused_train_bn: full}\n",
+    "list_for_str": "network: {backbone: [resnet50]}\n",
+}
+
+
+@pytest.mark.parametrize("name", sorted(BAD_OVERLAYS))
+def test_bad_overlay_raises_as_jax(name, tmp_path):
+    """The port refuses what the JAX loader refuses, with its exception
+    class (KeyError for a key outside the schema, TypeError for a value of
+    another type than the default's)."""
+    path = tmp_path / f"{name}.yaml"
+    path.write_text(BAD_OVERLAYS[name])
+    with pytest.raises((KeyError, TypeError)) as theirs:
+        jconfig.update_cfg(str(path))
+    with pytest.raises(theirs.type):
+        load_cfg(str(path))
+
+
+GOOD_OVERLAYS = {
+    "int_to_float": ("network: {b_2d: 1}\n", ("network", "b_2d"), 1.0),
+    "integral_float_to_int": ("tpu: {tp: 2.0}\n", ("tpu", "tp"), 2),
+    "open_group_new_key": ("training: {my_key: 3}\n", ("training", "my_key"), 3),
+    "none_default_takes_any": ("training: {seed: 7}\n", ("training", "seed"), 7),
+    "null_value": ("tpu: {data_dir: null}\n", ("tpu", "data_dir"), None),
+    "list": ("dataset: {image_size: [64, 64]}\n", ("dataset", "image_size"), [64, 64]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GOOD_OVERLAYS))
+def test_overlay_coerces_as_jax(name, tmp_path):
+    text, (group, key), want = GOOD_OVERLAYS[name]
+    path = tmp_path / f"{name}.yaml"
+    path.write_text(text)
+    ours, theirs = load_cfg(str(path))[group][key], jconfig.update_cfg(str(path))[group][key]
+    assert ours == theirs == want and type(ours) is type(theirs)
 
 
 def _without_enc_type(tmp_path):

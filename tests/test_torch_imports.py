@@ -92,12 +92,13 @@ def test_skeleton_tables_equal():
 
 
 def _read_keys(cfg):
-    """Every key the port reads; model_dir's default is random per load in
-    both packages, so a default one is compared by its pattern."""
+    """Every key of the schema; model_dir's default is random per load in
+    both packages (and pretrain_model / final_model under it), so a default
+    one is compared by its pattern."""
     out = {key: {k: getattr(getattr(cfg, key), k) for k in keys} if isinstance(keys, dict)
            else getattr(cfg, key) for key, keys in config.DEFAULTS.items()}
-    if re.fullmatch(r"\./model/[A-Za-z0-9]{6}/", out["model_dir"]):
-        out["model_dir"] = "./model/<random>/"
+    for key in ("model_dir", "pretrain_model", "final_model"):
+        out[key] = re.sub(r"^\./model/[A-Za-z0-9]{6}/", "./model/<random>/", out[key])
     return out
 
 
@@ -105,7 +106,7 @@ def test_config_defaults_equal():
     assert _read_keys(config.make_cfg()) == _read_keys(jconfig.get_cfg_defaults())
     assert config.make_cfg().network.enc_type == jconfig.get_cfg_defaults().network.enc_type \
         == "BasicEnc"
-    assert config.make_cfg({"model_dir": "/x/", "tpu": {"fused_train_bn": "full"}}).model_dir \
+    assert config.make_cfg({"model_dir": "/x/", "tpu": {"fused_train_bn": True}}).model_dir \
         == "/x/"
 
 

@@ -148,6 +148,15 @@ def setup(tmp_path_factory):
     yaml.write_text(EXPERIMENT_YAML.format(img=IMG))
     inputs.update(yaml=str(yaml), model_dir=str(tmp / "two_ranks"), mh_n=13, mh_batch=4,
                   n_quant=2)
+    # load_model on ZeRO-3 (its 1-process run beside): a .pth of another seed.
+    for where, par in (("two_ranks", ", fsdp: true"), ("one_rank", "")):
+        (tmp / f"load_{where}.yaml").write_text(EXPERIMENT_YAML.format(img=IMG).replace(
+            "tpu: {compute_dtype: float32}", "tpu: {compute_dtype: float32" + par + "}"))
+    pth = tmp / "load.pth"
+    torch.save({"encoderRGB": mhent.init(engine.build_model_config(
+        load_cfg(str(tmp / "load_one_rank.yaml"))), seed=5).state_dict()}, pth)
+    inputs["load"] = {"yaml": str(tmp / "load_two_ranks.yaml"), "pth": str(pth),
+                      "model_dir": str(tmp / "load_two") + "/"}
     gcfg = inputs["cfg"]._replace(regressor="glow", glow_hidden=16, glow_layers=2)
     inputs["glow"] = {"cfg": gcfg, "state": mhent.init(gcfg, seed=2).state_dict()}
     bn_cfg = glow.GlowConfig(features=45, hidden=32, num_layers=2, num_blocks=2,
@@ -172,7 +181,7 @@ def setup(tmp_path_factory):
     # cores.
     group = torch_dist.Group(2, ["dp", "dp_glow", "fsdp", "tp", "tp_draw", "eval", "export",
                                  "experiment", "multihost", "glow_tp", "glow_bn_tp", "rle",
-                                 "experiments"],
+                                 "experiments", "load_model"],
                              inputs)
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
@@ -262,6 +271,13 @@ def _port_side(group, inputs, tmp, yaml):
     cfg.model_dir = str(tmp / "one_rank")
     with Experiment(cfg, device="cpu") as exp:
         one["experiment"] = exp.train_baseline()
+    cfg = load_cfg(str(tmp / "load_one_rank.yaml"))
+    cfg.model_dir = str(tmp / "load_one") + "/"
+    with Experiment(cfg, device="cpu") as exp:
+        exp._ensure_state(4)
+        one["load_model"] = {
+            "state": {k: v.detach().clone() for k, v in exp.net.state_dict().items()},
+            "models_txt": open(tmp / "load_one" / "models.txt").read()}
     one["experiments"] = {}
     for name in LAYOUT_YAMLS:
         cfg = load_cfg(str(tmp / f"{name}_one_rank.yaml"))
@@ -534,6 +550,23 @@ def test_experiment_layouts_on_two_ranks_match_one_process(setup, name):
     assert set(got) == set(want) and want
     for k, v in want.items():
         assert abs(got[k] - v) <= 1e-3 * max(abs(v), 1.0), (k, got[k], v)
+
+
+def test_load_model_on_zero3_loads_the_named_modules(setup):
+    """load_model(mod_names=["det_head", "q_z_giv_i"]) on the 2-rank ZeRO-3
+    Experiment, queued before its state: through the layout's load hook
+    each rank stores its block of the .pth's modules; gathered, the named
+    modules are the .pth's and the backbone is the Experiment's own (its
+    1-process run's). Rank 0's models.txt counts the whole tensors: the
+    1-process run's file."""
+    inputs, _, results, one = setup
+    got, want = results["load_model"], one["load_model"]
+    ckpt = torch.load(inputs["load"]["pth"])["encoderRGB"]
+    assert got["split"] > 0 and set(got["state"]) == set(want["state"])
+    for k, v in got["state"].items():
+        ref = ckpt[k] if k.split(".", 1)[0] in ("det_head", "q_z_giv_i") else want["state"][k]
+        assert torch.equal(v, ref), k
+    assert got["models_txt"] == want["models_txt"]
 
 
 def test_sharded_export_matches_live_call(setup):

@@ -429,7 +429,7 @@ def test_run_cli_trains_and_its_checkpoint_loads_in_both_packages(tmp_path, caps
         "          num_steps: 1}\n"
         "training: {mode: baseline_VAE, batch_size: 4, epochs: 1, test_samples: 3, seed: 1,\n"
         "           n_train_hypotheses: 2, lr: 0.001, milestones: [5]}\n"
-        "tpu: {compute_dtype: float32, fused_train_bn: full}\n")
+        "tpu: {compute_dtype: float32, fused_train_bn: true}\n")
     summary = run.main(["--cfg", str(path), "--device", "cpu"])
     assert np.isfinite(summary["eucLoss_3d_rgb_sample"])
     log = capsys.readouterr().out
@@ -442,7 +442,7 @@ def test_run_cli_trains_and_its_checkpoint_loads_in_both_packages(tmp_path, caps
     from mhentropy_tpu_torch.utils.config import load_cfg
     cfg = load_cfg(str(path))
     exp_cfg = engine.build_model_config(cfg)
-    assert exp_cfg.encoder.fused_train_bn == "full"
+    assert exp_cfg.encoder.fused_train_bn is True
     net = mhent.init(exp_cfg, seed=5)
     engine.Experiment._restore(net, str(ckpt_path))
     for k, v in net.state_dict().items():

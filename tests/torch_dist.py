@@ -465,6 +465,29 @@ def case_experiment(inputs):
     return {"summary": summary, "files": sorted(os.listdir(inputs["model_dir"]))}
 
 
+def case_load_model(inputs):
+    """The Experiment of inputs["load"]["yaml"] (ZeRO-3 over the group's
+    data ranks) with a .pth's det_head and q_z_giv_i restored through
+    `load_model`, asked for before the state and applied by
+    `_ensure_state`: its state in the 1-process layout, the count of
+    parameters it stores split, and its models.txt."""
+    from mhentropy_tpu_torch.parallel import sharded
+    from mhentropy_tpu_torch.train.engine import Experiment
+    from mhentropy_tpu_torch.utils.config import load_cfg
+
+    ld = inputs["load"]
+    cfg = load_cfg(ld["yaml"])
+    cfg.model_dir = ld["model_dir"]
+    with Experiment(cfg, device="cpu") as exp:
+        exp.load_model(ld["pth"], mod_names=["det_head", "q_z_giv_i"])
+        exp._ensure_state(4)
+        split = sum(sharded.piece(p) is not None for p in exp.net.parameters())
+        state = {k: v.detach().clone() for k, v in exp.net.state_dict().items()}
+    dist.barrier()
+    with open(os.path.join(ld["model_dir"], "models.txt")) as f:
+        return {"state": state, "split": split, "models_txt": f.read()}
+
+
 def case_multihost(inputs):
     from mhentropy_tpu_torch.data import synthetic
     from mhentropy_tpu_torch.core import mano
